@@ -1,0 +1,6 @@
+"""Model scenes (the flagship bench configuration)."""
+from fyrox_tpu_torch.models.character import (build_character_scene,
+                                              build_flagship,
+                                              build_pile_scene)
+
+__all__ = ["build_flagship", "build_character_scene", "build_pile_scene"]

@@ -1,0 +1,143 @@
+"""Flagship scene: animated skinned character + rigid-body pile + camera
+(the bench configuration: 100 bones / 50k vertices / 1000 bodies).
+
+Host-side builders, the port's copies of ``fyrox_tpu.models.character``;
+the same numpy seeds give the same templates (a CPU test holds them
+equal). The port runs the slab broadphase only, so the pile needs at
+least 192 bodies.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from fyrox_tpu_torch.animation import (AnimationSetBuilder, MachineBuilder,
+                                       SkinTemplate)
+from fyrox_tpu_torch.engine import Engine
+from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, BodyType,
+                                     PhysicsBuilder)
+from fyrox_tpu_torch.scene import NodeType, SceneBuilder
+from fyrox_tpu_torch.scene import graph as graph_mod
+from fyrox_tpu_torch.scene import init_state
+
+__all__ = ["build_flagship", "build_character_scene", "build_pile_scene"]
+
+# slab windows sized from the measured demand of the settled 1k pile
+SLAB_WINDOW = (12, 8, 10)
+SLAB_ACTIVE = 16
+SLAB_WALK = 48
+
+
+def _linear_keys(times, values):
+    return [dict(time=float(t), value=float(v)) for t, v in zip(times, values)]
+
+
+def build_character_scene(n_bones=100, n_verts=50_000, seed=0,
+                          with_machine=True):
+    """Bone-chain character with walk/run clips on an ABSM and a
+    dense-weight skin. Returns (builder, aset, machine, bones, skin)."""
+    rng = np.random.default_rng(seed)
+    sb = SceneBuilder()
+    root = sb.add_pivot("character")
+    bones = []
+    prev = root
+    for i in range(n_bones):
+        # branch every 10 bones, like limbs off a spine
+        parent = prev if i % 10 else (bones[max(0, i - 10)] if bones
+                                      else root)
+        idx = sb.add_pivot(f"bone{i}", parent=parent,
+                           position=(0.15, 0.0, 0.0))
+        bones.append(idx)
+        prev = idx
+
+    ab = AnimationSetBuilder()
+    walk = ab.add_clip("walk", length=1.0, looping=True)
+    run = ab.add_clip("run", length=0.6, looping=True)
+    for k, bidx in enumerate(bones):
+        if k % 2:
+            continue
+        phase = (k / len(bones)) * 2 * np.pi
+        amp_w, amp_r = 0.35, 0.6
+        times = [0.0, 0.25, 0.5, 0.75, 1.0]
+        vals_w = [amp_w * np.sin(phase + 2 * np.pi * t) for t in times]
+        ab.add_rotation_track(walk, bidx, [
+            _linear_keys(times, [0] * 5), _linear_keys(times, [0] * 5),
+            _linear_keys(times, vals_w)])
+        times_r = [0.0, 0.15, 0.3, 0.45, 0.6]
+        vals_r = [amp_r * np.sin(phase + 2 * np.pi * t / 0.6)
+                  for t in times_r]
+        ab.add_rotation_track(run, bidx, [
+            _linear_keys(times_r, [0] * 5), _linear_keys(times_r, [0] * 5),
+            _linear_keys(times_r, vals_r)])
+    aset = ab.build()
+
+    mt = None
+    if with_machine:
+        mb = MachineBuilder()
+        p_run = mb.add_parameter("run")
+        s_walk = mb.add_state("walk", clip=walk)
+        s_run = mb.add_state("run", clip=run)
+        mb.set_entry_state(s_walk)
+        mb.add_transition(s_walk, s_run, p_run, duration=0.3)
+        mb.add_transition(s_run, s_walk, p_run, duration=0.3, invert=True)
+        mt = mb.build()
+
+    verts = rng.uniform(-0.2, 0.2, (n_verts, 3)).astype(np.float32)
+    verts[:, 0] += rng.uniform(0, 0.15 * n_bones, n_verts).astype(np.float32)
+    nearest = np.clip((verts[:, 0] / 0.15).astype(np.int32), 0, n_bones - 1)
+    idx4 = np.stack([np.clip(nearest + d, 0, n_bones - 1) for d in range(4)],
+                    1)
+    w4 = rng.uniform(0.1, 1.0, (n_verts, 4)).astype(np.float32)
+    w4 /= w4.sum(-1, keepdims=True)
+    return sb, aset, mt, bones, (verts, idx4.astype(np.int32), w4)
+
+
+def build_pile_scene(sb: SceneBuilder, n_bodies=64, seed=1):
+    """Rigid-body pile (balls and boxes) above a ground plane."""
+    rng = np.random.default_rng(seed)
+    pb = PhysicsBuilder()
+    ground_node = sb.add_pivot("ground")
+    gb = pb.add_body(node=ground_node, body_type=BodyType.STATIC)
+    pb.add_collider(gb, HALFSPACE, [], friction=0.6)
+    body_nodes = []
+    grid = max(int(np.ceil(n_bodies ** (1.0 / 3.0))), 1)
+    for i in range(n_bodies):
+        gx, gy, gz = i % grid, (i // grid) % grid, i // (grid * grid)
+        pos = ((gx - grid / 2) * 0.7 + rng.uniform(-0.05, 0.05),
+               0.6 + gy * 0.7,
+               (gz - grid / 2) * 0.7 + rng.uniform(-0.05, 0.05))
+        node = sb.add_node(f"body{i}", node_type=NodeType.RIGID_BODY,
+                           position=pos,
+                           bbox=(np.full(3, -0.3), np.full(3, 0.3)))
+        bi = pb.add_body(node=node, position=pos)
+        if i % 2:
+            pb.add_collider(bi, BALL, [0.25], friction=0.5, restitution=0.1)
+        else:
+            pb.add_collider(bi, CUBOID, [0.22, 0.22, 0.22], friction=0.5)
+        body_nodes.append(node)
+    return pb, body_nodes
+
+
+def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0):
+    """Character + pile + camera. Returns (Engine, SkinTemplate)."""
+    if n_bodies < 192:
+        raise NotImplementedError(
+            "piles under 192 bodies use the dense broadphase, which the "
+            "torch port does not have")
+    sb, aset, mt, bones, (verts, idx4, w4) = build_character_scene(
+        n_bones=n_bones, n_verts=n_verts, seed=seed)
+    pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
+    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    template = sb.build()
+    pt = pb.build(broadphase="slab", slab_window=SLAB_WINDOW,
+                  slab_active=SLAB_ACTIVE, slab_walk=SLAB_WALK)
+    # inverse bind poses from the initial hierarchy
+    st = graph_mod.update_hierarchical_data(init_state(template, 1),
+                                            template)
+    bind = st.globals_[0].numpy()
+    inv_bind = np.linalg.inv(bind[np.asarray(bones)]).astype(np.float32)
+    skin = SkinTemplate(bones=np.asarray(bones, np.int32), inv_bind=inv_bind,
+                        vertices=verts, bone_indices=idx4, bone_weights=w4)
+    engine = Engine(template=template, physics=pt, animations=aset,
+                    machine=mt)
+    return engine, skin
+

@@ -1,0 +1,363 @@
+"""Slab broadphase: hash-grid walk into static per-collider candidate
+windows (``fyrox_tpu.physics.broadphase`` slab path, period 1).
+
+1. quantize each grid collider's fat-AABB min corner to coarse x/y cells
+   and a fine z grid, pack (x, y, z) into one int key and sort stably;
+2. each collider walks the 9 (dx, dy) neighbour columns over the exact
+   z-interval into a raw window of ``s_walk`` slots;
+3. survivors (distinct bodies, one dynamic, fat-AABB overlap) compact per
+   manifold-size class into ``s_class[c]`` slots, pairs whose tight
+   (rapier prediction-distance) AABBs overlap first;
+4. "big" colliders (halfspaces) get one static slot per class.
+
+Candidates are directed: (i, j) comes from i's window and (j, i) from j's.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch.physics import shapes as sh
+from fyrox_tpu_torch.physics.plane_ops import gather_rows
+
+__all__ = ["CLASS_NPTS", "KIND_POINTS", "pair_class_table", "SlabConfig",
+           "build_slab_config", "SlabCandidates", "slab_candidates",
+           "compact_slots"]
+
+_QBITS_XY = 9
+_QRANGE_XY = 1 << _QBITS_XY
+_QHALF_XY = _QRANGE_XY // 2
+_QBITS_Z = 13
+_QRANGE_Z = 1 << _QBITS_Z
+_QHALF_Z = _QRANGE_Z // 2
+_ZFINE = 8
+
+CLASS_NPTS = (1, 2, 4)
+
+# manifold points per canonical effective-kind pair
+KIND_POINTS = {
+    (sh.BALL, sh.BALL): 1, (sh.BALL, sh.CUBOID): 1, (sh.BALL, sh.CAPSULE): 1,
+    (sh.BALL, sh.HALFSPACE): 1, (sh.CUBOID, sh.CUBOID): 4,
+    (sh.CUBOID, sh.CAPSULE): 2, (sh.CUBOID, sh.HALFSPACE): 4,
+    (sh.CAPSULE, sh.CAPSULE): 1, (sh.CAPSULE, sh.HALFSPACE): 2,
+    (sh.BALL, sh.CONVEX): 1, (sh.CUBOID, sh.CONVEX): 4,
+    (sh.CAPSULE, sh.CONVEX): 2, (sh.HALFSPACE, sh.CONVEX): 4,
+    (sh.CONVEX, sh.CONVEX): 4,
+    (sh.BALL, sh.HEIGHTFIELD): 1, (sh.CAPSULE, sh.HEIGHTFIELD): 2,
+    (sh.CUBOID, sh.HEIGHTFIELD): 4, (sh.CONVEX, sh.HEIGHTFIELD): 4,
+    (sh.BALL, sh.TRIMESH): 1, (sh.CAPSULE, sh.TRIMESH): 2,
+    (sh.CUBOID, sh.TRIMESH): 4, (sh.CONVEX, sh.TRIMESH): 4,
+}
+
+
+def pair_class_table():
+    """[9,9] manifold-size class (0: 1 pt, 1: 2 pts, 2: 4 pts) per kind
+    pair; cylinder/cone mirror their capsule proxy."""
+    tab = np.zeros((sh.NUM_KINDS, sh.NUM_KINDS), np.int32)
+    npts_to_class = {1: 0, 2: 1, 4: 2}
+    for (ka, kb), npts in KIND_POINTS.items():
+        tab[ka, kb] = npts_to_class[npts]
+        tab[kb, ka] = npts_to_class[npts]
+    for t in (sh.CYLINDER, sh.CONE):
+        tab[t, :] = tab[sh.CAPSULE, :]
+        tab[:, t] = tab[:, sh.CAPSULE]
+        for u in (sh.CYLINDER, sh.CONE):
+            tab[t, u] = tab[sh.CAPSULE, sh.CAPSULE]
+    return tab
+
+
+def _eff_kind(t):
+    return sh.CAPSULE if t in (sh.CYLINDER, sh.CONE) else t
+
+
+@dataclass
+class SlabConfig:
+    """Static per-collider slot layout (host numpy)."""
+    grid_cols: np.ndarray      # [Cg] collider index in the grid
+    big_cols: np.ndarray       # [Nbig] unbounded static colliders
+    cell: float
+    s_class: Tuple[int, int, int]
+    kinds: np.ndarray          # [C] effective kind
+    cls_tab: np.ndarray = None
+    present: Tuple[bool, bool, bool] = (True, True, True)
+    sweep_cap: np.ndarray = None   # [C] max CCD sweep per collider
+    num_colliders: int = 0
+    num_bodies: int = 0
+    s_walk: int = 48
+    s_active: int = 16
+
+    def nslot(self, cls):
+        if not self.present[cls]:
+            return 0
+        return self.s_class[cls] + int(self.big_cols.size)
+
+
+def build_slab_config(col_shape, col_params, col_body, body_type,
+                      margin, window=(12, 6, 10), walk=48, big_factor=8.0,
+                      active_window=16, extent_hint=None):
+    """Host-side slab layout; None when no collider is grid-eligible."""
+    nc = int(col_shape.shape[0])
+    if nc == 0:
+        return None
+    bound = np.zeros(nc, np.float64)
+    for i in range(nc):
+        t = int(col_shape[i])
+        p = np.asarray(col_params[i], np.float64)
+        if t == sh.BALL:
+            bound[i] = p[0]
+        elif t == sh.CUBOID:
+            bound[i] = float(np.linalg.norm(p[:3]))
+        elif t == sh.CAPSULE:
+            bound[i] = float(np.linalg.norm([p[1], p[0] + p[1], p[1]]))
+        elif t == sh.HALFSPACE:
+            bound[i] = np.inf
+        else:
+            raise NotImplementedError(
+                f"shape {t} in the torch port's slab broadphase")
+    finite = np.isfinite(bound)
+    med = np.median(bound[finite]) if finite.any() else 1.0
+    big = ~finite | (bound > big_factor * max(med, 1e-6))
+    dyn = body_type[col_body] == 0
+    if np.any(big & dyn):
+        raise ValueError("dynamic colliders cannot be broadphase-big")
+    grid_cols = np.flatnonzero(~big).astype(np.int32)
+    big_cols = np.flatnonzero(big).astype(np.int32)
+    if grid_cols.size == 0:
+        return None
+    cell = float(2.0 * bound[grid_cols].max() + 2.0 * margin)
+    if extent_hint is not None:
+        addressable = (_QHALF_XY - 2) * cell
+        if float(extent_hint) > addressable:
+            warnings.warn(
+                f"slab broadphase: scene extent {float(extent_hint):.1f} "
+                f"exceeds the ±{addressable:.1f} addressable key range; "
+                "colliders beyond it alias into border cells")
+    kinds = np.asarray([_eff_kind(int(k)) for k in col_shape], np.int32)
+    nb = int(body_type.shape[0])
+    cls_tab = pair_class_table()
+    present = np.zeros(3, bool)
+    for ka in np.unique(kinds[grid_cols]):
+        for kb in np.unique(kinds):
+            present[cls_tab[ka, kb]] = True
+    if isinstance(window, int):
+        window = (window, window, window)
+    s_class = tuple(int(window[c]) if present[c] else 0 for c in range(3))
+    sweep_cap = np.maximum(
+        cell - 2.0 * (np.where(np.isfinite(bound), bound, 0.0) + margin),
+        0.0).astype(np.float32)
+    return SlabConfig(grid_cols=grid_cols, big_cols=big_cols, cell=cell,
+                      s_class=s_class, kinds=kinds, cls_tab=cls_tab,
+                      present=tuple(bool(p) for p in present),
+                      sweep_cap=sweep_cap, num_colliders=nc, num_bodies=nb,
+                      s_walk=int(walk), s_active=int(active_window))
+
+
+class SlabCandidates(NamedTuple):
+    """[W,K] slot tensors, K = Cg * nslot(c), collider-major."""
+    j_real: torch.Tensor    # partner collider (0 where ~valid)
+    body_j: torch.Tensor
+    valid: torch.Tensor
+    swap: torch.Tensor      # canonical order flips (kind_i, i) > (kind_j, j)
+    pid: torch.Tensor       # i*C + j warm-start identity, -1 invalid
+
+
+def _pack_xyz(qx, qy, qz):
+    """Coarse x/y cells + fine z cell → one non-negative int32 key."""
+    qxc = torch.clamp(qx + _QHALF_XY, 0, _QRANGE_XY - 1)
+    qyc = torch.clamp(qy + _QHALF_XY, 0, _QRANGE_XY - 1)
+    qzc = torch.clamp(qz + _QHALF_Z, 0, _QRANGE_Z - 1)
+    return ((qxc << (_QBITS_XY + _QBITS_Z)) | (qyc << _QBITS_Z)) | qzc
+
+
+def _floor_i32(x):
+    return torch.floor(x).to(torch.int32)
+
+
+def _statics(sc: SlabConfig, col_body, dyn_col):
+    """Per-config host tables, cached on the config."""
+    st = getattr(sc, "_torch_statics", None)
+    if st is None:
+        gc = sc.grid_cols
+        kind_i_g = sc.kinds[gc]
+        st = dict(
+            attr_static=np.stack([gc.astype(np.float32),
+                                  kind_i_g.astype(np.float32),
+                                  col_body[gc].astype(np.float32),
+                                  dyn_col[gc].astype(np.float32)], axis=1),
+            gidx=gc.astype(np.int64),
+            i_body_g=col_body[gc].astype(np.int32),
+            i_dyn_g=dyn_col[gc].astype(bool),
+            row_tab=sc.cls_tab[kind_i_g].astype(np.int64),  # [Cg,9]
+            big_cols=sc.big_cols.astype(np.int64),
+            body_big=col_body[sc.big_cols].astype(np.int32),
+            dyn_big=dyn_col[sc.big_cols].astype(bool),
+            kind_big=sc.kinds[sc.big_cols].astype(np.int32),
+            cls_big=sc.cls_tab[kind_i_g][:, sc.kinds[sc.big_cols]].astype(
+                np.int32),                                  # [Cg,Nbig]
+        )
+        for c in range(3):
+            i_static = np.repeat(gc, sc.nslot(c)).astype(np.int32)
+            st[f"i_static{c}"] = i_static
+            st[f"kind_i{c}"] = sc.kinds[i_static].astype(np.int32)
+        sc._torch_statics = st
+    return st
+
+
+def compact_slots(mask, first, values, s_out):
+    """Pack the True entries of mask [W,Cg,Sw] into s_out slots per row,
+    `first` entries ahead of the rest, each group in slot order. values:
+    list of [W,Cg,Sw] tensors → list of [W,Cg,s_out] (0 where unfilled).
+    Returns (packed values, count of True per row)."""
+    mf = mask.to(torch.int32)
+    tf = (first & mask).to(torch.int32)
+    sf = mf - tf
+    lpos_t = torch.cumsum(tf, dim=2) - tf
+    n_t = tf.sum(dim=2, keepdim=True)
+    lpos_s = n_t + torch.cumsum(sf, dim=2) - sf
+    lpos = torch.where(tf > 0, lpos_t, lpos_s)
+    keep = mask & (lpos < s_out)
+    dst = torch.where(keep, lpos, torch.full_like(lpos, s_out)).long()
+    w, cg = mask.shape[:2]
+    out = []
+    for v in values:
+        buf = torch.zeros((w, cg, s_out + 1), dtype=v.dtype, device=v.device)
+        buf.scatter_(2, dst, v)   # unfilled/overflow sources land in slot s_out
+        out.append(buf[..., :s_out])
+    return out, mf.sum(dim=2)
+
+
+def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
+                    tight_delta=None) -> List[SlabCandidates]:
+    """Hash-grid walk into the static slot layout, one SlabCandidates per
+    manifold class. amin/amax [W,C,3] fat AABBs. tight_delta: the fat
+    AABBs' surplus over the rapier-equivalent ones; pairs whose tight
+    AABBs overlap pack first."""
+    col_body = np.asarray(col_body)
+    dyn_col = np.asarray(dyn_col)
+    st = _statics(sc, col_body, dyn_col)
+    dev = amin.device
+    w = amin.shape[0]
+    cg = int(sc.grid_cols.size)
+    nbig = int(sc.big_cols.size)
+
+    aabb6 = torch.cat([amin, amax], dim=-1)                     # [W,C,6]
+    gaabb = aabb6[:, const(st["gidx"], dev)]                    # [W,Cg,6]
+    gmin, gmax = gaabb[..., :3], gaabb[..., 3:]
+    qx = _floor_i32(gmin[..., 0] / sc.cell)
+    qy = _floor_i32(gmin[..., 1] / sc.cell)
+    zfine = sc.cell / _ZFINE
+    qz = _floor_i32(gmin[..., 2] / zfine)
+    key = _pack_xyz(qx, qy, qz)                                 # [W,Cg]
+    order = torch.argsort(key, dim=1, stable=True)
+    skey = torch.gather(key, 1, order)
+
+    qz_lo = _floor_i32((gmin[..., 2] - sc.cell) / zfine)
+    qz_hi = _floor_i32(gmax[..., 2] / zfine)
+    q_lo, q_hi = [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            q_lo.append(_pack_xyz(qx + dx, qy + dy, qz_lo))
+            q_hi.append(_pack_xyz(qx + dx, qy + dy, qz_hi))
+    # #keys < q and #keys <= q: binary searches over the sorted keys
+    lo9 = torch.searchsorted(skey, torch.stack(q_lo, -1).reshape(w, -1)
+                             ).reshape(w, cg, 9)
+    hi9 = torch.searchsorted(skey, torch.stack(q_hi, -1).reshape(w, -1),
+                             right=True).reshape(w, cg, 9)
+    cnt9 = hi9 - lo9
+    pfx9 = torch.cumsum(cnt9, dim=-1)
+    pfx_ex = pfx9 - cnt9
+    total = pfx9[..., -1]
+
+    # ---- stage 1: walk the 9 ranges into a raw window of s_walk slots;
+    # slot m lies in range r with pfx_ex[r] <= m < pfx9[r] ----
+    s_walk = sc.s_walk
+    m = torch.arange(s_walk, device=dev).expand(w, cg, s_walk).contiguous()
+    r = torch.clamp(torch.searchsorted(pfx9.contiguous(), m, right=True),
+                    max=8)
+    pos = torch.gather(lo9, 2, r) + m - torch.gather(pfx_ex, 2, r)
+    in_window = m < torch.clamp(total, max=s_walk)[..., None]
+    pos = torch.clamp(torch.where(in_window, pos, torch.zeros_like(pos)),
+                      0, max(cg - 1, 0))
+
+    # per-grid-collider rows [j_real, kind, body, dyn, aabb6], exact in f32
+    attrs = torch.cat([const(st["attr_static"], dev).expand(w, cg, 4),
+                       gaabb], dim=-1)                          # [W,Cg,10]
+    sorted_a = gather_rows(attrs, order)
+    slot_a = gather_rows(sorted_a, pos.reshape(w, -1)).reshape(
+        w, cg, s_walk, 10)
+    jr_w = slot_a[..., 0].to(torch.int32)
+    kind_w = slot_a[..., 1].to(torch.int32)
+    body_w = slot_a[..., 2].to(torch.int32)
+    dyn_w = slot_a[..., 3] > 0.5
+    jmin_w, jmax_w = slot_a[..., 4:7], slot_a[..., 7:10]
+
+    gidx = const(st["gidx"], dev)[None, :, None]
+    i_body_g = const(st["i_body_g"], dev)[None, :, None]
+    i_dyn_g = const(st["i_dyn_g"], dev)[None, :, None]
+    imin = gaabb[..., None, :3]
+    imax = gaabb[..., None, 3:]
+    valid_w = (in_window & (jr_w != gidx) & (body_w != i_body_g)
+               & (i_dyn_g | dyn_w)
+               & torch.all((imin <= jmax_w) & (imax >= jmin_w), dim=-1))
+    if tight_delta is not None:
+        d2 = 2.0 * tight_delta
+        tight_w = valid_w & torch.all((imin <= jmax_w - d2)
+                                      & (imax >= jmin_w + d2), dim=-1)
+    else:
+        tight_w = valid_w
+
+    # manifold class of each walked slot: row per scanning collider,
+    # column by the partner's kind
+    row_tab = const(st["row_tab"], dev)                         # [Cg,9]
+    cls_w = torch.gather(row_tab[None].expand(w, cg, 9), 2,
+                         kind_w.long().clamp(0, 8)).to(torch.int32)
+
+    if nbig:
+        bidx = const(st["big_cols"], dev)
+        jr_b = bidx.to(torch.int32)[None, None].expand(w, cg, nbig)
+        body_b = const(st["body_big"], dev)[None, None].expand(w, cg, nbig)
+        bmin = aabb6[:, bidx, :3][:, None]
+        bmax = aabb6[:, bidx, 3:][:, None]
+        bvalid = ((body_b != i_body_g)
+                  & (i_dyn_g | const(st["dyn_big"], dev)[None, None])
+                  & torch.all((imin <= bmax) & (imax >= bmin), dim=-1))
+
+    out = []
+    for c in range(3):
+        nslot_c = sc.nslot(c)
+        if nslot_c == 0:
+            z = torch.zeros((w, 0), dtype=torch.int32, device=dev)
+            zb = torch.zeros((w, 0), dtype=torch.bool, device=dev)
+            out.append(SlabCandidates(z, z, zb, zb, z))
+            continue
+        s_c = sc.s_class[c]
+        in_c = cls_w == c
+        (j_real, kind_j, body_j), n_valid = compact_slots(
+            valid_w & in_c, tight_w & in_c, [jr_w, kind_w, body_w], s_c)
+        k_ar = torch.arange(s_c, device=dev)
+        cvalid = k_ar[None, None, :] < n_valid[..., None]
+        if nbig:
+            big_ok = bvalid & (const(st["cls_big"], dev)[None] == c)
+            j_real = torch.cat([j_real, jr_b], dim=2)
+            kind_j = torch.cat([kind_j, const(st["kind_big"], dev)[
+                None, None].expand(w, cg, nbig)], dim=2)
+            body_j = torch.cat([body_j, body_b], dim=2)
+            cvalid = torch.cat([cvalid, big_ok], dim=2)
+        k_slots = cg * nslot_c
+        j_real = j_real.reshape(w, k_slots)
+        kind_j = kind_j.reshape(w, k_slots)
+        body_j = body_j.reshape(w, k_slots)
+        valid = cvalid.reshape(w, k_slots)
+        i_static = const(st[f"i_static{c}"], dev)[None]
+        kind_i = const(st[f"kind_i{c}"], dev)[None]
+        swap = (kind_i > kind_j) | ((kind_i == kind_j) & (i_static > j_real))
+        pid = torch.where(valid, i_static * sc.num_colliders + j_real,
+                          torch.full_like(j_real, -1))
+        out.append(SlabCandidates(j_real=j_real, body_j=body_j, valid=valid,
+                                  swap=swap, pid=pid))
+    return out

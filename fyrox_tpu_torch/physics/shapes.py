@@ -1,0 +1,56 @@
+"""Collider shape tags and host-side mass properties (collider.rs:511).
+
+Param layout (params[6], unused slots zero):
+  BALL [radius]; CUBOID [hx, hy, hz]; CAPSULE [half_height, radius]
+  (axis = local +Y); HALFSPACE [] (normal = local +Y through the origin).
+The tags of the other shapes are kept so templates stay comparable; the
+port's slab step raises NotImplementedError on them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["BALL", "CUBOID", "CAPSULE", "CYLINDER", "CONE", "HALFSPACE",
+           "CONVEX", "HEIGHTFIELD", "TRIMESH", "SEGMENT", "TRIANGLE",
+           "NUM_KINDS", "mass_properties"]
+
+BALL, CUBOID, CAPSULE, CYLINDER, CONE, HALFSPACE = 0, 1, 2, 3, 4, 5
+CONVEX, HEIGHTFIELD, TRIMESH = 6, 7, 8
+NUM_KINDS = 9
+SEGMENT, TRIANGLE = 9, 10
+
+_HUGE = 1.0e9
+
+
+def mass_properties(shape_type: int, params: np.ndarray, density: float):
+    """(mass, local inertia [3,3]) of one primitive, parry's formulas."""
+    p = np.asarray(params, np.float64)
+    if shape_type == BALL:
+        r = p[0]
+        m = density * 4.0 / 3.0 * np.pi * r ** 3
+        i = 0.4 * m * r * r
+        return m, np.diag([i, i, i])
+    if shape_type == CUBOID:
+        hx, hy, hz = p[:3]
+        m = density * 8.0 * hx * hy * hz
+        ix = m / 3.0 * (hy * hy + hz * hz)
+        iy = m / 3.0 * (hx * hx + hz * hz)
+        iz = m / 3.0 * (hx * hx + hy * hy)
+        return m, np.diag([ix, iy, iz])
+    if shape_type == CAPSULE:
+        hh, r = p[0], p[1]
+        h = 2.0 * hh
+        m_cyl = density * np.pi * r * r * h
+        m_sph = density * 4.0 / 3.0 * np.pi * r ** 3
+        m = m_cyl + m_sph
+        i_cyl_y = 0.5 * m_cyl * r * r
+        i_cyl_x = m_cyl * (3.0 * r * r + h * h) / 12.0
+        i_sph = 0.4 * m_sph * r * r
+        d = hh + 3.0 * r / 8.0
+        i_sph_x = i_sph + m_sph * d * d
+        ix = i_cyl_x + i_sph_x
+        iy = i_cyl_y + i_sph
+        return m, np.diag([ix, iy, ix])
+    if shape_type == HALFSPACE:
+        return 0.0, np.zeros((3, 3))
+    raise NotImplementedError(f"shape type {shape_type} in the torch port")

@@ -1,0 +1,408 @@
+"""Slab physics step, staged path (``fyrox_tpu.physics.slab2`` with
+``FYROX_NO_FUSED_STEP=1``).
+
+    collider pose + swept fat AABBs → slab broadphase windows
+    → per-class plane narrowphase (partner rows through K4a plane_gather)
+    → per-collider compaction of active points to ``s_active`` slots,
+      rapier-tier points first
+    → warm-start matching by point identity
+    → the TGS-soft solve (K1, physics/tgs_kernel.py)
+    → axis locks, damping, warm carries.
+
+Every contact slot is directed (the twin slot of the partner's window
+carries the other half of the impulse), so the solver applies only the
+self half of each impulse and Newton's third law holds exactly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch.physics import broadphase as bp_mod
+from fyrox_tpu_torch.physics import np_planes
+from fyrox_tpu_torch.physics import shapes as sh
+from fyrox_tpu_torch.physics import tgs_kernel
+from fyrox_tpu_torch.physics.plane_ops import plane_gather
+from fyrox_tpu_torch.physics.planes import (norm3, q_to_rot9, qmul, qrotate,
+                                            scale3, splat, sub3, where3,
+                                            where_n)
+
+__all__ = ["step_slab2", "solver_inputs", "pack_solver_inputs"]
+
+DYNAMIC = 0
+
+
+class _Ctx:
+    """Static per-template host arrays for the step (cached on the
+    template)."""
+
+    def __init__(self, t):
+        sc = t.grid
+        if not isinstance(sc, bp_mod.SlabConfig):
+            raise NotImplementedError("the torch port steps slab templates "
+                                      "only (dense and grid broadphases "
+                                      "are not ported)")
+        if int(getattr(t, "broadphase_period", 1) or 1) != 1:
+            raise NotImplementedError("broadphase_period > 1")
+        if getattr(t, "joints", None) is not None:
+            raise NotImplementedError("joints")
+        if np.any(np.asarray(t.com_local)):
+            raise NotImplementedError("centre-of-mass offsets")
+        shapes_ok = (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE)
+        if not np.all(np.isin(np.asarray(t.col_shape), shapes_ok)):
+            raise NotImplementedError("convex hulls, cylinders/cones and "
+                                      "heightfield/trimesh scenery")
+        self.c, self.b = t.num_colliders, t.num_bodies
+        self.cg = int(sc.grid_cols.size)
+        self.s_active = int(sc.s_active)
+        col_body = np.asarray(t.col_body)
+        self.col_body = col_body
+        self.dyn_col = (np.asarray(t.body_type)[col_body] == DYNAMIC)
+        self.col_pos = np.asarray(t.col_pos, np.float32)
+        self.col_rot = np.asarray(t.col_rot, np.float32)
+        self.params = np.asarray(t.col_params, np.float32)
+        self.shape = np.asarray(t.col_shape)
+        self.fric = np.asarray(t.col_friction, np.float32)
+        self.rest = np.asarray(t.col_restitution, np.float32)
+        self.kinds = np.asarray(sc.kinds)
+        self.grid_cols = np.asarray(sc.grid_cols)
+        self.grid_body = col_body[self.grid_cols].astype(np.int32)
+        self.col_body64 = col_body.astype(np.int64)
+        self.grid_cols64 = self.grid_cols.astype(np.int64)
+        self.i_static = {c: np.repeat(self.grid_cols, sc.nslot(c))
+                         for c in range(3) if sc.nslot(c)}
+        # per-class i-side static rows: params6, friction, restitution
+        self.i_rows = {c: np.ascontiguousarray(np.concatenate(
+            [self.params[i].T, self.fric[i][None], self.rest[i][None]], 0))
+            for c, i in self.i_static.items()}
+        self.i_kind = {c: self.kinds[i].astype(np.int32)
+                       for c, i in self.i_static.items()}
+        self.col_pos_rows = np.ascontiguousarray(self.col_pos.T)   # [3,C]
+        self.col_rot_rows = np.ascontiguousarray(self.col_rot.T)   # [4,C]
+        self.param_rows = np.ascontiguousarray(self.params.T)      # [6,C]
+        uniq = set(int(k) for k in np.unique(self.kinds))
+        self.combos = {cls: [(ka, kb) for ka, kb in combos
+                             if ka in uniq and kb in uniq]
+                       for cls, combos in np_planes.CLASS_COMBOS_P.items()}
+        self.trivial_offsets = (not np.any(self.col_pos)
+                                and np.allclose(self.col_rot[:, :3], 0.0)
+                                and np.allclose(self.col_rot[:, 3], 1.0))
+        # j-side static gather rows: params6, friction, restitution, kind
+        self.j_static = np.concatenate(
+            [self.params.T, self.fric[None], self.rest[None],
+             self.kinds[None].astype(np.float32)], 0)          # [9,C]
+        self.inv_mass = np.asarray(t.inv_mass, np.float32)
+        self.inv_inertia = np.asarray(t.inv_inertia_local, np.float32)
+        self.ii_rows = np.ascontiguousarray(
+            self.inv_inertia.reshape(-1, 9).T)                 # [9,B]
+
+
+def _ctx(t) -> _Ctx:
+    if getattr(t, "_torch_slab2_ctx", None) is None:
+        t._torch_slab2_ctx = _Ctx(t)
+    return t._torch_slab2_ctx
+
+
+def _unstack(x):
+    return tuple(x.unbind(-1))
+
+
+def _collider_pose_planes(cx: _Ctx, pos_b, q_b, lv_b):
+    """Body planes [W,B] → collider world pose planes [W,C]:
+    (position v3, rotation quat4, linear velocity v3)."""
+    dev = pos_b[0].device
+    idx = const(cx.col_body64, dev)
+    bpos = tuple(p[:, idx] for p in pos_b)
+    bq = tuple(p[:, idx] for p in q_b)
+    lvc = tuple(p[:, idx] for p in lv_b)
+    if cx.trivial_offsets:
+        return bpos, bq, lvc
+    cq = tuple(r[None].expand_as(bq[0])
+               for r in const(cx.col_rot_rows, dev).unbind(0))
+    cp = tuple(r[None].expand_as(bpos[0])
+               for r in const(cx.col_pos_rows, dev).unbind(0))
+    wq = qmul(bq, cq)
+    cpos = tuple(a + b for a, b in zip(bpos, qrotate(bq, cp)))
+    return cpos, wq, lvc
+
+
+def _aabb_planes(cx: _Ctx, t, cpos, crot9, v_sweep, margin):
+    """Swept fat AABB planes [W,C] x 6 (amin3, amax3)."""
+    dev = cpos[0].device
+    sc = t.grid
+    shp = const(cx.shape, dev)[None]
+    p = [r[None] for r in const(cx.param_rows, dev).unbind(0)]
+    absm = [torch.abs(r) for r in crot9]
+
+    def rot_box(hx, hy, hz):
+        return (absm[0] * hx + absm[1] * hy + absm[2] * hz,
+                absm[3] * hx + absm[4] * hy + absm[5] * hz,
+                absm[6] * hx + absm[7] * hy + absm[8] * hz)
+
+    ball = (p[0], p[0], p[0])
+    box = rot_box(p[0], p[1], p[2])
+    cap = rot_box(p[1], p[0] + p[1], p[1])
+    huge = splat(sh._HUGE, cpos[0])
+    is_ball, is_box, is_cap = shp == sh.BALL, shp == sh.CUBOID, \
+        shp == sh.CAPSULE
+    he = []
+    for i in range(3):
+        h = torch.where(is_ball, ball[i], torch.where(
+            is_box, box[i], torch.where(is_cap, cap[i], huge)))
+        he.append(h + margin)
+    cap3 = const(sc.sweep_cap, dev)[None]
+    amin, amax = [], []
+    for i in range(3):
+        swc = torch.minimum(torch.maximum(v_sweep[i], -cap3), cap3)
+        amin.append(cpos[i] - he[i] + torch.clamp(swc, max=0.0))
+        amax.append(cpos[i] + he[i] + torch.clamp(swc, min=0.0))
+    # halfspace: the actual half-volume along its normal (rotation col 1)
+    is_hs = shp == sh.HALFSPACE
+    n_hs = (crot9[1], crot9[4], crot9[7])
+    for i in range(3):
+        amax[i] = torch.where(is_hs, cpos[i] + sh._HUGE * (1.0 - n_hs[i])
+                              + margin, amax[i])
+        amin[i] = torch.where(is_hs, cpos[i] - sh._HUGE * (1.0 + n_hs[i])
+                              - margin, amin[i])
+    return amin, amax
+
+
+class _Contacts(NamedTuple):
+    """Compacted per-point contact planes, all [W, Cg*s_active]."""
+    n: tuple
+    pt: tuple
+    depth: torch.Tensor
+    act: torch.Tensor      # f32 0/1
+    fric: torch.Tensor
+    rest: torch.Tensor
+    sigma: torch.Tensor    # +1 self == A
+    body_j: torch.Tensor   # int32 partner body
+    own: torch.Tensor      # manifold size of the point's pair
+    pid: torch.Tensor      # int32 point identity (pair*4 + point), -1 idle
+
+
+_F_NAMES = ("nx", "ny", "nz", "px", "py", "pz", "depth", "act", "fric",
+            "rest", "sigma", "own")
+_I_NAMES = ("body_j", "pid")
+
+
+def _gather_planes(planes, idx):
+    """List of [W,N] planes gathered at rows idx [W,K] → list of [W,K],
+    one K4a plane gather for the whole list."""
+    out = plane_gather(torch.stack(planes, 1).contiguous(),
+                       idx.to(torch.int32).contiguous())
+    return list(out.unbind(1))
+
+
+def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin):
+    """Per-class plane narrowphase → per-collider candidate point windows:
+    dicts name → [W,Cg,Wd] (float attributes, int attributes)."""
+    sc = t.grid
+    dev = cpos[0].device
+    w, cg = cpos[0].shape[0], cx.cg
+    j_static = const(cx.j_static, dev)                       # [9,C]
+    j_attr = (list(cpos) + list(cq)
+              + [r[None].expand(w, -1) for r in j_static.unbind(0)]
+              + list(v_sweep))                                # 19 × [W,C]
+    gidx = const(cx.grid_cols64, dev)
+    ig_all = [p[:, gidx] for p in list(cpos) + list(cq) + list(v_sweep)]
+    parts_f = {k: [] for k in _F_NAMES}
+    parts_i = {k: [] for k in _I_NAMES}
+
+    for cls in range(3):
+        cand = cands[cls]
+        kp_c = cand.j_real.shape[1]
+        if kp_c == 0:
+            continue
+        nslot_c = sc.nslot(cls)
+        npts = bp_mod.CLASS_NPTS[cls]
+        jg = _gather_planes(j_attr, cand.j_real)
+        j_pos, j_q, j_p6 = tuple(jg[0:3]), tuple(jg[3:7]), tuple(jg[7:13])
+        j_fric, j_rest = jg[13], jg[14]
+        kind_j = jg[15].to(torch.int32)
+        j_vs = tuple(jg[16:19])
+
+        def bcast(p):
+            return p[:, :, None].expand(w, cg, nslot_c).reshape(w, kp_c)
+
+        i_pos = tuple(bcast(p) for p in ig_all[0:3])
+        i_q = tuple(bcast(p) for p in ig_all[3:7])
+        i_vs = tuple(bcast(p) for p in ig_all[7:10])
+        i_rows = const(cx.i_rows[cls], dev)
+        i_p6 = tuple(r[None].expand(w, kp_c) for r in i_rows[0:6].unbind(0))
+        i_fric, i_rest = i_rows[6][None], i_rows[7][None]
+        kind_i = const(cx.i_kind[cls], dev)[None]
+
+        pred = margin + norm3(sub3(i_vs, j_vs))
+        sw = cand.swap
+        eff_a = torch.where(sw, kind_j, kind_i)
+        eff_b = torch.where(sw, kind_i, kind_j)
+        pos_a, pos_b = where3(sw, j_pos, i_pos), where3(sw, i_pos, j_pos)
+        q_a, q_b = where_n(sw, j_q, i_q), where_n(sw, i_q, j_q)
+        p6_a, p6_b = where_n(sw, j_p6, i_p6), where_n(sw, i_p6, j_p6)
+        m = np_planes.generate_class_planes(
+            cls, eff_a, eff_b, pos_a, q_to_rot9(q_a), p6_a, pos_b,
+            q_to_rot9(q_b), p6_b, pred, combos_present=cx.combos[cls])
+
+        fric_p = torch.sqrt(torch.clamp(i_fric * j_fric, min=0.0))
+        rest_p = torch.maximum(i_rest.expand_as(j_rest), j_rest)
+        sigma = torch.where(sw, -1.0, 1.0)
+        valid = cand.valid.to(torch.float32)
+
+        def rsh(p):
+            return p.expand(w, kp_c).reshape(w, cg, nslot_c)
+
+        for p_i in range(npts):
+            parts_f["nx"].append(rsh(m.normal[0]))
+            parts_f["ny"].append(rsh(m.normal[1]))
+            parts_f["nz"].append(rsh(m.normal[2]))
+            parts_f["px"].append(rsh(m.pts[p_i][0]))
+            parts_f["py"].append(rsh(m.pts[p_i][1]))
+            parts_f["pz"].append(rsh(m.pts[p_i][2]))
+            parts_f["depth"].append(rsh(m.depth[p_i]))
+            parts_f["act"].append(rsh(m.active[p_i] * valid))
+            parts_f["fric"].append(rsh(fric_p))
+            parts_f["rest"].append(rsh(rest_p))
+            parts_f["sigma"].append(rsh(sigma))
+            parts_f["own"].append(rsh(torch.full_like(valid, float(npts))))
+            parts_i["body_j"].append(rsh(cand.body_j))
+            parts_i["pid"].append(rsh(cand.pid * 4 + p_i))
+
+    attrs_f = {k: torch.cat(v, dim=2) for k, v in parts_f.items()}
+    attrs_i = {k: torch.cat(v, dim=2) for k, v in parts_i.items()}
+    return attrs_f, attrs_i
+
+
+def _compact(cx: _Ctx, attrs_f, attrs_i):
+    """Per-collider active-point compaction to s_active slots: the rapier
+    tier (points within the prediction distance, penetrating ones
+    included) packs first, then the speculative band, each in window
+    order; points past s_active drop."""
+    from fyrox_tpu_torch.physics.world import PREDICTION_DISTANCE
+    s = cx.s_active
+    act = attrs_f["act"] > 0.5
+    pen = act & (attrs_f["depth"] > -PREDICTION_DISTANCE)
+    names = _F_NAMES + _I_NAMES
+    vals = [attrs_f[k] for k in _F_NAMES] + [attrs_i[k] for k in _I_NAMES]
+    packed, n_valid = bp_mod.compact_slots(act, pen, vals, s)
+    w, cg = act.shape[:2]
+    cols = {k: v.reshape(w, cg * s) for k, v in zip(names, packed)}
+    k_ar = torch.arange(s, device=act.device)
+    actc = (k_ar[None, None, :] < torch.clamp(n_valid, max=s)[..., None]
+            ).to(torch.float32).reshape(w, cg * s)
+    return _Contacts(
+        n=(cols["nx"], cols["ny"], cols["nz"]),
+        pt=(cols["px"], cols["py"], cols["pz"]),
+        depth=cols["depth"], act=actc, fric=cols["fric"], rest=cols["rest"],
+        sigma=cols["sigma"], body_j=cols["body_j"],
+        own=torch.clamp(cols["own"], min=1.0),
+        pid=torch.where(actc > 0.5, cols["pid"],
+                        torch.full_like(cols["pid"], -1)))
+
+
+def _ii_world9(q, ii_rows):
+    """World inverse inertia planes R I⁻¹ Rᵀ: q 4 × [W,B], ii_rows [9,B]."""
+    r = q_to_rot9(q)
+    ii = [ii_rows[k][None] for k in range(9)]
+    tmp = [r[3 * i] * ii[j] + r[3 * i + 1] * ii[3 + j] + r[3 * i + 2] * ii[6 + j]
+           for i in range(3) for j in range(3)]
+    return tuple(tmp[3 * i] * r[3 * j] + tmp[3 * i + 1] * r[3 * j + 1]
+                 + tmp[3 * i + 2] * r[3 * j + 2]
+                 for i in range(3) for j in range(3))
+
+
+def pack_solver_inputs(cx: _Ctx, con: _Contacts, lam0, pos, q, lv, av,
+                       accel):
+    """Compacted contacts + body planes → the K1 layout
+    (con [W,15,S,Cg], body_j [W,S,Cg], body [W,26,B], col_body [Cg])."""
+    w = pos[0].shape[0]
+    cg, s = cx.cg, cx.s_active
+    dev = pos[0].device
+
+    def to_sc(p):
+        return p.reshape(w, cg, s).transpose(1, 2)
+
+    con_list = (list(con.n) + list(con.pt)
+                + [con.depth, con.fric, con.rest, con.act, con.own,
+                   con.sigma] + list(lam0))
+    con_planes = torch.stack([to_sc(p) for p in con_list], 1).contiguous()
+    body_j = to_sc(con.body_j).to(torch.int32).contiguous()
+    ii0 = _ii_world9(q, const(cx.ii_rows, dev))
+    imass = const(cx.inv_mass, dev)[None].expand(w, -1)
+    body = torch.stack(list(lv) + list(av) + list(pos) + list(q)
+                       + list(accel) + [imass] + list(ii0), 1).contiguous()
+    return con_planes, body_j, body, const(cx.grid_body, dev)
+
+
+def step_slab2(state, t, dt, accel, angvel):
+    """One staged slab step; returns the new PhysicsState."""
+    cx = _ctx(t)
+    w = state.position.shape[0]
+    packed, pid = solver_inputs(state, t, dt, accel, angvel)
+    body_out, lam = tgs_kernel.solve_tgs(
+        *packed, tgs_kernel.solver_params(t, dt))
+
+    def from_sc(x):
+        return x.transpose(1, 2).reshape(w, cx.cg * cx.s_active)
+
+    lams = tuple(from_sc(lam[:, i]) for i in range(3))
+    return _finish_step(state, t, dt, body_out, lams, pid)
+
+
+def solver_inputs(state, t, dt, accel, angvel):
+    """Everything of the step before the solve: pose, AABBs, broadphase,
+    narrowphase, compaction and warm-start matching. Returns the packed
+    K1 inputs (con, body_j, body, col_body) and the new point identities
+    [W, Cg*s_active]."""
+    from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
+                                               SPECULATIVE_MARGIN)
+    cx = _ctx(t)
+    sc = t.grid
+    pos_b = _unstack(state.position)
+    q_b = _unstack(state.rotation)
+    lv_b = _unstack(state.linvel)
+    av_b = _unstack(angvel)
+    acc_b = _unstack(accel)
+    margin = t.allowed_linear_error + SPECULATIVE_MARGIN
+
+    cpos, cq, lv_c = _collider_pose_planes(cx, pos_b, q_b, lv_b)
+    crot9 = q_to_rot9(cq)
+    v_sweep = scale3(lv_c, dt)
+    amin, amax = _aabb_planes(cx, t, cpos, crot9, v_sweep, margin)
+    cands = bp_mod.slab_candidates(
+        sc, cx.col_body, cx.dyn_col, torch.stack(amin, -1),
+        torch.stack(amax, -1),
+        tight_delta=SPECULATIVE_MARGIN - PREDICTION_DISTANCE)
+    attrs_f, attrs_i = _narrowphase_windows(cx, t, cands, cpos, cq, v_sweep,
+                                            margin)
+    con = _compact(cx, attrs_f, attrs_i)
+
+    # warm start: slots still holding the same contact point identity
+    same = (state.warm_pair == con.pid).to(torch.float32) * con.act
+    lam0 = (state.warm_n * same, state.warm_t1 * same, state.warm_t2 * same)
+    return (pack_solver_inputs(cx, con, lam0, pos_b, q_b, lv_b, av_b, acc_b),
+            con.pid)
+
+
+def _finish_step(state, t, dt, body_out, lams, pid_new):
+    """Step tail: locks/damping, warm-carry routing, state pack."""
+    from fyrox_tpu_torch.physics.world import (PhysicsState,
+                                               _apply_locks_damping)
+    bo = body_out.transpose(1, 2)                            # [W,B,13]
+    position, rotation, linvel, angvel = _apply_locks_damping(
+        state, t, dt, bo[..., 6:9], bo[..., 9:13], bo[..., 0:3],
+        bo[..., 3:6])
+    return PhysicsState(position=position.contiguous(),
+                        rotation=rotation.contiguous(),
+                        linvel=linvel.contiguous(),
+                        angvel=angvel.contiguous(),
+                        force=torch.zeros_like(state.force),
+                        torque=torch.zeros_like(state.torque),
+                        warm_n=lams[0].contiguous(),
+                        warm_t1=lams[1].contiguous(),
+                        warm_t2=lams[2].contiguous(),
+                        warm_pair=pid_new.contiguous(),
+                        bp_cache=state.bp_cache, bp_age=state.bp_age)

@@ -1,0 +1,331 @@
+"""Batched rigid-body world: template, state, builder and the step head
+(PhysicsWorld::update, fyrox-impl scene/graph/physics/mod.rs:1151).
+
+The port runs the slab pipeline only (``slab2.step_slab2``, the staged
+path): hash-grid broadphase → plane narrowphase → per-collider
+compaction → TGS-soft solve. Joints, centre-of-mass offsets, convex
+hulls, scenery, temporal broadphase reuse and the dense/grid broadphases
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch.core import quat
+from fyrox_tpu_torch.physics import shapes as sh
+
+__all__ = ["BodyType", "PhysicsTemplate", "PhysicsBuilder", "PhysicsState",
+           "init_physics_state", "step_physics", "SPECULATIVE_MARGIN",
+           "PREDICTION_DISTANCE"]
+
+DYNAMIC, STATIC, KINEMATIC = 0, 1, 2
+
+# speculative contact activation / fat-AABB margin (wider than rapier's
+# prediction distance by design: the TGS sep/h bias makes every activated
+# contact an approach limiter)
+SPECULATIVE_MARGIN = 0.05
+# rapier's IntegrationParameters::prediction_distance (physics/mod.rs:900)
+PREDICTION_DISTANCE = 0.002
+
+
+class BodyType:
+    DYNAMIC, STATIC, KINEMATIC = DYNAMIC, STATIC, KINEMATIC
+
+
+@dataclass
+class PhysicsTemplate:
+    body_node: np.ndarray          # [B] scene node (-1 standalone)
+    body_type: np.ndarray          # [B]
+    inv_mass: np.ndarray           # [B] f32 (0 for non-dynamic)
+    inv_inertia_local: np.ndarray  # [B,3,3]
+    com_local: np.ndarray          # [B,3]
+    lin_damping: np.ndarray        # [B]
+    ang_damping: np.ndarray        # [B]
+    gravity_scale: np.ndarray      # [B]
+    col_body: np.ndarray           # [C]
+    col_shape: np.ndarray          # [C]
+    col_params: np.ndarray         # [C,6]
+    col_pos: np.ndarray            # [C,3]
+    col_rot: np.ndarray            # [C,4]
+    col_friction: np.ndarray       # [C]
+    col_restitution: np.ndarray    # [C]
+    col_node: np.ndarray           # [C]
+    lin_lock: np.ndarray = None    # [B,3] 1 = free, 0 = locked
+    ang_lock: np.ndarray = None    # [B,3]
+    grid: object = None            # broadphase.SlabConfig
+    init_body_pos: np.ndarray = None
+    init_body_rot: np.ndarray = None
+    # solver config (reference defaults physics/mod.rs:892-908)
+    erp: float = 0.2
+    allowed_linear_error: float = 0.002
+    max_corrective_velocity: float = 10.0
+    restitution_threshold: float = 1.0
+    n_substeps: int = 4
+    n_pgs: int = 1
+    n_stabilization: int = 4
+    warmstart_coefficient: float = 1.0
+    mass_split_pow: float = 0.5
+    gravity: tuple = (0.0, -9.81, 0.0)
+    broadphase_period: int = 1
+
+    @property
+    def num_bodies(self):
+        return int(self.body_node.shape[0])
+
+    @property
+    def num_colliders(self):
+        return int(self.col_body.shape[0])
+
+
+class PhysicsState(NamedTuple):
+    """[W,B,...] rigid-body state plus the per-contact-slot warm-start
+    carries (accumulated impulses and the point identity that held each
+    slot), the layout of ``fyrox_tpu.physics.world.PhysicsState``."""
+    position: torch.Tensor     # [W,B,3]
+    rotation: torch.Tensor     # [W,B,4]
+    linvel: torch.Tensor       # [W,B,3]
+    angvel: torch.Tensor       # [W,B,3]
+    force: torch.Tensor        # [W,B,3]
+    torque: torch.Tensor       # [W,B,3]
+    warm_n: Optional[torch.Tensor] = None     # [W,Cg*s_active]
+    warm_t1: Optional[torch.Tensor] = None
+    warm_t2: Optional[torch.Tensor] = None
+    warm_pair: Optional[torch.Tensor] = None  # [W,Cg*s_active] int32
+    bp_cache: Optional[tuple] = None
+    bp_age: Optional[torch.Tensor] = None
+
+
+def _np_quat_mat(q):
+    x, y, z, w = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]],
+        np.float64)
+
+
+class PhysicsBuilder:
+    """Host-side construction of bodies + colliders → packed template."""
+
+    def __init__(self):
+        self._bodies = []
+        self._colliders = []
+
+    def add_body(self, node=-1, body_type=DYNAMIC, position=(0, 0, 0),
+                 rotation=(0, 0, 0, 1), lin_damping=0.0, ang_damping=0.0,
+                 gravity_scale=1.0, dim2=False,
+                 lock_translation=(1, 1, 1), lock_rotation=(1, 1, 1)) -> int:
+        if dim2:
+            lock_translation = (1, 1, 0)
+            lock_rotation = (0, 0, 1)
+        self._bodies.append(dict(
+            node=node, body_type=body_type,
+            position=np.asarray(position, np.float32),
+            rotation=np.asarray(rotation, np.float32),
+            lin_damping=lin_damping, ang_damping=ang_damping,
+            gravity_scale=gravity_scale,
+            lin_lock=np.asarray(lock_translation, np.float32),
+            ang_lock=np.asarray(lock_rotation, np.float32)))
+        return len(self._bodies) - 1
+
+    def add_joint(self, *args, **kw):
+        raise NotImplementedError("joints in the torch port")
+
+    def add_collider(self, body, shape, params=(), density=1.0,
+                     friction=0.5, restitution=0.0, offset=(0, 0, 0),
+                     offset_rot=(0, 0, 0, 1), node=-1) -> int:
+        if int(shape) not in (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE):
+            raise NotImplementedError(
+                f"collider shape {int(shape)} in the torch port (convex "
+                "hulls, cylinders/cones, segments, triangles and scenery "
+                "are not ported)")
+        p6 = np.zeros(6, np.float32)
+        p6[:len(params)] = params
+        self._colliders.append(dict(
+            body=body, shape=int(shape), params=p6, density=density,
+            friction=friction, restitution=restitution,
+            offset=np.asarray(offset, np.float32),
+            offset_rot=np.asarray(offset_rot, np.float32), node=node))
+        return len(self._colliders) - 1
+
+    def build(self, broadphase="slab", slab_window=(12, 8, 10),
+              slab_active=16, slab_walk=48, broadphase_period=1,
+              **solver_kw) -> PhysicsTemplate:
+        if broadphase != "slab":
+            raise NotImplementedError(
+                f"broadphase={broadphase!r}: the torch port has the slab "
+                "broadphase only")
+        if int(broadphase_period) != 1:
+            raise NotImplementedError("broadphase_period > 1 (temporal "
+                                      "broadphase reuse)")
+        nb = len(self._bodies)
+        nc = len(self._colliders)
+        inv_mass = np.zeros(nb, np.float32)
+        inv_inertia = np.zeros((nb, 3, 3), np.float32)
+        com = np.zeros((nb, 3), np.float32)
+        by_body = {}
+        for c in self._colliders:
+            by_body.setdefault(c["body"], []).append(c)
+        for bi, body in enumerate(self._bodies):
+            if body["body_type"] != DYNAMIC:
+                continue
+            props = [(sh.mass_properties(c["shape"], c["params"],
+                                         c["density"]), c)
+                     for c in by_body.get(bi, [])]
+            mass = sum(m for (m, _i), _c in props)
+            if mass <= 0.0:
+                inv_mass[bi] = 1.0
+                continue
+            centers = [np.asarray(c["offset"], np.float64) for _, c in props]
+            com[bi] = sum(m * ctr for ((m, _i), _c), ctr
+                          in zip(props, centers)) / mass
+            inertia = np.zeros((3, 3))
+            for ((m, i_local), c), ctr in zip(props, centers):
+                r = _np_quat_mat(c["offset_rot"])
+                d = ctr - com[bi]
+                inertia += (r @ i_local @ r.T
+                            + m * (np.dot(d, d) * np.eye(3) - np.outer(d, d)))
+            inv_mass[bi] = 1.0 / mass
+            inv_inertia[bi] = np.linalg.inv(inertia)
+        if np.any(com):
+            raise NotImplementedError("centre-of-mass offsets (off-centre "
+                                      "colliders) in the torch port")
+
+        body_type = np.asarray([b["body_type"] for b in self._bodies],
+                               np.int32)
+        col_body = np.asarray([c["body"] for c in self._colliders], np.int32)
+        col_shape = np.asarray([c["shape"] for c in self._colliders],
+                               np.int32)
+        col_params = (np.stack([c["params"] for c in self._colliders])
+                      if nc else np.zeros((0, 6), np.float32))
+        grid_cfg = None
+        if nc:
+            from fyrox_tpu_torch.physics.broadphase import build_slab_config
+            margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
+            extent = 0.0
+            if self._bodies:
+                extent = float(np.abs(np.stack(
+                    [b["position"] for b in self._bodies])).max())
+            grid_cfg = build_slab_config(
+                col_shape, col_params, col_body, body_type, margin=margin,
+                window=slab_window, active_window=slab_active,
+                walk=slab_walk, extent_hint=extent * 2.0)
+        if grid_cfg is None:
+            raise NotImplementedError("a scene with no grid colliders "
+                                      "(the dense broadphase)")
+
+        def stack(key, width, default):
+            return (np.stack([r[key] for r in self._colliders]) if nc
+                    else np.zeros((0, width), default))
+
+        return PhysicsTemplate(
+            body_node=np.asarray([b["node"] for b in self._bodies], np.int32),
+            body_type=body_type,
+            inv_mass=inv_mass,
+            inv_inertia_local=inv_inertia.astype(np.float32),
+            com_local=com.astype(np.float32),
+            lin_damping=np.asarray([b["lin_damping"] for b in self._bodies],
+                                   np.float32),
+            ang_damping=np.asarray([b["ang_damping"] for b in self._bodies],
+                                   np.float32),
+            gravity_scale=np.asarray([b["gravity_scale"]
+                                      for b in self._bodies], np.float32),
+            lin_lock=(np.stack([b["lin_lock"] for b in self._bodies])
+                      if nb else np.ones((0, 3), np.float32)),
+            ang_lock=(np.stack([b["ang_lock"] for b in self._bodies])
+                      if nb else np.ones((0, 3), np.float32)),
+            col_body=col_body,
+            col_shape=col_shape,
+            col_params=col_params,
+            col_pos=stack("offset", 3, np.float32),
+            col_rot=stack("offset_rot", 4, np.float32),
+            col_friction=np.asarray([c["friction"] for c in self._colliders],
+                                    np.float32),
+            col_restitution=np.asarray(
+                [c["restitution"] for c in self._colliders], np.float32),
+            col_node=np.asarray([c["node"] for c in self._colliders],
+                                np.int32),
+            init_body_pos=(np.stack([b["position"] for b in self._bodies])
+                           if nb else np.zeros((0, 3), np.float32)),
+            init_body_rot=(np.stack([b["rotation"] for b in self._bodies])
+                           if nb else np.zeros((0, 4), np.float32)),
+            grid=grid_cfg,
+            **solver_kw)
+
+    def initial_pose(self):
+        if not self._bodies:
+            return np.zeros((0, 3), np.float32), np.zeros((0, 4), np.float32)
+        return (np.stack([b["position"] for b in self._bodies]),
+                np.stack([b["rotation"] for b in self._bodies]))
+
+
+def init_physics_state(builder_or_pose, template: PhysicsTemplate,
+                       num_worlds: int, device="cpu") -> PhysicsState:
+    """Bodies at rest at the given poses; empty warm-start carries."""
+    if isinstance(builder_or_pose, PhysicsBuilder):
+        pos, rot = builder_or_pose.initial_pose()
+    else:
+        pos, rot = builder_or_pose
+    w, b = num_worlds, template.num_bodies
+    f32 = torch.float32
+    kk = int(template.grid.grid_cols.size) * int(template.grid.s_active)
+
+    def z(*shape, dtype=f32, fill=0):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    return PhysicsState(
+        position=torch.as_tensor(np.asarray(pos, np.float32), device=device
+                                 ).expand(w, b, 3).contiguous(),
+        rotation=torch.as_tensor(np.asarray(rot, np.float32), device=device
+                                 ).expand(w, b, 4).contiguous(),
+        linvel=z(w, b, 3), angvel=z(w, b, 3), force=z(w, b, 3),
+        torque=z(w, b, 3),
+        warm_n=z(w, kk), warm_t1=z(w, kk), warm_t2=z(w, kk),
+        warm_pair=z(w, kk, dtype=torch.int32, fill=-1))
+
+
+def step_physics(state: PhysicsState, t: PhysicsTemplate,
+                 dt) -> PhysicsState:
+    """One physics step: external accelerations, then the slab pipeline."""
+    from fyrox_tpu_torch.physics import slab2
+    accel, angvel = external_accelerations(state, t, dt)
+    return slab2.step_slab2(state, t, dt, accel, angvel)
+
+
+def external_accelerations(state: PhysicsState, t: PhysicsTemplate, dt):
+    """Gravity + user forces as accelerations, user torques applied to the
+    angular velocity once per step. Returns (accel [W,B,3], angvel
+    [W,B,3])."""
+    dev = state.position.device
+    dyn = (const(t.body_type, dev) == DYNAMIC)[None, :, None]
+    inv_mass = const(t.inv_mass, dev)[None].expand(state.position.shape[:2])
+    g = torch.tensor(t.gravity, dtype=torch.float32, device=dev)
+    gscale = const(t.gravity_scale, dev)[None, :, None]
+    accel = torch.where(dyn, g * gscale + state.force * inv_mass[..., None],
+                        torch.zeros_like(state.force))
+    rmat = quat.to_mat3(state.rotation)
+    ii_world = quat.sandwich_inv_inertia(rmat,
+                                         const(t.inv_inertia_local, dev))
+    angvel = state.angvel + dt * torch.where(
+        dyn, quat.mv(ii_world, state.torque), torch.zeros_like(state.torque))
+    return accel, angvel
+
+
+def _apply_locks_damping(state, t, dt, position, rotation, linvel, angvel):
+    """Axis locks (2D mode / locked DOFs), then rapier damping
+    v *= 1/(1 + dt*d)."""
+    dev = position.device
+    if t.lin_lock is not None:
+        keep = const(t.lin_lock, dev)[None]
+        linvel = linvel * keep
+        angvel = angvel * const(t.ang_lock, dev)[None]
+        position = position * keep + state.position * (1.0 - keep)
+    ld = const(t.lin_damping, dev)[None, :, None]
+    ad = const(t.ang_damping, dev)[None, :, None]
+    return (position, rotation, linvel / (1.0 + dt * ld),
+            angvel / (1.0 + dt * ad))

@@ -1,0 +1,166 @@
+"""Port parity: the port's host builders produce the JAX package's
+templates array for array; the port imports without JAX; its kernel
+loader fails loudly where the CUDA toolkit is absent."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from fyrox_tpu.models import build_flagship as jax_build_flagship
+from fyrox_tpu_torch import kernels
+from fyrox_tpu_torch.models import build_flagship as torch_build_flagship
+from fyrox_tpu_torch.physics import BALL, CUBOID, HALFSPACE, PhysicsBuilder
+from fyrox_tpu_torch.physics import plane_ops, tgs_kernel
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = dict(n_bones=10, n_verts=300, n_bodies=192)
+
+
+@pytest.fixture(scope="module")
+def flagships():
+    return (jax_build_flagship(**FLAGSHIP), torch_build_flagship(**FLAGSHIP))
+
+
+def _same(a, b, what):
+    if isinstance(a, (list, tuple)) and not isinstance(a, str):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+    elif a is None or b is None:
+        assert a is None and b is None, what
+    elif isinstance(a, (str, int, float, bool)):
+        assert a == b, what
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        assert x.shape == y.shape, (what, x.shape, y.shape)
+        np.testing.assert_array_equal(x, y, err_msg=what)
+
+
+SCENE_FIELDS = ("parent", "node_type", "names", "levels", "depth", "payload",
+                "init_position", "init_rotation", "init_scale",
+                "init_visibility", "init_enabled", "init_lifetime",
+                "init_pre_rotation", "init_post_rotation",
+                "init_rotation_offset", "init_rotation_pivot",
+                "init_scaling_offset", "init_scaling_pivot",
+                "local_bbox_min", "local_bbox_max")
+PHYS_FIELDS = ("body_node", "body_type", "inv_mass", "inv_inertia_local",
+               "com_local", "lin_damping", "ang_damping", "gravity_scale",
+               "col_body", "col_shape", "col_params", "col_pos", "col_rot",
+               "col_friction", "col_restitution", "col_node", "lin_lock",
+               "ang_lock", "init_body_pos", "init_body_rot", "erp",
+               "allowed_linear_error", "max_corrective_velocity",
+               "restitution_threshold", "n_substeps", "n_pgs",
+               "n_stabilization", "warmstart_coefficient", "mass_split_pow",
+               "gravity", "broadphase_period")
+# the JAX config's one-hot incidence matrices (inc_gc, inc_gb) feed MXU
+# gathers on the TPU; the port indexes instead and does not carry them
+SLAB_FIELDS = ("grid_cols", "big_cols", "cell", "s_class", "kinds", "cls_tab",
+               "present", "sweep_cap", "num_colliders", "num_bodies", "s_walk",
+               "s_active")
+ANIM_FIELDS = ("length", "speed", "looping", "names", "pos_curves",
+               "pos_node", "pos_anim", "rot_curves", "rot_node", "rot_anim",
+               "scl_curves", "scl_node", "scl_anim")
+MACHINE_FIELDS = ("state_anim", "state_names", "entry_state", "t_from",
+                  "t_to", "t_param", "t_invert", "t_duration", "param_names",
+                  "state_clips", "state_weights")
+
+
+@pytest.mark.parametrize("part,fields", [
+    ("template", SCENE_FIELDS), ("physics", PHYS_FIELDS),
+    ("slab", SLAB_FIELDS), ("animations", ANIM_FIELDS),
+    ("machine", MACHINE_FIELDS)])
+def test_flagship_templates_equal(flagships, part, fields):
+    (je, _), (te, _) = flagships
+
+    def get(e):
+        return e.physics.grid if part == "slab" else getattr(e, part)
+
+    for f in fields:
+        _same(getattr(get(je), f), getattr(get(te), f), f"{part}.{f}")
+    if part == "template":
+        _same(je.template.cameras, te.template.cameras, "cameras")
+
+
+def test_flagship_skin_equal(flagships):
+    (_, jskin), (_, tskin) = flagships
+    for f in ("bones", "vertices", "bone_indices", "bone_weights"):
+        _same(getattr(jskin, f), getattr(tskin, f), f"skin.{f}")
+    _same(jskin.dense_weights(), tskin.dense_weights(), "dense_weights")
+    # the inverse bind poses come from each package's own hierarchy pass
+    # and a float64 inverse: float32 rounding of the bind globals only
+    np.testing.assert_allclose(jskin.inv_bind, tskin.inv_bind, rtol=0,
+                               atol=1e-6)
+
+
+def test_port_imports_and_builds_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        sys.modules["fyrox_tpu"] = None
+        import fyrox_tpu_torch
+        from fyrox_tpu_torch import convert, engine, kernels
+        from fyrox_tpu_torch.models import build_flagship
+        e, skin = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+        st = e.init_state(2)
+        st = e.step(st)
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
+               "jaxlib", "fyrox_tpu")]
+        assert all(sys.modules[m] is None for m in bad), bad
+        print("ok", st.physics.position.shape)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ok torch.Size([2, 193, 3])" in out.stdout
+
+
+def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "_LIB", None)
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has the CUDA toolkit")
+    with pytest.raises(kernels.KernelBuildError, match="nvcc not found"):
+        kernels.library()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    plane_ops.reset_launches()
+    tgs_kernel.reset_launches()
+    e, _ = torch_build_flagship(**FLAGSHIP)
+    st = e.step(e.init_state(1))
+    assert torch.isfinite(st.physics.position).all()
+    assert plane_ops.launches() == 0 and tgs_kernel.launches() == 0
+
+
+@pytest.mark.parametrize("case", ["joint", "dense", "period", "com",
+                                  "shape"])
+def test_out_of_scope_features_raise(case):
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=1)
+    pb.add_collider(g, HALFSPACE, [])
+    for i in range(3):
+        b = pb.add_body(position=(i, 1.0, 0.0))
+        pb.add_collider(b, BALL if i % 2 else CUBOID, [0.2, 0.2, 0.2],
+                        offset=(0.1, 0, 0) if case == "com" else (0, 0, 0))
+    with pytest.raises(NotImplementedError):
+        if case == "joint":
+            pb.add_joint(0, 1, 2)
+        elif case == "dense":
+            pb.build(broadphase="dense")
+        elif case == "period":
+            pb.build(broadphase_period=2)
+        elif case == "shape":
+            pb.add_collider(g, 6, [])       # CONVEX
+        else:
+            pb.build()
