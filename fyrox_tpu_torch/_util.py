@@ -26,6 +26,19 @@ def const(arr, device, dtype=None) -> torch.Tensor:
     return t
 
 
+def resolve_device(device) -> torch.device:
+    """The device of an entry point: the card unless the caller asks for
+    another. Raises where the card is asked for and there is none; nothing
+    carries on on the CPU by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fyrox_tpu_torch runs on a CUDA card unless asked otherwise, and "
+            "torch.cuda.is_available() is False here; pass device=\"cpu\" "
+            "to run the plain PyTorch versions on the CPU")
+    return device
+
+
 def tile(a: np.ndarray, w: int, device, dtype=None) -> torch.Tensor:
     """Host array [...] → contiguous [W, ...] tensor on `device`."""
     t = torch.tensor(np.asarray(a), device=device)

@@ -12,7 +12,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.animation import pose as pose_mod
 
 __all__ = ["MachineTemplate", "MachineBuilder", "MachineState",
@@ -100,7 +100,8 @@ class MachineState(NamedTuple):
 
 
 def init_machine_state(mt: MachineTemplate, num_worlds: int,
-                       device="cpu") -> MachineState:
+                       device="cuda") -> MachineState:
+    device = resolve_device(device)
     e = torch.full((num_worlds,), mt.entry_state, dtype=torch.int32,
                    device=device)
     one = torch.ones((num_worlds,), dtype=torch.float32, device=device)

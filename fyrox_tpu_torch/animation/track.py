@@ -14,7 +14,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.core import curve as curve_mod
 from fyrox_tpu_torch.core import quat
 
@@ -98,8 +98,9 @@ class AnimationState(NamedTuple):
     enabled: torch.Tensor   # [W,A] bool
 
 
-def init_animation_state(aset: AnimationSet, num_worlds: int, device="cpu",
+def init_animation_state(aset: AnimationSet, num_worlds: int, device="cuda",
                          enabled=None) -> AnimationState:
+    device = resolve_device(device)
     a = aset.num_animations
     en = np.ones(a, bool) if enabled is None else np.asarray(enabled, bool)
     return AnimationState(

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fyrox_tpu_torch._util import resolve_device
 from fyrox_tpu_torch.animation.machine import MachineState, MachineTemplate
 from fyrox_tpu_torch.animation.skinning import SkinTemplate
 from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
@@ -139,7 +140,8 @@ def _tuple(src, cls, device):
     return cls(**{f: _t(getattr(src, f), device) for f in cls._fields})
 
 
-def physics_state(p, device="cpu") -> PhysicsState:
+def physics_state(p, device="cuda") -> PhysicsState:
+    device = resolve_device(device)
     if getattr(p, "bp_cache", None) is not None:
         raise NotImplementedError("temporal broadphase reuse state")
     return PhysicsState(**{f: _t(getattr(p, f), device)
@@ -147,8 +149,10 @@ def physics_state(p, device="cpu") -> PhysicsState:
                            if f not in ("bp_cache", "bp_age")})
 
 
-def engine_state(s, device="cpu") -> EngineState:
-    """A JAX-package EngineState with numpy leaves → the port's state."""
+def engine_state(s, device="cuda") -> EngineState:
+    """A JAX-package EngineState with numpy leaves → the port's state (on
+    the card unless `device` says otherwise)."""
+    device = resolve_device(device)
     if s.particles is not None or s.audio is not None:
         raise NotImplementedError("particles and audio")
     scene = WorldState(**{f: _t(getattr(s.scene, f), device)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch import disable_tf32
-from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.animation import machine as machine_mod
 from fyrox_tpu_torch.animation import player as player_mod
 from fyrox_tpu_torch.animation import track as track_mod
@@ -57,9 +57,11 @@ class Engine:
     machine: Optional[machine_mod.MachineTemplate] = None
     dt: float = DEFAULT_DT
 
-    def init_state(self, num_worlds: int, device="cpu",
+    def init_state(self, num_worlds: int, device="cuda",
                    body_pose=None) -> EngineState:
-        device = torch.device(device)
+        """Initial state of num_worlds worlds, on the card unless `device`
+        says otherwise (raises where there is no card)."""
+        device = resolve_device(device)
         if device.type == "cuda":
             disable_tf32()
         scene = init_state(self.template, num_worlds, device)
@@ -92,8 +94,9 @@ class Engine:
         return EngineState(scene=scene, physics=phys, animation=anim)
 
     def step(self, state: EngineState, machine_params=None,
-             dt: Optional[float] = None) -> EngineState:
-        """One engine tick. machine_params: [W,P] bool ABSM rules."""
+             dt: Optional[float] = None, fused=True) -> EngineState:
+        """One engine tick. machine_params: [W,P] bool ABSM rules.
+        fused=False keeps physics on the staged path."""
         dt = self.dt if dt is None else dt
         scene = state.scene
         anim = state.animation
@@ -126,7 +129,7 @@ class Engine:
         # ---- 3+4+5. physics, body → node sync, refresh ----
         phys = state.physics
         if phys is not None and self.physics is not None:
-            phys = phys_mod.step_physics(phys, self.physics, dt)
+            phys = phys_mod.step_physics(phys, self.physics, dt, fused=fused)
             scene = self._sync_bodies_to_nodes(scene, phys)
             scene = graph_mod.update_hierarchical_data(scene, self.template)
         return EngineState(scene=scene, physics=phys, animation=anim)

@@ -1,10 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<hash>/libfyrox_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -c -o _build/<hash>/<name>.o csrc/<name>.cu      (each file)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/<hash>/libfyrox_kernels.so _build/<hash>/*.o
+
+No ``--use_fast_math``: the fused-step kernels reproduce their plain
+versions' IEEE rounding (csrc/np_planes.cuh).
 
 The library is built at first use, from the sources in this package only,
 into ``fyrox_tpu_torch/_build/<hash of the sources and flags>/``. A missing
@@ -27,8 +33,8 @@ __all__ = ["library", "build_seconds", "KernelBuildError", "check"]
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
@@ -36,6 +42,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_tgs_solve": [_VP] * 9 + [_I] * 7 + [_F] * 10 + [_VP],
+    "fyrox_fused_bp": [_VP] * 13 + [_I] * 10 + [_F] * 5 + [_VP],
+    "fyrox_narrow_compact": [_VP] * 11 + [_I] * 7 + [_F] * 2 + [_VP],
 }
 
 _LIB = None
@@ -79,18 +87,7 @@ def library():
     out_dir = BUILD_ROOT / digest
     so = out_dir / "libfyrox_kernels.so"
     if not so.exists():
-        nvcc = _find_nvcc()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
+        _build(_find_nvcc(), srcs, out_dir, so)
     try:
         lib = ctypes.CDLL(str(so))
     except OSError as e:
@@ -102,6 +99,38 @@ def library():
     _LIB = lib
     _BUILD_SECONDS = time.perf_counter() - t0
     return _LIB
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out, err)
+    if failed is not None:
+        cmd, rc, out, err = failed
+        raise KernelBuildError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                               f"{out}\n{err}")
+
+
+def _build(nvcc, srcs, out_dir, so):
+    """One nvcc per source, all at once, then one link."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [tmp_dir / (src.stem + ".o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(srcs, objs)])
+        tmp_so = tmp_dir / so.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so),
+                   *map(str, objs)]])
+        os.replace(tmp_so, so)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
 def build_seconds():

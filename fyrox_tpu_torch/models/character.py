@@ -131,8 +131,8 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0):
     pt = pb.build(broadphase="slab", slab_window=SLAB_WINDOW,
                   slab_active=SLAB_ACTIVE, slab_walk=SLAB_WALK)
     # inverse bind poses from the initial hierarchy
-    st = graph_mod.update_hierarchical_data(init_state(template, 1),
-                                            template)
+    st = graph_mod.update_hierarchical_data(
+        init_state(template, 1, device="cpu"), template)
     bind = st.globals_[0].numpy()
     inv_bind = np.linalg.inv(bind[np.asarray(bones)]).astype(np.float32)
     skin = SkinTemplate(bones=np.asarray(bones, np.int32), inv_bind=inv_bind,

@@ -26,8 +26,8 @@ from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics.plane_ops import gather_rows
 
 __all__ = ["CLASS_NPTS", "KIND_POINTS", "pair_class_table", "SlabConfig",
-           "build_slab_config", "SlabCandidates", "slab_candidates",
-           "compact_slots"]
+           "build_slab_config", "SlabCandidates", "class_windows",
+           "slab_candidates", "compact_slots"]
 
 _QBITS_XY = 9
 _QRANGE_XY = 1 << _QBITS_XY
@@ -185,6 +185,10 @@ def _statics(sc: SlabConfig, col_body, dyn_col):
         gc = sc.grid_cols
         kind_i_g = sc.kinds[gc]
         st = dict(
+            # cell sizes as float32 device scalars: dividing by a tensor is
+            # IEEE division on both devices (PyTorch turns a division by a
+            # Python float on the card into a product with its reciprocal)
+            cell=np.float32(sc.cell), zfine=np.float32(sc.cell / _ZFINE),
             attr_static=np.stack([gc.astype(np.float32),
                                   kind_i_g.astype(np.float32),
                                   col_body[gc].astype(np.float32),
@@ -231,26 +235,27 @@ def compact_slots(mask, first, values, s_out):
     return out, mf.sum(dim=2)
 
 
-def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
-                    tight_delta=None) -> List[SlabCandidates]:
-    """Hash-grid walk into the static slot layout, one SlabCandidates per
-    manifold class. amin/amax [W,C,3] fat AABBs. tight_delta: the fat
-    AABBs' surplus over the rapier-equivalent ones; pairs whose tight
-    AABBs overlap pack first."""
+def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
+                  tight_delta=None, plain=False):
+    """Stages 1-3 for the grid colliders. amin/amax [W,C,3] fat AABBs.
+    Returns per manifold class c (None where absent) the compacted
+    partners (j_real, kind_j, body_j) [W,Cg,s_class[c]] (0 where unfilled)
+    with the count of valid pairs [W,Cg], and the full AABBs [W,C,6].
+    plain: gather rows in PyTorch even on the card (no K4a launches)."""
     col_body = np.asarray(col_body)
     dyn_col = np.asarray(dyn_col)
     st = _statics(sc, col_body, dyn_col)
     dev = amin.device
     w = amin.shape[0]
     cg = int(sc.grid_cols.size)
-    nbig = int(sc.big_cols.size)
 
     aabb6 = torch.cat([amin, amax], dim=-1)                     # [W,C,6]
     gaabb = aabb6[:, const(st["gidx"], dev)]                    # [W,Cg,6]
     gmin, gmax = gaabb[..., :3], gaabb[..., 3:]
-    qx = _floor_i32(gmin[..., 0] / sc.cell)
-    qy = _floor_i32(gmin[..., 1] / sc.cell)
-    zfine = sc.cell / _ZFINE
+    cell = const(st["cell"], dev)
+    zfine = const(st["zfine"], dev)
+    qx = _floor_i32(gmin[..., 0] / cell)
+    qy = _floor_i32(gmin[..., 1] / cell)
     qz = _floor_i32(gmin[..., 2] / zfine)
     key = _pack_xyz(qx, qy, qz)                                 # [W,Cg]
     order = torch.argsort(key, dim=1, stable=True)
@@ -287,8 +292,8 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
     # per-grid-collider rows [j_real, kind, body, dyn, aabb6], exact in f32
     attrs = torch.cat([const(st["attr_static"], dev).expand(w, cg, 4),
                        gaabb], dim=-1)                          # [W,Cg,10]
-    sorted_a = gather_rows(attrs, order)
-    slot_a = gather_rows(sorted_a, pos.reshape(w, -1)).reshape(
+    sorted_a = gather_rows(attrs, order, plain=plain)
+    slot_a = gather_rows(sorted_a, pos.reshape(w, -1), plain=plain).reshape(
         w, cg, s_walk, 10)
     jr_w = slot_a[..., 0].to(torch.int32)
     kind_w = slot_a[..., 1].to(torch.int32)
@@ -317,7 +322,36 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
     cls_w = torch.gather(row_tab[None].expand(w, cg, 9), 2,
                          kind_w.long().clamp(0, 8)).to(torch.int32)
 
+    out = []
+    for c in range(3):
+        if sc.nslot(c) == 0:
+            out.append(None)
+            continue
+        in_c = cls_w == c
+        out.append(compact_slots(valid_w & in_c, tight_w & in_c,
+                                 [jr_w, kind_w, body_w], sc.s_class[c]))
+    return out, aabb6
+
+
+def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
+                    tight_delta=None) -> List[SlabCandidates]:
+    """Hash-grid walk into the static slot layout, one SlabCandidates per
+    manifold class. amin/amax [W,C,3] fat AABBs. tight_delta: the fat
+    AABBs' surplus over the rapier-equivalent ones; pairs whose tight
+    AABBs overlap pack first."""
+    windows, aabb6 = class_windows(sc, col_body, dyn_col, amin, amax,
+                                   tight_delta)
+    st = _statics(sc, np.asarray(col_body), np.asarray(dyn_col))
+    dev = amin.device
+    w = amin.shape[0]
+    cg = int(sc.grid_cols.size)
+    nbig = int(sc.big_cols.size)
+
     if nbig:
+        gaabb = aabb6[:, const(st["gidx"], dev)]
+        imin, imax = gaabb[..., None, :3], gaabb[..., None, 3:]
+        i_body_g = const(st["i_body_g"], dev)[None, :, None]
+        i_dyn_g = const(st["i_dyn_g"], dev)[None, :, None]
         bidx = const(st["big_cols"], dev)
         jr_b = bidx.to(torch.int32)[None, None].expand(w, cg, nbig)
         body_b = const(st["body_big"], dev)[None, None].expand(w, cg, nbig)
@@ -336,9 +370,7 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
             out.append(SlabCandidates(z, z, zb, zb, z))
             continue
         s_c = sc.s_class[c]
-        in_c = cls_w == c
-        (j_real, kind_j, body_j), n_valid = compact_slots(
-            valid_w & in_c, tight_w & in_c, [jr_w, kind_w, body_w], s_c)
+        (j_real, kind_j, body_j), n_valid = windows[c]
         k_ar = torch.arange(s_c, device=dev)
         cvalid = k_ar[None, None, :] < n_valid[..., None]
         if nbig:

@@ -71,9 +71,11 @@ def plane_gather(planes, idx):
     return plane_gather_plain(planes, idx)
 
 
-def gather_rows(x, idx):
+def gather_rows(x, idx, plain=False):
     """x [W,B,D] gathered at rows idx [W,K] → [W,K,D]; out-of-range rows
-    read zero. Runs as a plane gather on the attribute-major layout."""
+    read zero. Runs as a plane gather on the attribute-major layout (its
+    plain version where `plain`, on either device)."""
     planes = x.transpose(1, 2).contiguous()                 # [W,D,B]
-    out = plane_gather(planes, idx.to(torch.int32).contiguous())
+    gather = plane_gather_plain if plain else plane_gather
+    out = gather(planes, idx.to(torch.int32).contiguous())
     return out.transpose(1, 2)

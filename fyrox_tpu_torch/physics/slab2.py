@@ -1,5 +1,9 @@
-"""Slab physics step, staged path (``fyrox_tpu.physics.slab2`` with
-``FYROX_NO_FUSED_STEP=1``).
+"""Slab physics step (``fyrox_tpu.physics.slab2.step_slab2``).
+
+Scenes in the fused scope take the fused route (physics/fused_step.py:
+K3, or K2 where a big collider is finite), as the JAX package does on its
+chip; ``fused=False`` keeps them on the staged path of this module (the
+JAX package's ``FYROX_NO_FUSED_STEP=1``):
 
     collider pose + swept fat AABBs → slab broadphase windows
     → per-class plane narrowphase (partner rows through K4a plane_gather)
@@ -25,12 +29,13 @@ from fyrox_tpu_torch.physics import broadphase as bp_mod
 from fyrox_tpu_torch.physics import np_planes
 from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics import tgs_kernel
-from fyrox_tpu_torch.physics.plane_ops import plane_gather
+from fyrox_tpu_torch.physics.plane_ops import plane_gather, plane_gather_plain
 from fyrox_tpu_torch.physics.planes import (norm3, q_to_rot9, qmul, qrotate,
                                             scale3, splat, sub3, where3,
                                             where_n)
 
-__all__ = ["step_slab2", "solver_inputs", "pack_solver_inputs"]
+__all__ = ["step_slab2", "solver_inputs", "pack_solver_inputs",
+           "pack_contacts", "pack_body_planes"]
 
 DYNAMIC = 0
 
@@ -189,17 +194,21 @@ _F_NAMES = ("nx", "ny", "nz", "px", "py", "pz", "depth", "act", "fric",
 _I_NAMES = ("body_j", "pid")
 
 
-def _gather_planes(planes, idx):
+def _gather_planes(planes, idx, plain=False):
     """List of [W,N] planes gathered at rows idx [W,K] → list of [W,K],
-    one K4a plane gather for the whole list."""
-    out = plane_gather(torch.stack(planes, 1).contiguous(),
-                       idx.to(torch.int32).contiguous())
+    one K4a plane gather for the whole list (its plain version where
+    `plain`)."""
+    gather = plane_gather_plain if plain else plane_gather
+    out = gather(torch.stack(planes, 1).contiguous(),
+                 idx.to(torch.int32).contiguous())
     return list(out.unbind(1))
 
 
-def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin):
+def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin,
+                         plain=False):
     """Per-class plane narrowphase → per-collider candidate point windows:
-    dicts name → [W,Cg,Wd] (float attributes, int attributes)."""
+    dicts name → [W,Cg,Wd] (float attributes, int attributes). Rows are
+    point-major within each class, classes in order."""
     sc = t.grid
     dev = cpos[0].device
     w, cg = cpos[0].shape[0], cx.cg
@@ -219,7 +228,7 @@ def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin):
             continue
         nslot_c = sc.nslot(cls)
         npts = bp_mod.CLASS_NPTS[cls]
-        jg = _gather_planes(j_attr, cand.j_real)
+        jg = _gather_planes(j_attr, cand.j_real, plain)
         j_pos, j_q, j_p6 = tuple(jg[0:3]), tuple(jg[3:7]), tuple(jg[7:13])
         j_fric, j_rest = jg[13], jg[14]
         kind_j = jg[15].to(torch.int32)
@@ -314,41 +323,63 @@ def _ii_world9(q, ii_rows):
                  for i in range(3) for j in range(3))
 
 
+def to_sc(cx: _Ctx, p):
+    """Collider-major slots [W, Cg*S] → the K1 layout [W,S,Cg] (a view)."""
+    return p.reshape(p.shape[0], cx.cg, cx.s_active).transpose(1, 2)
+
+
+def from_sc(cx: _Ctx, x):
+    """The K1 layout [W,S,Cg] → collider-major slots [W, Cg*S]."""
+    return x.transpose(1, 2).reshape(x.shape[0], cx.cg * cx.s_active)
+
+
+def pack_contacts(cx: _Ctx, con: _Contacts, lam0):
+    """Compacted contacts + warm impulses [W,Cg*S] → the K1 layout
+    (con [W,15,S,Cg], body_j [W,S,Cg] int32)."""
+    con_list = (list(con.n) + list(con.pt)
+                + [con.depth, con.fric, con.rest, con.act, con.own,
+                   con.sigma] + list(lam0))
+    con_planes = torch.stack([to_sc(cx, p) for p in con_list],
+                             1).contiguous()
+    body_j = to_sc(cx, con.body_j).to(torch.int32).contiguous()
+    return con_planes, body_j
+
+
+def pack_body_planes(cx: _Ctx, pos, q, lv, av, accel):
+    """Body state planes [W,B] → the K1 body layout [W,26,B]: lv3 av3 pos3
+    q4 acc3 inv_mass inv_inertia_world9."""
+    w = pos[0].shape[0]
+    dev = pos[0].device
+    ii0 = _ii_world9(q, const(cx.ii_rows, dev))
+    imass = const(cx.inv_mass, dev)[None].expand(w, -1)
+    return torch.stack(list(lv) + list(av) + list(pos) + list(q)
+                       + list(accel) + [imass] + list(ii0), 1).contiguous()
+
+
 def pack_solver_inputs(cx: _Ctx, con: _Contacts, lam0, pos, q, lv, av,
                        accel):
     """Compacted contacts + body planes → the K1 layout
     (con [W,15,S,Cg], body_j [W,S,Cg], body [W,26,B], col_body [Cg])."""
-    w = pos[0].shape[0]
-    cg, s = cx.cg, cx.s_active
-    dev = pos[0].device
-
-    def to_sc(p):
-        return p.reshape(w, cg, s).transpose(1, 2)
-
-    con_list = (list(con.n) + list(con.pt)
-                + [con.depth, con.fric, con.rest, con.act, con.own,
-                   con.sigma] + list(lam0))
-    con_planes = torch.stack([to_sc(p) for p in con_list], 1).contiguous()
-    body_j = to_sc(con.body_j).to(torch.int32).contiguous()
-    ii0 = _ii_world9(q, const(cx.ii_rows, dev))
-    imass = const(cx.inv_mass, dev)[None].expand(w, -1)
-    body = torch.stack(list(lv) + list(av) + list(pos) + list(q)
-                       + list(accel) + [imass] + list(ii0), 1).contiguous()
-    return con_planes, body_j, body, const(cx.grid_body, dev)
+    con_planes, body_j = pack_contacts(cx, con, lam0)
+    body = pack_body_planes(cx, pos, q, lv, av, accel)
+    return con_planes, body_j, body, const(cx.grid_body, pos[0].device)
 
 
-def step_slab2(state, t, dt, accel, angvel):
-    """One staged slab step; returns the new PhysicsState."""
+def step_slab2(state, t, dt, accel, angvel, fused=True):
+    """One slab step; returns the new PhysicsState. Scenes in the fused
+    scope take the fused route (K3 or K2) unless `fused` is False."""
+    from fyrox_tpu_torch.physics import fused_step
     cx = _ctx(t)
-    w = state.position.shape[0]
-    packed, pid = solver_inputs(state, t, dt, accel, angvel)
-    body_out, lam = tgs_kernel.solve_tgs(
-        *packed, tgs_kernel.solver_params(t, dt))
-
-    def from_sc(x):
-        return x.transpose(1, 2).reshape(w, cx.cg * cx.s_active)
-
-    lams = tuple(from_sc(lam[:, i]) for i in range(3))
+    if fused and fused_step.supports_fused(t):
+        run = (fused_step.fused_full_step if fused_step.supports_fused_bp(t)
+               else fused_step.fused_step)
+        body_out, lam, pid_sc = run(state, t, dt, accel, angvel)
+        pid = from_sc(cx, pid_sc)
+    else:
+        packed, pid = solver_inputs(state, t, dt, accel, angvel)
+        body_out, lam = tgs_kernel.solve_tgs(
+            *packed, tgs_kernel.solver_params(t, dt))
+    lams = tuple(from_sc(cx, lam[:, i]) for i in range(3))
     return _finish_step(state, t, dt, body_out, lams, pid)
 
 

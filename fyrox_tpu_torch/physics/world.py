@@ -1,9 +1,10 @@
 """Batched rigid-body world: template, state, builder and the step head
 (PhysicsWorld::update, fyrox-impl scene/graph/physics/mod.rs:1151).
 
-The port runs the slab pipeline only (``slab2.step_slab2``, the staged
-path): hash-grid broadphase → plane narrowphase → per-collider
-compaction → TGS-soft solve. Joints, centre-of-mass offsets, convex
+The port runs the slab pipeline only (``slab2.step_slab2``): hash-grid
+broadphase → plane narrowphase → per-collider compaction → TGS-soft
+solve, on the fused route (physics/fused_step.py) where the scene allows
+it, else on the staged path. Joints, centre-of-mass offsets, convex
 hulls, scenery, temporal broadphase reuse and the dense/grid broadphases
 raise NotImplementedError.
 """
@@ -15,7 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.core import quat
 from fyrox_tpu_torch.physics import shapes as sh
 
@@ -265,8 +266,10 @@ class PhysicsBuilder:
 
 
 def init_physics_state(builder_or_pose, template: PhysicsTemplate,
-                       num_worlds: int, device="cpu") -> PhysicsState:
-    """Bodies at rest at the given poses; empty warm-start carries."""
+                       num_worlds: int, device="cuda") -> PhysicsState:
+    """Bodies at rest at the given poses; empty warm-start carries. On the
+    card unless `device` says otherwise."""
+    device = resolve_device(device)
     if isinstance(builder_or_pose, PhysicsBuilder):
         pos, rot = builder_or_pose.initial_pose()
     else:
@@ -289,12 +292,14 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         warm_pair=z(w, kk, dtype=torch.int32, fill=-1))
 
 
-def step_physics(state: PhysicsState, t: PhysicsTemplate,
-                 dt) -> PhysicsState:
-    """One physics step: external accelerations, then the slab pipeline."""
+def step_physics(state: PhysicsState, t: PhysicsTemplate, dt,
+                 fused=True) -> PhysicsState:
+    """One physics step: external accelerations, then the slab pipeline
+    (the fused route where the scene allows it; fused=False keeps the
+    staged path)."""
     from fyrox_tpu_torch.physics import slab2
     accel, angvel = external_accelerations(state, t, dt)
-    return slab2.step_slab2(state, t, dt, accel, angvel)
+    return slab2.step_slab2(state, t, dt, accel, angvel, fused=fused)
 
 
 def external_accelerations(state: PhysicsState, t: PhysicsTemplate, dt):
@@ -304,7 +309,9 @@ def external_accelerations(state: PhysicsState, t: PhysicsTemplate, dt):
     dev = state.position.device
     dyn = (const(t.body_type, dev) == DYNAMIC)[None, :, None]
     inv_mass = const(t.inv_mass, dev)[None].expand(state.position.shape[:2])
-    g = torch.tensor(t.gravity, dtype=torch.float32, device=dev)
+    if getattr(t, "_gravity_f32", None) is None:
+        t._gravity_f32 = np.asarray(t.gravity, np.float32)
+    g = const(t._gravity_f32, dev)          # no host→device copy per tick
     gscale = const(t.gravity_scale, dev)[None, :, None]
     accel = torch.where(dyn, g * gscale + state.force * inv_mass[..., None],
                         torch.zeros_like(state.force))

@@ -8,6 +8,7 @@ levels up, gathered by index.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fyrox_tpu_torch._util import const
@@ -16,6 +17,8 @@ from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
 __all__ = ["local_matrices", "update_hierarchical_data", "step"]
+
+_BOTTOM_ROW = np.array([0.0, 0.0, 0.0, 1.0], np.float32)   # affine 4th row
 
 
 def local_matrices(state: WorldState) -> torch.Tensor:
@@ -51,8 +54,7 @@ def update_hierarchical_data(state: WorldState,
         aff = lin
         vis = vis[:, p] * vis
         en = en[:, p] * en
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype,
-                          device=dev).expand(w, n, 1, 4)
+    bottom = const(_BOTTOM_ROW, dev).to(dtype).expand(w, n, 1, 4)
     globals_ = torch.cat([aff[:, :n], bottom], dim=2)
     return state._replace(globals_=globals_,
                           global_visibility=vis[:, :n] > 0.5,

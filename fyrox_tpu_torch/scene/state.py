@@ -7,7 +7,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import tile
+from fyrox_tpu_torch._util import resolve_device, tile
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
 __all__ = ["WorldState", "init_state"]
@@ -42,8 +42,10 @@ class WorldState(NamedTuple):
 
 
 def init_state(template: SceneTemplate, num_worlds: int,
-               device="cpu") -> WorldState:
-    """Broadcast the template's initial values into a [W, ...] state."""
+               device="cuda") -> WorldState:
+    """Broadcast the template's initial values into a [W, ...] state, on
+    the card unless `device` says otherwise."""
+    device = resolve_device(device)
     w, n = num_worlds, template.num_nodes
     f32 = torch.float32
 

@@ -14,7 +14,7 @@ from fyrox_tpu.models import build_flagship as jax_build_flagship
 from fyrox_tpu_torch import kernels
 from fyrox_tpu_torch.models import build_flagship as torch_build_flagship
 from fyrox_tpu_torch.physics import BALL, CUBOID, HALFSPACE, PhysicsBuilder
-from fyrox_tpu_torch.physics import plane_ops, tgs_kernel
+from fyrox_tpu_torch.physics import fused_step, plane_ops, tgs_kernel
 
 torch.set_num_threads(2)
 
@@ -110,9 +110,12 @@ def test_port_imports_and_builds_without_jax():
         import fyrox_tpu_torch
         from fyrox_tpu_torch import convert, engine, kernels
         from fyrox_tpu_torch.models import build_flagship
+        from fyrox_tpu_torch.physics import fused_step
         e, skin = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
-        st = e.init_state(2)
+        st = e.init_state(2, device="cpu")
+        assert fused_step.supports_fused_bp(e.physics)
         st = e.step(st)
+        st = e.step(st, fused=False)
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad
@@ -134,13 +137,24 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
         kernels.library()
 
 
-def test_cpu_tensors_take_the_plain_versions():
+def _plain_tick_launches(fused):
     plane_ops.reset_launches()
     tgs_kernel.reset_launches()
+    fused_step.reset_launches()
     e, _ = torch_build_flagship(**FLAGSHIP)
-    st = e.step(e.init_state(1))
+    st = e.step(e.init_state(1, device="cpu"), fused=fused)
     assert torch.isfinite(st.physics.position).all()
-    assert plane_ops.launches() == 0 and tgs_kernel.launches() == 0
+    return (plane_ops.launches(), tgs_kernel.launches(),
+            fused_step.launches("fused_bp"),
+            fused_step.launches("narrow_compact"))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    assert _plain_tick_launches(fused=True) == (0, 0, 0, 0)
+
+
+def test_cpu_staged_route_takes_the_plain_versions():
+    assert _plain_tick_launches(fused=False) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("case", ["joint", "dense", "period", "com",

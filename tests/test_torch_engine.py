@@ -1,5 +1,6 @@
 """Port parity: the whole slice — Engine.init_state, 30 Engine.step ticks
-(ABSM, hierarchy, staged slab physics, body → node sync) and skinning —
+(ABSM, hierarchy, slab physics on the port's fused route (K3), body → node
+sync) and skinning —
 of fyrox_tpu_torch against fyrox_tpu on the small flagship, with the
 port's state carried over by convert.py."""
 import numpy as np
@@ -28,9 +29,10 @@ def slice_run():
     je, jskin = jax_build_flagship(n_bones=10, n_verts=300, n_bodies=192)
     te, tskin = convert.engine(je), convert.skin_template(jskin)
     js = je.init_state(num_worlds=W)
-    ts = convert.engine_state(jax.tree_util.tree_map(np.asarray, js))
+    ts = convert.engine_state(jax.tree_util.tree_map(np.asarray, js),
+                              device="cpu")
     init = (jax.tree_util.tree_map(np.asarray, js),
-            convert.to_numpy(te.init_state(W)))
+            convert.to_numpy(te.init_state(W, device="cpu")))
     # the JAX step runs op by op: its XLA CPU compile of the narrowphase
     # costs seconds per step at this size, eager dispatch well under one
     with jax.disable_jit():

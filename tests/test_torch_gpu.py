@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from fyrox_tpu_torch import convert
 from fyrox_tpu_torch.models import build_flagship
-from fyrox_tpu_torch.physics import plane_ops, slab2, tgs_kernel
+from fyrox_tpu_torch.physics import (BALL, CAPSULE, CUBOID, HALFSPACE,
+                                     BodyType, PhysicsBuilder)
+from fyrox_tpu_torch.physics import fused_step, plane_ops, slab2, tgs_kernel
 from fyrox_tpu_torch.physics import world as phys_mod
 
 pytestmark = pytest.mark.gpu
@@ -109,3 +112,119 @@ def test_tgs_kernel_refuses_oversized_worlds(settled):
                       device=body.device)
     with pytest.raises(ValueError, match="shared memory"):
         tgs_kernel.solve_tgs(con, body_j, big, col_body, params)
+
+
+# ---- the fused route: fused_bp (K3) and narrow_compact (K2) --------------
+
+@pytest.fixture
+def fused_inputs(cuda):
+    """The fused step's inputs on the settled, distinct small flagship."""
+    engine, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+    st = engine.init_state(8, device=cuda)
+    rng = np.random.default_rng(4)
+    dyn = torch.as_tensor(engine.physics.body_type == phys_mod.DYNAMIC,
+                          device=cuda)[None, :, None].float()
+    st = st._replace(physics=st.physics._replace(
+        position=st.physics.position + torch.as_tensor(
+            rng.uniform(-0.05, 0.05, st.physics.position.shape).astype(
+                np.float32), device=cuda) * dyn))
+    for _ in range(30):
+        st = engine.step(st)
+    t = engine.physics
+    accel, angvel = phys_mod.external_accelerations(st.physics, t, engine.dt)
+    body, warm_lam, warm_pid = fused_step._inputs(st.physics, t, accel,
+                                                  angvel)
+    return t, engine.dt, body, warm_lam, warm_pid
+
+
+def test_fused_bp_kernel_is_bit_exact(fused_inputs):
+    t, dt, body = fused_inputs[:3]
+    before = fused_step.launches("fused_bp")
+    jv, col = fused_step.bp_candidates(t, body, dt)
+    assert fused_step.launches("fused_bp") == before + 1
+    jv_p, col_p = fused_step.bp_candidates_plain(t, body, dt)
+    assert (jv >= 0).sum() > 0 and _all_differ(jv)
+    assert torch.equal(jv, jv_p) and torch.equal(col, col_p)
+
+
+def test_narrow_compact_kernel_matches_plain_and_repeats(fused_inputs):
+    t, dt, body, warm_lam, warm_pid = fused_inputs
+    jv, col = fused_step.bp_candidates_plain(t, body, dt)
+    got = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
+    again = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
+    con_p, bj_p, pid_p = fused_step.narrow_compact_plain(t, col, jv,
+                                                         warm_lam, warm_pid)
+    con, bj, pid = got
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(pid, pid_p) and torch.equal(bj, bj_p)
+    assert torch.equal(con[:, 9], con_p[:, 9]) and con[:, 9].sum() > 0
+    # the plain version's float32 operations in its order
+    assert (con - con_p).abs().max() <= 1e-5
+
+
+def _platform_pile():
+    """A pile on a finite static cuboid: the K2 route."""
+    rng = np.random.default_rng(3)
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC, position=(0.0, -0.2, 0.0))
+    pb.add_collider(g, CUBOID, [4.0, 0.2, 4.0], friction=0.7)
+    for i in range(24):
+        q = rng.standard_normal(4)
+        b = pb.add_body(position=(rng.uniform(-1.5, 1.5), 0.4 + 0.45 * (i // 6),
+                                  rng.uniform(-1.5, 1.5)),
+                        rotation=tuple(float(x) for x in q / np.linalg.norm(q)))
+        shape, params = [(CAPSULE, [0.15, 0.12]), (BALL, [0.22]),
+                         (CUBOID, [0.18, 0.18, 0.18])][i % 3]
+        pb.add_collider(b, shape, params, friction=0.5)
+    return pb, pb.build(broadphase="slab")
+
+
+def test_k2_route_on_the_card_matches_the_cpu(cuda):
+    pb, t = _platform_pile()
+    assert fused_step.supports_fused(t) and not fused_step.supports_fused_bp(t)
+    cpu = phys_mod.init_physics_state(pb, t, 4, device="cpu")
+    gpu = convert.physics_state(convert.to_numpy(cpu), device=cuda)
+    n0 = fused_step.launches("narrow_compact")
+    for _ in range(30):
+        cpu = phys_mod.step_physics(cpu, t, 1 / 60)
+        gpu = phys_mod.step_physics(gpu, t, 1 / 60)
+    assert fused_step.launches("narrow_compact") == n0 + 30
+    assert (cpu.warm_pair >= 0).sum() > 0
+    # trajectory bounds between two implementations (test_pallas_step.py)
+    assert (gpu.position.cpu() - cpu.position).abs().max() < 5e-4
+    assert (gpu.linvel.cpu() - cpu.linvel).abs().max() < 5e-3
+
+
+def test_fused_wrappers_reject_bad_inputs(fused_inputs):
+    t, dt, body, warm_lam, warm_pid = fused_inputs
+    jv, col = fused_step.bp_candidates_plain(t, body, dt)
+    with pytest.raises(TypeError):
+        fused_step.bp_candidates(t, body.double(), dt)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_step.bp_candidates(
+            t, body.transpose(1, 2).contiguous().transpose(1, 2), dt)
+    with pytest.raises(TypeError):
+        fused_step.narrow_compact(t, col, jv.long(), warm_lam, warm_pid)
+    with pytest.raises(ValueError, match="shape"):
+        fused_step.narrow_compact(t, col, jv[:, :-1].contiguous(), warm_lam,
+                                  warm_pid)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_step.narrow_compact(
+            t, col, jv, warm_lam.transpose(2, 3).contiguous().transpose(2, 3),
+            warm_pid)
+
+
+def test_fused_route_refuses_worlds_beyond_k1_shared_memory(cuda):
+    """The fused route inherits K1's limit: one world's bodies in one
+    block's shared memory. It raises; it never falls back."""
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [])
+    for i in range(2000):
+        b = pb.add_body(position=(0.6 * (i % 45), 0.5 + 0.6 * (i // 2025),
+                                  0.6 * (i // 45)))
+        pb.add_collider(b, BALL, [0.25])
+    t = pb.build(broadphase="slab")
+    st = phys_mod.init_physics_state(pb, t, 1, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        phys_mod.step_physics(st, t, 1 / 60)

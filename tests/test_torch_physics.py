@@ -1,6 +1,7 @@
-"""Port parity: the staged slab physics step of fyrox_tpu_torch against
-fyrox_tpu's XLA staged path (its CPU path) on the 24-body slab scene of
-tests/test_pallas_solver.py, stage by stage and over a 30-step rollout."""
+"""Port parity: the staged slab physics step of fyrox_tpu_torch
+(``fused=False``) against fyrox_tpu's XLA staged path (its CPU path) on the
+24-body slab scene of tests/test_pallas_solver.py, stage by stage and over
+a 30-step rollout. The fused route has its own file, test_torch_fused.py."""
 import numpy as np
 import pytest
 import torch
@@ -62,12 +63,13 @@ def rollout(scenes):
     """Both packages from the same initial state: per-step numpy states."""
     jpb, jt, tpb, tt = scenes
     js = jworld.init_physics_state(jpb, jt, 2)
-    ts = convert.physics_state(jax.tree_util.tree_map(np.asarray, js))
+    ts = convert.physics_state(jax.tree_util.tree_map(np.asarray, js),
+                               device="cpu")
     step = jax.jit(lambda s: jworld.step_physics(s, jt, DT))
     out = [(jax.tree_util.tree_map(np.asarray, js), convert.to_numpy(ts))]
     for _ in range(STEPS):
         js = step(js)
-        ts = tworld.step_physics(ts, tt, DT)
+        ts = tworld.step_physics(ts, tt, DT, fused=False)
         out.append((jax.tree_util.tree_map(np.asarray, js),
                     convert.to_numpy(ts)))
     return out
@@ -145,7 +147,7 @@ def stages(scenes, rollout):
     jpb, jt, tpb, tt = scenes
     jst_np, _ = rollout[20]
     jst = jax.tree_util.tree_map(jnp.asarray, jst_np)
-    tst = convert.physics_state(jst_np)
+    tst = convert.physics_state(jst_np, device="cpu")
     jcx, tcx = jslab2._ctx(jt), tslab2._ctx(tt)
     margin = jt.allowed_linear_error + jworld.SPECULATIVE_MARGIN
     tight = jworld.SPECULATIVE_MARGIN - jworld.PREDICTION_DISTANCE

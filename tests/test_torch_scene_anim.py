@@ -47,9 +47,9 @@ def rollouts():
     js = jgraph.update_hierarchical_data(jinit(jtpl, W), jtpl)
     ja = jtrack.init_animation_state(jaset, W)
     jm = jmachine.init_machine_state(jmt, W)
-    ts = tinit(ttpl, W)
-    ta = ttrack.init_animation_state(taset, W)
-    tm = tmachine.init_machine_state(tmt, W)
+    ts = tinit(ttpl, W, device="cpu")
+    ta = ttrack.init_animation_state(taset, W, device="cpu")
+    tm = tmachine.init_machine_state(tmt, W, device="cpu")
     out = []
     for tick in range(TICKS):
         p = _run_param(tick)
