@@ -34,6 +34,22 @@ last line:
              slice's last state: device
              events (kernels, copies, fills) per tick and the device's busy
              share.
+Then the render path (bench_render.py's scene and config, W=16 at 256x256,
+worlds made distinct by seeded jitter of the mesh nodes):
+  K5full   — the tile raster kernel, full variant, vs its plain version on
+             the camera pass of one frame: z, idx, w0, w1 bit-equal, two
+             launches bit-equal;
+  K5depth  — the depth-only variant on the batched cascade pass (3 x 16
+             maps), the same checks;
+  render-audit — per-pass true bin demand against the caps (424; 896 for
+             the cascades) and each culled cascade's in-footprint count
+             against its budget; fails at demand >= cap or count >= budget;
+  render-cpu — a small frame (2 worlds, 32x32) on the card agrees with the
+             same frame on the CPU;
+  render   — the full-width slice: RENDER_FRAMES timed frames after a
+             warm-up, frames/s and ms/frame/world, K5 launched exactly
+             twice per frame;
+  render-profile — device events per frame and the device's busy share.
 Then one JSON line describing the kernels, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
 """
@@ -659,10 +675,23 @@ def phase_staged(engine, skin, state):
     return n
 
 
+def device_events(prof):
+    """(device events, microseconds of device time as the union of their
+    intervals) of a torch.profiler run."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:                        # union of device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return kernels, busy_us
+
+
 def phase_profile(engine, settled):
     """Device events per tick and the device's busy share, per route, from
     the slice's last state."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for label, fused in (("fused", True), ("staged", False)):
@@ -680,15 +709,7 @@ def phase_profile(engine, settled):
             for _ in range(PROFILED):
                 state = engine.step(state, fused=fused)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy_us, end = 0.0, -1.0
-        for a, b in spans:                    # union of device intervals
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
+        kernels, busy_us = device_events(prof)
         if not kernels:
             log(f"[profile] {label} route: the profiler recorded no device "
                 f"events (not measured)")
@@ -701,6 +722,240 @@ def phase_profile(engine, settled):
             f"{busy_ms:.3f} ms of device time per {tick_ms:.3f} ms "
             f"unprofiled tick (busy share {busy_ms / tick_ms:.3f}) on {CARD}")
     return out
+
+
+# ---------------------------------------------------------------- render
+# bench_render.py's configuration, not cut: 16 worlds at 256 x 256, a 40 m
+# ground + 32 cubes + 32 spheres, one directional light with 3-cascade CSM
+RENDER_WORLDS = 16
+RENDER_SIZE = 256
+RENDER_FRAMES = 5    # timed frames after one warm-up frame
+RENDER_PROFILED = 3  # frames under the profiler
+# float operations per (pixel, walked slot) of csrc/tile_raster.cu, a hand
+# count: five affine forms of 2 multiplies and 2 adds, two subtracts, one
+# divide, eight compares
+K5_OPS = 31
+
+
+def render_scene(n_worlds, device, seed=0):
+    """The bench scene (bench_render.py:31-72) with its render template
+    and config, W worlds whose mesh nodes are moved by seeded jitter
+    (±5 cm), so that no two worlds render the same images."""
+    from fyrox_tpu_torch.render import (RenderConfig, build_render_template,
+                                        make_cube, make_plane, make_sphere)
+    from fyrox_tpu_torch.scene import NodeType, SceneBuilder, graph
+    from fyrox_tpu_torch.scene import init_state
+    sb = SceneBuilder()
+    sb.add_mesh(make_plane(40.0, albedo=(0.5, 0.5, 0.5)), name="ground")
+    rng = np.random.default_rng(0)
+    for i in range(64):
+        x, z = rng.uniform(-10, 10, 2)
+        if i % 2:
+            sb.add_mesh(make_cube(1.0, albedo=(0.7, 0.3, 0.2)),
+                        position=(x, 0.5, z))
+        else:
+            sb.add_mesh(make_sphere(0.5, slices=8, stacks=8,
+                                    albedo=(0.2, 0.4, 0.7)),
+                        position=(x, 0.5, z))
+    tilt = (np.sin(np.pi / 3), 0.0, 0.0, np.cos(np.pi / 3))
+    sb.add_light("directional", rotation=tilt, intensity=2.0)
+    look_down = (np.sin(np.pi / 8), 0.0, 0.0, np.cos(np.pi / 8))
+    sb.add_camera("cam", position=(0, 8.0, -14.0), rotation=look_down)
+    t = sb.build()
+    st = init_state(t, n_worlds, device=device)
+    mesh = torch.as_tensor(t.node_type == NodeType.MESH, device=device)
+    noise = np.random.default_rng(seed).uniform(
+        -0.05, 0.05, tuple(st.position.shape)).astype(np.float32)
+    st = st._replace(position=st.position + torch.as_tensor(
+        noise, device=device) * mesh[None, :, None].float())
+    st = graph.update_hierarchical_data(st, t)
+    cfg = RenderConfig(width=RENDER_SIZE, height=RENDER_SIZE, shadows=True,
+                       cascade_tri_budget=(0.05, 1.0, 0.75), k_per_tile=424,
+                       csm_k_per_tile=896)
+    return t, build_render_template(t), st, cfg
+
+
+def capture_k5_inputs(t, rt, st, cfg):
+    """The K5 inputs of one frame of the main path, as it calls the
+    dispatch point (launches made here are not counted)."""
+    from fyrox_tpu_torch.render import render_frame, tile_raster
+    seen = []
+    dispatch = tile_raster.visibility
+
+    def spy(*args, **kw):
+        seen.append((args, kw.get("depth_only", False)))
+        return dispatch(*args, **kw)
+
+    tile_raster.visibility = spy
+    try:
+        render_frame(st, t, rt, cfg)
+    finally:
+        tile_raster.visibility = dispatch
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_k5(inputs, depth_only):
+    """One K5 variant vs its plain version at the main path's shapes."""
+    from fyrox_tpu_torch.render import tile_raster
+    args = next(a for a, d in inputs if d == depth_only)
+    feats, ids, count, h, w, th, tw = args
+    label = "K5depth" if depth_only else "K5full"
+    if not all_differ(feats):
+        fail(f"{label}: the images' feature rows repeat")
+
+    def kernel():
+        return tile_raster._visibility_cuda(*args, depth_only=depth_only)
+
+    def plain():
+        return tile_raster.visibility_plain(*args, depth_only=depth_only)
+
+    got, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    got = (got,) if depth_only else got
+    again = (again,) if depth_only else again
+    ref = (ref,) if depth_only else ref
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{label}: two launches on the same inputs differ")
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        diffs = [int((a != b).sum()) for a, b in zip(got, ref)]
+        fail(f"{label}: kernel differs from its plain version at {diffs} "
+             f"entries (z{'' if depth_only else ', idx, w0, w1'})")
+    z = got[0]
+    hit = float((z < 1e8).float().mean())
+    if not (all_differ(z) and hit > 0.05):
+        fail(f"{label}: images repeat, or {hit:.3f} of pixels hit")
+    ms_k = cuda_ms(kernel, 20)
+    ms_p = cuda_ms(plain, 2)
+    walked = int(count.sum())
+    b_ms, b_by = bound_ms(nbytes(feats, ids, count, *got),
+                          walked * th * tw * K5_OPS)
+    log(f"[{label}] tile_raster {'depth-only' if depth_only else 'full'} "
+        f"bit-equal to plain (z{'' if depth_only else ', idx, w0, w1'}) on "
+        f"{feats.shape[0]} distinct images of {h}x{w}, K={ids.shape[2]}, "
+        f"{walked} walked slots, {hit:.3f} of pixels hit; two launches "
+        f"bit-equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return dict(name="tile_raster_depth" if depth_only else "tile_raster_full",
+                route="cuda", source="fyrox_tpu_torch/csrc/tile_raster.cu",
+                replaces="fyrox_tpu/render/pallas_raster.py:352",
+                max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def phase_render_audit(t, rt, st, cfg):
+    """Per-pass true bin demand against its cap, and each culled cascade's
+    in-footprint count against its budget, on the full-width slice."""
+    from fyrox_tpu_torch.render import render_frame_demand
+    from fyrox_tpu_torch.render.shadows import cascade_budgets
+    foot = []
+    _, demand, caps = render_frame_demand(st, t, rt, cfg, footprint=foot)
+    dmax = [int(d) for d in demand.max(0).values.tolist()]
+    budgets = cascade_budgets(cfg.cascade_tri_budget, rt.num_triangles)
+    counts = iter((int(n.max()), b) for n, b in foot)
+    per_cascade = [next(counts) if b else (None, "full") for b in budgets]
+    log(f"[render-audit] bin demand max / cap per pass (camera, cascades "
+        f"0-2): {list(zip(dmax, caps))}; in-footprint max / budget per "
+        f"cascade: {per_cascade} of T={rt.num_triangles}")
+    over = [(p, d, k) for p, (d, k) in enumerate(zip(dmax, caps)) if d >= k]
+    if over or len(caps) != 4:
+        fail(f"render-audit: bin overflow (pass, demand, cap) {over}")
+    if any(n is not None and n >= b for n, b in per_cascade):
+        fail(f"render-audit: a cascade's in-footprint count reaches its "
+             f"budget: {per_cascade}")
+    return dmax, caps, per_cascade
+
+
+def phase_render_cpu():
+    """A small frame (2 worlds, 32 x 32) on the card agrees with the same
+    frame on the CPU."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.render import CsmConfig, render_frame_demand
+    t, rt, st, cfg = render_scene(2, "cpu", seed=3)
+    cfg = cfg._replace(width=32, height=32, csm=CsmConfig(map_size=64))
+    gpu = convert.scene_state(convert.to_numpy(st), device="cuda")
+    cpu_color, cpu_dem, caps = render_frame_demand(st, t, rt, cfg)
+    gpu_color, gpu_dem, gpu_caps = render_frame_demand(gpu, t, rt, cfg)
+    err = (gpu_color.cpu() - cpu_color).abs()
+    # 99.9 % of the values within 1e-4: sums over short axes run in other
+    # orders on the two devices, and a pixel on a triangle's edge whose
+    # coverage flips on a last-bit difference moves by its whole color
+    frac = float((err <= 1e-4).float().mean())
+    if not (frac >= 0.999 and caps == gpu_caps
+            and float(cpu_color.abs().sum()) > 0):
+        fail(f"render-cpu: card vs CPU colors {float(err.max()):.3g} max, "
+             f"{frac:.4f} within 1e-4; caps {gpu_caps} vs {caps}")
+    log(f"[render-cpu] 2 worlds, 32x32: card == CPU, colors max "
+        f"{float(err.max()):.3g} ({frac:.4f} of values within 1e-4); demand "
+        f"card {gpu_dem.max(0).values.tolist()} / CPU "
+        f"{cpu_dem.max(0).values.tolist()}, caps {caps}")
+
+
+def phase_render(t, rt, st, cfg):
+    """The full-width render slice: one warm-up frame, then RENDER_FRAMES
+    timed frames; K5 must launch exactly twice per frame."""
+    from fyrox_tpu_torch.render import render_frame, tile_raster
+    color, _ = render_frame(st, t, rt, cfg)                  # warm-up
+    torch.cuda.synchronize()
+    tile_raster.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(RENDER_FRAMES):
+        color, gbuf = render_frame(st, t, rt, cfg)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n = dict(full=tile_raster.launches("full"),
+             depth=tile_raster.launches("depth"))
+    if n != dict(full=RENDER_FRAMES, depth=RENDER_FRAMES):
+        fail(f"render slice launches {n}, want {RENDER_FRAMES} of each")
+    shape = (RENDER_WORLDS, RENDER_SIZE, RENDER_SIZE, 3)
+    cover = float(gbuf.mask.float().mean())
+    if not (tuple(color.shape) == shape and bool(torch.isfinite(color).all())
+            and float(color.abs().sum()) > 0 and cover > 0.1):
+        fail(f"render slice: color {tuple(color.shape)}, coverage {cover}, "
+             "empty or not finite")
+    fps = RENDER_WORLDS * RENDER_FRAMES / elapsed
+    frame_ms = elapsed * 1e3 / RENDER_FRAMES
+    log(f"[render] deferred + CSM, bench_render scene (T={rt.num_triangles}"
+        f"), W={RENDER_WORLDS}, {RENDER_SIZE}x{RENDER_SIZE}: {fps:.1f} "
+        f"frames/s, {frame_ms:.3f} ms per frame of all worlds, "
+        f"{frame_ms / RENDER_WORLDS:.4f} ms/frame/world ({RENDER_FRAMES} "
+        f"frames in {elapsed:.3f} s, coverage {cover:.3f}; K5 launches per "
+        f"frame: full 1, depth 1) on {CARD}")
+    return n
+
+
+def phase_render_profile(t, rt, st, cfg):
+    """Device events per frame and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from fyrox_tpu_torch.render import render_frame
+    render_frame(st, t, rt, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RENDER_PROFILED):
+        render_frame(st, t, rt, cfg)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / RENDER_PROFILED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(RENDER_PROFILED):
+            render_frame(st, t, rt, cfg)
+        torch.cuda.synchronize()
+    kernels, busy_us = device_events(prof)
+    if not kernels:
+        log("[render-profile] the profiler recorded no device events (not "
+            "measured)")
+        return
+    busy_ms = busy_us / 1e3 / RENDER_PROFILED
+    top = sorted(((e.key, e.device_time_total / 1e3 / RENDER_PROFILED)
+                  for e in prof.key_averages()
+                  if getattr(e, "device_time_total", 0) > 0),
+                 key=lambda kv: -kv[1])[:6]
+    log(f"[render-profile] W={RENDER_WORLDS}: "
+        f"{len(kernels) / RENDER_PROFILED:.1f} device events per frame, "
+        f"{busy_ms:.3f} ms of device time per {frame_ms:.3f} ms unprofiled "
+        f"frame (busy share {busy_ms / frame_ms:.3f}); top device ms per "
+        f"frame: " + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top)
+        + f" on {CARD}")
 
 
 def main():
@@ -724,10 +979,22 @@ def main():
     n_fused, settled = phase_slice(engine, skin)
     n_staged = phase_staged(engine, skin, settled)
     phase_profile(engine, settled)
+    del engine, skin, settled
+    scene = render_scene(RENDER_WORLDS, "cuda")
+    inputs = capture_k5_inputs(*scene)
+    k5f = phase_k5(inputs, depth_only=False)
+    k5d = phase_k5(inputs, depth_only=True)
+    del inputs
+    phase_render_audit(*scene)
+    phase_render_cpu()
+    n_render = phase_render(*scene)
+    phase_render_profile(*scene)
     for k in (kbp, knc, k1):
         k["launches"] = n_fused[k["name"]]
     k4["launches"] = n_staged["plane_gather"]
-    print(json.dumps({"kernels": [kbp, knc, k1, k4]}))
+    k5f["launches"] = n_render["full"]
+    k5d["launches"] = n_render["depth"]
+    print(json.dumps({"kernels": [kbp, knc, k1, k4, k5f, k5d]}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

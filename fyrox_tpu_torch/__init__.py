@@ -7,13 +7,15 @@ that has no JAX installed.
 
 Host-side templates (scene topology, physics layout, animation curves) are
 numpy, built by the port's own builders; per-world state is ``torch``
-tensors with a leading world axis ``W`` on an explicit device. The two
-hand-written CUDA kernels of the staged physics step live under ``csrc/``
-and are built at first use by ``kernels.py``; a CPU tensor always takes
-the kernel's plain PyTorch version instead.
+tensors with a leading world axis ``W`` on an explicit device. The
+hand-written CUDA kernels (the physics step's, and the renderer's tile
+raster) live under ``csrc/`` and are built at first use by
+``kernels.py``; a CPU tensor always takes the kernel's plain PyTorch
+version instead.
 
 Entry points: ``models.build_flagship`` → ``Engine.init_state`` →
-``Engine.step``, then ``animation.skinning``.
+``Engine.step``, then ``animation.skinning``; for rendering,
+``render.build_render_template`` → ``render.render_frame``.
 """
 import torch
 

@@ -21,12 +21,15 @@ from fyrox_tpu_torch.core.curve import CurveSet
 from fyrox_tpu_torch.engine import AnimState, Engine, EngineState
 from fyrox_tpu_torch.physics.broadphase import SlabConfig
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
+from fyrox_tpu_torch.render.mesh import MeshData
+from fyrox_tpu_torch.render.pipeline import RenderTemplate
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
 __all__ = ["scene_template", "physics_template", "slab_config",
            "animation_set", "machine_template", "skin_template", "engine",
-           "engine_state", "physics_state", "to_numpy"]
+           "engine_state", "physics_state", "scene_state", "render_template",
+           "to_numpy"]
 
 
 def _np(x):
@@ -37,15 +40,43 @@ def _copy(src, cls, names):
     return cls(**{n: getattr(src, n) for n in names})
 
 
+def _mesh_data(m) -> MeshData:
+    """A JAX-package MeshData → the port's, field by field."""
+    return MeshData(**{f: getattr(m, f) for f in MeshData.__dataclass_fields__})
+
+
 def scene_template(t) -> SceneTemplate:
+    """A JAX-package SceneTemplate → the port's; payload kinds the port
+    has no counterpart for (sprites, decals, rectangles, LOD groups)
+    raise."""
+    for kind in ("sprites", "decals", "rectangles"):
+        if len((getattr(t, kind, None) or {}).get("node", [])):
+            raise NotImplementedError(kind)
+    if (getattr(t, "extras", None) or {}).get("lod_groups"):
+        raise NotImplementedError("LOD groups")
     names = ("parent", "node_type", "names", "levels", "depth", "payload",
              "init_position", "init_rotation", "init_scale",
              "init_visibility", "init_enabled", "init_lifetime",
              "init_pre_rotation", "init_post_rotation",
              "init_rotation_offset", "init_rotation_pivot",
              "init_scaling_offset", "init_scaling_pivot", "local_bbox_min",
-             "local_bbox_max", "cameras")
-    return _copy(t, SceneTemplate, names)
+             "local_bbox_max", "cameras", "lights")
+    out = _copy(t, SceneTemplate, names)
+    out.meshes = [_mesh_data(m) for m in t.meshes]
+    return out
+
+
+def render_template(rt) -> RenderTemplate:
+    """A JAX-package RenderTemplate → the port's (its numpy fields); the
+    parts off the port's slice (sprites, LOD groups, transparent
+    triangles, decals, textures) raise."""
+    for name in ("sprite_node", "lod_obj", "tr_tri", "decal_node"):
+        if getattr(rt, name, None) is not None and len(getattr(rt, name)):
+            raise NotImplementedError(name)
+    if getattr(rt, "tex_array", None) is not None:
+        raise NotImplementedError("texture-mapped materials")
+    return RenderTemplate(**{f: getattr(rt, f)
+                             for f in RenderTemplate.__dataclass_fields__})
 
 
 def slab_config(sc) -> SlabConfig:
@@ -149,14 +180,21 @@ def physics_state(p, device="cuda") -> PhysicsState:
                            if f not in ("bp_cache", "bp_age")})
 
 
+def scene_state(s, device="cuda") -> WorldState:
+    """A JAX-package scene WorldState with numpy leaves → the port's (on
+    the card unless `device` says otherwise)."""
+    device = resolve_device(device)
+    return WorldState(**{f: _t(getattr(s, f), device)
+                         for f in WorldState._fields})
+
+
 def engine_state(s, device="cuda") -> EngineState:
     """A JAX-package EngineState with numpy leaves → the port's state (on
     the card unless `device` says otherwise)."""
     device = resolve_device(device)
     if s.particles is not None or s.audio is not None:
         raise NotImplementedError("particles and audio")
-    scene = WorldState(**{f: _t(getattr(s.scene, f), device)
-                          for f in WorldState._fields})
+    scene = scene_state(s.scene, device)
     phys = None if s.physics is None else physics_state(s.physics, device)
     anim = None
     if s.animation is not None:

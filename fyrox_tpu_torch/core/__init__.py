@@ -1,4 +1,5 @@
-"""Core math: quaternions, transforms, keyframe curves."""
-from fyrox_tpu_torch.core import curve, quat, transform
+"""Core math: quaternions, transforms, keyframe curves, bounding boxes
+and frustums."""
+from fyrox_tpu_torch.core import aabb, curve, frustum, quat, transform
 
-__all__ = ["curve", "quat", "transform"]
+__all__ = ["aabb", "curve", "frustum", "quat", "transform"]

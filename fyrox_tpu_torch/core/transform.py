@@ -14,7 +14,8 @@ import torch
 from fyrox_tpu_torch.core import quat
 
 __all__ = ["Transform", "local_matrix", "compose_trs", "mat4_mul",
-           "decompose_mat4", "invert_affine"]
+           "decompose_mat4", "invert_affine", "transform_point",
+           "transform_vector"]
 
 
 class Transform(NamedTuple):
@@ -75,6 +76,16 @@ def local_matrix(t: Transform):
     translation = torch.sum(rot * inner[..., None, :], -1) + t.position \
         + roff + rp
     return _assemble(linear, translation)
+
+
+def transform_point(m, p):
+    """Apply affine [...,4,4] to points [...,3]."""
+    return torch.sum(m[..., :3, :3] * p[..., None, :], -1) + m[..., :3, 3]
+
+
+def transform_vector(m, v):
+    """Apply the linear part of an affine [...,4,4] to vectors [...,3]."""
+    return torch.sum(m[..., :3, :3] * v[..., None, :], -1)
 
 
 def invert_affine(m):

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "fyrox_tgs_solve": [_VP] * 9 + [_I] * 7 + [_F] * 10 + [_VP],
     "fyrox_fused_bp": [_VP] * 13 + [_I] * 10 + [_F] * 5 + [_VP],
     "fyrox_narrow_compact": [_VP] * 11 + [_I] * 7 + [_F] * 2 + [_VP],
+    "fyrox_tile_raster": [_VP] * 7 + [_I] * 8 + [_VP],
 }
 
 _LIB = None

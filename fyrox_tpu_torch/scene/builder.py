@@ -1,9 +1,7 @@
 """Host-side scene construction (the port's copy of
-``fyrox_tpu.scene.builder`` for the node kinds the flagship uses).
+``fyrox_tpu.scene.builder`` for the node kinds the port uses).
 
-Pivots, rigid-body nodes and cameras are supported; payload kinds that
-need subsystems the port does not have yet (lights, meshes, sounds, ...)
-are not offered.
+Pivots, rigid-body nodes, cameras, lights and meshes are supported.
 """
 from __future__ import annotations
 
@@ -42,6 +40,10 @@ class SceneBuilder:
         self._nodes: List[_NodeRec] = []
         self._cameras: dict = dict(node=[], fov=[], z_near=[], z_far=[],
                                    ortho=[], vertical_size=[], enabled=[])
+        self._lights: dict = dict(node=[], kind=[], color=[], radius=[],
+                                  hotspot=[], falloff_delta=[], intensity=[],
+                                  cast_shadows=[])
+        self._meshes: list = []
 
     def add_node(self, name="node", parent=-1, node_type=NodeType.PIVOT,
                  position=(0, 0, 0), rotation=None, scale=(1, 1, 1),
@@ -79,6 +81,38 @@ class SceneBuilder:
         c["enabled"].append(bool(camera_enabled))
         return idx
 
+    # -- lights (light/{point,spot,directional}.rs) ------------------------
+    def add_light(self, kind, name="light", parent=-1, color=(1.0, 1.0, 1.0),
+                  radius=10.0, hotspot=np.deg2rad(90.0),
+                  falloff_delta=np.deg2rad(5.0), intensity=1.0,
+                  cast_shadows=True, **kw) -> int:
+        node_type = {"point": NodeType.POINT_LIGHT,
+                     "spot": NodeType.SPOT_LIGHT,
+                     "directional": NodeType.DIRECTIONAL_LIGHT}[kind]
+        idx = self.add_node(name, parent, node_type, **kw)
+        self._nodes[idx].payload = len(self._lights["node"])
+        li = self._lights
+        li["node"].append(idx)
+        li["kind"].append({"point": 0, "spot": 1, "directional": 2}[kind])
+        li["color"].append(np.asarray(color, np.float32))
+        li["radius"].append(float(radius))
+        li["hotspot"].append(float(hotspot))
+        li["falloff_delta"].append(float(falloff_delta))
+        li["intensity"].append(float(intensity))
+        li["cast_shadows"].append(bool(cast_shadows))
+        return idx
+
+    # -- mesh ----------------------------------------------------------------
+    def add_mesh(self, mesh_data, name="mesh", parent=-1, **kw) -> int:
+        """mesh_data: fyrox_tpu_torch.render.mesh.MeshData; its bbox becomes
+        the node's local bounding box unless `bbox` is given."""
+        if kw.get("bbox") is None and hasattr(mesh_data, "bbox"):
+            kw["bbox"] = mesh_data.bbox
+        idx = self.add_node(name, parent, NodeType.MESH, **kw)
+        self._nodes[idx].payload = len(self._meshes)
+        self._meshes.append(mesh_data)
+        return idx
+
     def build(self) -> SceneTemplate:
         n = len(self._nodes)
         parent = np.array([r.parent for r in self._nodes], np.int32)
@@ -110,4 +144,6 @@ class SceneBuilder:
                                       else r.bbox_max for r in self._nodes])
                             if has_bbox else None),
             cameras={k: np.asarray(v) for k, v in self._cameras.items()},
+            lights={k: np.asarray(v) for k, v in self._lights.items()},
+            meshes=list(self._meshes),
         )

@@ -69,6 +69,8 @@ class SceneTemplate:
     local_bbox_min: Optional[np.ndarray] = None
     local_bbox_max: Optional[np.ndarray] = None
     cameras: dict = field(default_factory=dict)
+    lights: dict = field(default_factory=dict)     # SoA dict of light params
+    meshes: list = field(default_factory=list)     # list of render.MeshData
 
     @property
     def num_nodes(self) -> int:

@@ -24,6 +24,10 @@
 #define __restrict__
 #define __launch_bounds__(x)
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -94,7 +98,7 @@ using std::max;
 using std::min;
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T>

@@ -116,6 +116,26 @@ def test_port_imports_and_builds_without_jax():
         assert fused_step.supports_fused_bp(e.physics)
         st = e.step(st)
         st = e.step(st, fused=False)
+        from fyrox_tpu_torch import render
+        from fyrox_tpu_torch.core import aabb, frustum
+        from fyrox_tpu_torch.render import tile_raster
+        from fyrox_tpu_torch.scene import SceneBuilder, camera, graph
+        from fyrox_tpu_torch.scene import init_state
+        sb = SceneBuilder()
+        sb.add_mesh(render.make_plane(20.0))
+        sb.add_mesh(render.make_sphere(0.5), position=(0.0, 0.5, 0.0))
+        sb.add_light("directional", rotation=(0.5, 0.0, 0.0, 0.866))
+        sb.add_camera("cam", position=(0, 4.0, -8.0),
+                      rotation=(0.2, 0.0, 0.0, 0.98))
+        t = sb.build()
+        ws = graph.update_hierarchical_data(init_state(t, 2, device="cpu"),
+                                            t)
+        color, _ = render.render_frame(
+            ws, t, render.build_render_template(t),
+            render.RenderConfig(width=32, height=32,
+                                csm=render.CsmConfig(map_size=32)))
+        assert color.shape == (2, 32, 32, 3) and color.abs().sum() > 0
+        assert tile_raster.launches("full") == 0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

@@ -355,3 +355,46 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     assert e.init_state(2, device="cpu").physics.position.device.type == "cpu"
+
+
+def test_sat_tie_inputs_round_as_unfused_jax():
+    """The SAT of two near axis-aligned boxes (a box resting flat on a
+    finite platform, where two face axes tie) rounds every operation as
+    the JAX package does without XLA's fusion: under jax.disable_jit the
+    two packages' rotations and manifolds are equal bit for bit. Jitted,
+    XLA may fuse q_to_rot9's products into FMAs (one ulp apart on the
+    axis-aligned pile's resting boxes), which is where that pile's
+    trajectories part (ROADMAP queue 3)."""
+    from fyrox_tpu.physics import np_planes as jnp_planes
+    from fyrox_tpu.physics import planes as jplanes
+    from fyrox_tpu_torch.physics import np_planes as tnp_planes
+    from fyrox_tpu_torch.physics import planes as tplanes
+    rng = np.random.default_rng(11)
+    n = 64
+    q = np.concatenate([rng.normal(0, 1e-4, (n, 3)), np.ones((n, 1))], -1)
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    pb = np.stack([rng.uniform(-3, 3, n), 0.18 + rng.normal(0, 1e-4, n),
+                   rng.uniform(-3, 3, n)], -1).astype(np.float32)
+    pa = np.tile(np.float32([0.0, -0.2, 0.0]), (n, 1))
+    qa = np.tile(np.float32([0.0, 0.0, 0.0, 1.0]), (n, 1))
+    ha, hb = (4.0, 0.2, 4.0), (0.18, 0.18, 0.18)
+
+    def jax_side(pa, qa, pb, qb):
+        sp = lambda x: tuple(x[:, i] for i in range(x.shape[1]))
+        full = lambda h: tuple(jnp.full((n,), v, jnp.float32) for v in h)
+        ra, rb = jplanes.q_to_rot9(sp(qa)), jplanes.q_to_rot9(sp(qb))
+        return rb, jnp_planes.cuboid_cuboid_p(sp(pa), ra, full(ha), sp(pb),
+                                              rb, full(hb), 0.002)
+
+    with jax.disable_jit():
+        jrb, jm = jax_side(*(jnp.asarray(x) for x in (pa, qa, pb, q)))
+    sp = lambda x: tuple(torch.as_tensor(x[:, i].copy())
+                         for i in range(x.shape[1]))
+    full = lambda h: tuple(torch.full((n,), v) for v in h)
+    trb = tplanes.q_to_rot9(sp(q))
+    tm = tnp_planes.cuboid_cuboid_p(sp(pa), tplanes.q_to_rot9(sp(qa)),
+                                    full(ha), sp(pb), trb, full(hb), 0.002)
+    leaves = lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]
+    for a, b in zip(leaves((jrb, jm)), leaves(convert.to_numpy((trb, tm)))):
+        np.testing.assert_array_equal(a, b)
+    assert (leaves(jm.active)[0] > 0.5).any()

@@ -228,3 +228,91 @@ def test_fused_route_refuses_worlds_beyond_k1_shared_memory(cuda):
     st = phys_mod.init_physics_state(pb, t, 1, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         phys_mod.step_physics(st, t, 1 / 60)
+
+
+def _raster_scene(device, n_worlds=3):
+    """A small lit scene (ground, cubes, spheres, directional light) in
+    worlds whose objects are jittered apart (seeded)."""
+    from fyrox_tpu_torch.render import (build_render_template, make_cube,
+                                        make_plane, make_sphere)
+    from fyrox_tpu_torch.scene import NodeType, SceneBuilder, graph
+    from fyrox_tpu_torch.scene import init_state
+    sb = SceneBuilder()
+    sb.add_mesh(make_plane(20.0))
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        x, z = rng.uniform(-5, 5, 2)
+        sb.add_mesh(make_cube(1.0) if i % 2 else make_sphere(0.5),
+                    position=(x, 0.5, z))
+    sb.add_light("directional", rotation=(0.5, 0.0, 0.0, 0.866))
+    sb.add_camera("cam", position=(0, 5.0, -9.0),
+                  rotation=(0.2, 0.0, 0.0, 0.98))
+    t = sb.build()
+    st = init_state(t, n_worlds, device=device)
+    mesh = torch.as_tensor(t.node_type == NodeType.MESH, device=device)
+    noise = torch.as_tensor(np.random.default_rng(1).uniform(
+        -0.1, 0.1, tuple(st.position.shape)).astype(np.float32),
+        device=device)
+    st = st._replace(position=st.position + noise * mesh[None, :, None])
+    return t, build_render_template(t), graph.update_hierarchical_data(st, t)
+
+
+@pytest.mark.parametrize("depth_only", [False, True])
+def test_tile_raster_kernel_is_bit_exact(cuda, depth_only):
+    """K5 at a frame's own inputs (64 x 256 camera pass, 3 cascades of
+    128 x 128 maps): equal to its plain version bit for bit, twice."""
+    from fyrox_tpu_torch.render import (CsmConfig, RenderConfig,
+                                        render_frame, tile_raster)
+    t, rt, st = _raster_scene(cuda)
+    seen = []
+    dispatch = tile_raster.visibility
+
+    def spy(*args, **kw):
+        seen.append((args, kw.get("depth_only", False)))
+        return dispatch(*args, **kw)
+
+    tile_raster.visibility = spy
+    try:
+        before = tile_raster.launches("depth" if depth_only else "full")
+        render_frame(st, t, rt, RenderConfig(
+            width=256, height=64, k_per_tile=256, csm=CsmConfig(
+                map_size=128), cascade_tri_budget=(0.05, 1.0, 0.75)))
+        assert tile_raster.launches("depth" if depth_only else "full") == \
+            before + 1
+    finally:
+        tile_raster.visibility = dispatch
+    args = next(a for a, d in seen if d == depth_only)
+    got = tile_raster.visibility(*args, depth_only=depth_only)
+    again = tile_raster.visibility(*args, depth_only=depth_only)
+    ref = tile_raster.visibility_plain(*args, depth_only=depth_only)
+    got, again, ref = ((x,) if depth_only else x for x in (got, again, ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _all_differ(got[0]) and (got[0] < 1e8).float().mean() > 0.05
+
+
+def test_render_frame_on_the_card_matches_the_cpu(cuda):
+    from fyrox_tpu_torch.render import CsmConfig, RenderConfig, render_frame
+    t, rt, st = _raster_scene("cpu")
+    cfg = RenderConfig(width=64, height=64, csm=CsmConfig(map_size=64))
+    cpu, _ = render_frame(st, t, rt, cfg)
+    gpu, _ = render_frame(convert.scene_state(convert.to_numpy(st),
+                                              device=cuda), t, rt, cfg)
+    err = (gpu.cpu() - cpu).abs()
+    # 99.9 % of the values within 1e-4: sums over short axes run in other
+    # orders on the two devices, and a pixel on a triangle's edge whose
+    # coverage flips on a last-bit difference moves by its whole color
+    assert (err <= 1e-4).float().mean() >= 0.999 and cpu.abs().sum() > 0
+
+
+def test_tile_raster_kernel_rejects_bad_inputs(cuda):
+    from fyrox_tpu_torch.render import tile_raster
+    feats = torch.zeros((1, 8, 16), device=cuda)
+    ids = torch.zeros((1, 1, 8), dtype=torch.int32, device=cuda)
+    count = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tile_raster.visibility(feats.double(), ids, count, 8, 128, 8, 128)
+    with pytest.raises(ValueError):                     # 2 tiles, 1 binned
+        tile_raster.visibility(feats, ids, count, 16, 128, 8, 128)
+    with pytest.raises(ValueError):                     # tile > 1024 px
+        tile_raster.visibility(feats, ids, count, 16, 128, 16, 128)

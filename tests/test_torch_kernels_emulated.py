@@ -167,3 +167,47 @@ def test_plane_gather_matches_plain(on_cpu):
     idx = torch.as_tensor(rng.integers(-5, 45, (2, 300)).astype(np.int32))
     got = plane_ops._plane_gather_cuda(planes, idx)
     assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
+
+
+def _raster_inputs(size, n_img=3, t=300, seed=0, cull=True):
+    """Binned 2DH feature rows of seeded random triangles in n_img
+    different images: enough per tile to walk several 64-row chunks."""
+    from fyrox_tpu_torch.render import tile_raster
+    h, w = size
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1, 1, (n_img, t, 1, 2))
+    v = centers + rng.uniform(-0.4, 0.4, (n_img, t, 3, 2))
+    depth = rng.uniform(-0.9, 0.9, (n_img, t, 1, 1))
+    wc = rng.uniform(0.5, 2.0, (n_img, t, 1, 1))
+    clip = np.concatenate([v * wc, np.broadcast_to(depth * wc, (n_img, t, 3, 1)),
+                           np.broadcast_to(wc, (n_img, t, 3, 1))], -1)
+    clip = torch.as_tensor(clip.astype(np.float32))
+    tile_h, tile_w = min(8, h), min(128, w)
+    feats, bbox, ok = tile_raster.tri_features_h(
+        clip, torch.ones((n_img, t), dtype=torch.bool), h, w, cull)
+    ids, count, _ = tile_raster.bin_triangles(bbox, ok, h, w, tile_h, tile_w,
+                                              160)
+    assert int(count.max()) > 64
+    return feats.contiguous(), ids, count, h, w, tile_h, tile_w
+
+
+@pytest.mark.parametrize("size", [(16, 256), (32, 32)])
+def test_tile_raster_full_matches_plain(on_cpu, size):
+    from fyrox_tpu_torch.render import tile_raster
+    args = _raster_inputs(size)
+    z, idx, w0, w1 = tile_raster._visibility_cuda(*args)
+    zp, idxp, w0p, w1p = tile_raster.visibility_plain(*args)
+    assert (idxp >= 0).float().mean() > 0.3
+    assert not torch.equal(idxp[0], idxp[1])
+    assert torch.equal(idx, idxp)
+    for a, b in ((z, zp), (w0, w0p), (w1, w1p)):
+        assert (a - b).abs().max() <= 1e-6
+
+
+def test_tile_raster_depth_matches_plain(on_cpu):
+    from fyrox_tpu_torch.render import tile_raster
+    args = _raster_inputs((16, 256), cull=False, seed=1)
+    z = tile_raster._visibility_cuda(*args, depth_only=True)
+    zp = tile_raster.visibility_plain(*args, depth_only=True)
+    assert (zp < 1e8).float().mean() > 0.3
+    assert (z - zp).abs().max() <= 1e-6
