@@ -20,13 +20,14 @@ from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
 from fyrox_tpu_torch.core.curve import CurveSet
 from fyrox_tpu_torch.engine import AnimState, Engine, EngineState
 from fyrox_tpu_torch.physics.broadphase import SlabConfig
+from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
 from fyrox_tpu_torch.render.mesh import MeshData
 from fyrox_tpu_torch.render.pipeline import RenderTemplate
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
-__all__ = ["scene_template", "physics_template", "slab_config",
+__all__ = ["scene_template", "physics_template", "joint_set", "slab_config",
            "animation_set", "machine_template", "skin_template", "engine",
            "engine_state", "physics_state", "scene_state", "render_template",
            "to_numpy"]
@@ -90,9 +91,16 @@ def slab_config(sc) -> SlabConfig:
     return _copy(sc, SlabConfig, names)
 
 
+def joint_set(j) -> JointSet:
+    """A JAX-package JointSet → the port's, field by field."""
+    return JointSet(**{f: np.asarray(getattr(j, f))
+                       for f in JointSet.__dataclass_fields__})
+
+
 def physics_template(t) -> PhysicsTemplate:
-    if getattr(t, "joints", None) is not None:
-        raise NotImplementedError("joints")
+    """A JAX-package PhysicsTemplate → the port's; joints and
+    centre-of-mass offsets come along, the parts the port has no
+    counterpart for raise."""
     if getattr(t, "hulls", None) is not None:
         raise NotImplementedError("convex hulls (incl. cylinder/cone)")
     if any(getattr(t, k, None) is not None for k in ("col_hf", "col_tm")):
@@ -112,6 +120,8 @@ def physics_template(t) -> PhysicsTemplate:
              "gravity", "broadphase_period")
     out = _copy(t, PhysicsTemplate, names)
     out.grid = slab_config(t.grid)
+    if getattr(t, "joints", None) is not None:
+        out.joints = joint_set(t.joints)
     return out
 
 

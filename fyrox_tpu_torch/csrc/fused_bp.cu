@@ -10,7 +10,7 @@
 // slab2 pose/AABB stages and broadphase.class_windows, packed as here).
 //
 // Layout (per world w; B bodies, C colliders, Cg grid colliders):
-//   body      [W,26,B] f32  K1 body planes (lv 0-2, pos 6-8, q 9-12 read)
+//   body      [W,29,B] f32  K1 body planes (lv 0-2, pos 6-8, q 9-12 read)
 //   col_body, shape, kinds, dyn [C] i32; col_sta [8,C] f32 (params6 ...);
 //   col_off [7,C] f32 (offset pos3, rot4); sweep_cap [C] f32;
 //   grid_cols [Cg] i32; cls_tab [9,9] i32; jv_big [NSB,Cg] i32 (static
@@ -40,7 +40,7 @@
 // cell sizes, so a collider lands in the same cell as in the plain version
 // and the windows agree as integers.
 //
-// Bound: memory. A world reads 10 of its 26 body planes and the static
+// Bound: memory. A world reads 10 of its 29 body planes and the static
 // tables, writes 10 x C collider planes and NS x Cg window rows (~100 KB at
 // the flagship's shapes); the sort is ~Cg log²Cg / 4 compare-swaps in
 // shared memory and the walk ~s_walk slot tests per collider. With one CTA
@@ -181,7 +181,7 @@ fused_bp_kernel(const float* __restrict__ body_all,
   float* aabb = reinterpret_cast<float*>(skv + p.np2);   // [6, Cg]
   const int w = blockIdx.x;
   const int B = p.B, C = p.C, Cg = p.Cg;
-  const float* body = body_all + (size_t)w * 26 * B;
+  const float* body = body_all + (size_t)w * 29 * B;
   float* col = col_all + (size_t)w * 10 * C;
   int* jv = jv_all + (size_t)w * p.NS * Cg;
 

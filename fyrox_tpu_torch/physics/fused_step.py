@@ -19,7 +19,7 @@ kernel's plain version (``bp_candidates_plain``, ``narrow_compact_plain``:
 the staged path's own stages, re-packed); a CUDA tensor takes the kernel,
 or raises. Layouts, per world:
 
-    body     [W,26,B]    f32  the K1 body planes (tgs_kernel)
+    body     [W,29,B]    f32  the K1 body planes (tgs_kernel)
     col      [W,10,C]    f32  collider position 3, rotation 4, sweep v·dt 3
     jv       [W,NS,Cg]   i32  candidate windows, -1 invalid: the rows of
                               class c start at row0_c, s_class[c] walked
@@ -66,11 +66,14 @@ def reset_launches():
 # --------------------------------------------------------------------------
 
 def supports_fused(t) -> bool:
-    """K2 scope (pallas_step.supports_fused): at least one window class.
-    The rest of the JAX test (no joints, centre-of-mass offsets, hulls or
-    scenery) holds for every template the port steps: slab2._ctx raises on
-    those before a route is chosen."""
-    return any(t.grid.nslot(c) for c in range(3))
+    """K2 scope (pallas_step.supports_fused): no joints, no centre-of-mass
+    offsets and at least one window class. Jointed and COM templates take
+    the staged route, whose K1 call carries the joint tables; hulls and
+    scenery raise in slab2._ctx before a route is chosen."""
+    joints = getattr(t, "joints", None)
+    return (not np.any(np.asarray(t.com_local))
+            and (joints is None or joints.num_joints == 0)
+            and any(t.grid.nslot(c) for c in range(3)))
 
 
 def supports_fused_bp(t) -> bool:
@@ -178,7 +181,7 @@ def _split(col):
 
 
 def collider_planes(t, body, dt):
-    """Body planes [W,26,B] → collider planes [W,10,C]: world position,
+    """Body planes [W,29,B] → collider planes [W,10,C]: world position,
     rotation and sweep v·dt of every collider (slab2's pose stage)."""
     cx = slab2._ctx(t)
     cpos, cq, lv_c = slab2._collider_pose_planes(
@@ -394,7 +397,12 @@ def narrow_compact(t, col, jv, warm_lam, warm_pid):
 # --------------------------------------------------------------------------
 
 def _inputs(state, t, accel, angvel):
-    """The step's body planes [W,26,B] and warm carries in K1 layout."""
+    """The step's body planes [W,29,B] and warm carries in K1 layout."""
+    if not supports_fused(t):
+        raise NotImplementedError(
+            "joints and centre-of-mass offsets on the fused route: the "
+            "fused kernels do not carry them (step_slab2 sends such "
+            "templates to the staged route)")
     cx = slab2._ctx(t)
     body = slab2.pack_body_planes(
         cx, state.position.unbind(-1), state.rotation.unbind(-1),

@@ -3,7 +3,9 @@
 Scenes in the fused scope take the fused route (physics/fused_step.py:
 K3, or K2 where a big collider is finite), as the JAX package does on its
 chip; ``fused=False`` keeps them on the staged path of this module (the
-JAX package's ``FYROX_NO_FUSED_STEP=1``):
+JAX package's ``FYROX_NO_FUSED_STEP=1``). Scenes with joints or
+centre-of-mass offsets always take the staged path, whose K1 call carries
+the joint tables and the COM planes:
 
     collider pose + swept fat AABBs → slab broadphase windows
     → per-class plane narrowphase (partner rows through K4a plane_gather)
@@ -29,13 +31,14 @@ from fyrox_tpu_torch.physics import broadphase as bp_mod
 from fyrox_tpu_torch.physics import np_planes
 from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics import tgs_kernel
+from fyrox_tpu_torch.physics.joints import joint_table
 from fyrox_tpu_torch.physics.plane_ops import plane_gather, plane_gather_plain
 from fyrox_tpu_torch.physics.planes import (norm3, q_to_rot9, qmul, qrotate,
                                             scale3, splat, sub3, where3,
                                             where_n)
 
-__all__ = ["step_slab2", "solver_inputs", "pack_solver_inputs",
-           "pack_contacts", "pack_body_planes"]
+__all__ = ["step_slab2", "contacts", "solver_inputs", "pack_solver_inputs",
+           "pack_contacts", "pack_body_planes", "joint_tables"]
 
 DYNAMIC = 0
 
@@ -52,10 +55,6 @@ class _Ctx:
                                       "are not ported)")
         if int(getattr(t, "broadphase_period", 1) or 1) != 1:
             raise NotImplementedError("broadphase_period > 1")
-        if getattr(t, "joints", None) is not None:
-            raise NotImplementedError("joints")
-        if np.any(np.asarray(t.com_local)):
-            raise NotImplementedError("centre-of-mass offsets")
         shapes_ok = (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE)
         if not np.all(np.isin(np.asarray(t.col_shape), shapes_ok)):
             raise NotImplementedError("convex hulls, cylinders/cones and "
@@ -103,6 +102,20 @@ class _Ctx:
         self.inv_inertia = np.asarray(t.inv_inertia_local, np.float32)
         self.ii_rows = np.ascontiguousarray(
             self.inv_inertia.reshape(-1, 9).T)                 # [9,B]
+        # body-local COM offsets (zeros for origin-centred bodies); has_com
+        # is template-wide, as in the JAX package
+        self.com_rows = np.ascontiguousarray(
+            np.asarray(t.com_local, np.float32).T)             # [3,B]
+        self.has_com = bool(np.any(self.com_rows))
+        # static joint tables of the solve: partner bodies and the
+        # per-joint rows (joints.joint_table)
+        joints = getattr(t, "joints", None)
+        self.joints = (joints if joints is not None and joints.num_joints
+                       else None)
+        if self.joints is not None:
+            self.joint_a = np.asarray(self.joints.body_a, np.int32)
+            self.joint_b = np.asarray(self.joints.body_b, np.int32)
+            self.jtab = joint_table(self.joints)
 
 
 def _ctx(t) -> _Ctx:
@@ -346,20 +359,32 @@ def pack_contacts(cx: _Ctx, con: _Contacts, lam0):
 
 
 def pack_body_planes(cx: _Ctx, pos, q, lv, av, accel):
-    """Body state planes [W,B] → the K1 body layout [W,26,B]: lv3 av3 pos3
-    q4 acc3 inv_mass inv_inertia_world9."""
+    """Body state planes [W,B] → the K1 body layout [W,29,B]: lv3 av3 pos3
+    q4 acc3 inv_mass inv_inertia_world9 com_local3."""
     w = pos[0].shape[0]
     dev = pos[0].device
     ii0 = _ii_world9(q, const(cx.ii_rows, dev))
     imass = const(cx.inv_mass, dev)[None].expand(w, -1)
+    cm = [r[None].expand(w, -1) for r in const(cx.com_rows, dev).unbind(0)]
     return torch.stack(list(lv) + list(av) + list(pos) + list(q)
-                       + list(accel) + [imass] + list(ii0), 1).contiguous()
+                       + list(accel) + [imass] + list(ii0) + cm,
+                       1).contiguous()
+
+
+def joint_tables(cx: _Ctx, device):
+    """The template's joint tables for the solve, on `device` (None for a
+    template without joints)."""
+    if cx.joints is None:
+        return None
+    return tgs_kernel.JointTables(body_a=const(cx.joint_a, device),
+                                  body_b=const(cx.joint_b, device),
+                                  jtab=const(cx.jtab, device))
 
 
 def pack_solver_inputs(cx: _Ctx, con: _Contacts, lam0, pos, q, lv, av,
                        accel):
     """Compacted contacts + body planes → the K1 layout
-    (con [W,15,S,Cg], body_j [W,S,Cg], body [W,26,B], col_body [Cg])."""
+    (con [W,15,S,Cg], body_j [W,S,Cg], body [W,29,B], col_body [Cg])."""
     con_planes, body_j = pack_contacts(cx, con, lam0)
     body = pack_body_planes(cx, pos, q, lv, av, accel)
     return con_planes, body_j, body, const(cx.grid_body, pos[0].device)
@@ -378,28 +403,23 @@ def step_slab2(state, t, dt, accel, angvel, fused=True):
     else:
         packed, pid = solver_inputs(state, t, dt, accel, angvel)
         body_out, lam = tgs_kernel.solve_tgs(
-            *packed, tgs_kernel.solver_params(t, dt))
+            *packed, tgs_kernel.solver_params(t, dt), has_com=cx.has_com,
+            joints=joint_tables(cx, packed[0].device))
     lams = tuple(from_sc(cx, lam[:, i]) for i in range(3))
     return _finish_step(state, t, dt, body_out, lams, pid)
 
 
-def solver_inputs(state, t, dt, accel, angvel):
-    """Everything of the step before the solve: pose, AABBs, broadphase,
-    narrowphase, compaction and warm-start matching. Returns the packed
-    K1 inputs (con, body_j, body, col_body) and the new point identities
-    [W, Cg*s_active]."""
+def contacts(state, t, dt) -> _Contacts:
+    """The step's compacted contacts: collider pose, AABBs, broadphase,
+    narrowphase and compaction."""
     from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
                                                SPECULATIVE_MARGIN)
     cx = _ctx(t)
     sc = t.grid
-    pos_b = _unstack(state.position)
-    q_b = _unstack(state.rotation)
-    lv_b = _unstack(state.linvel)
-    av_b = _unstack(angvel)
-    acc_b = _unstack(accel)
     margin = t.allowed_linear_error + SPECULATIVE_MARGIN
-
-    cpos, cq, lv_c = _collider_pose_planes(cx, pos_b, q_b, lv_b)
+    cpos, cq, lv_c = _collider_pose_planes(cx, _unstack(state.position),
+                                           _unstack(state.rotation),
+                                           _unstack(state.linvel))
     crot9 = q_to_rot9(cq)
     v_sweep = scale3(lv_c, dt)
     amin, amax = _aabb_planes(cx, t, cpos, crot9, v_sweep, margin)
@@ -409,13 +429,21 @@ def solver_inputs(state, t, dt, accel, angvel):
         tight_delta=SPECULATIVE_MARGIN - PREDICTION_DISTANCE)
     attrs_f, attrs_i = _narrowphase_windows(cx, t, cands, cpos, cq, v_sweep,
                                             margin)
-    con = _compact(cx, attrs_f, attrs_i)
+    return _compact(cx, attrs_f, attrs_i)
 
+
+def solver_inputs(state, t, dt, accel, angvel):
+    """Everything of the step before the solve: contacts and warm-start
+    matching. Returns the packed K1 inputs (con, body_j, body, col_body)
+    and the new point identities [W, Cg*s_active]."""
+    con = contacts(state, t, dt)
     # warm start: slots still holding the same contact point identity
     same = (state.warm_pair == con.pid).to(torch.float32) * con.act
     lam0 = (state.warm_n * same, state.warm_t1 * same, state.warm_t2 * same)
-    return (pack_solver_inputs(cx, con, lam0, pos_b, q_b, lv_b, av_b, acc_b),
-            con.pid)
+    return (pack_solver_inputs(_ctx(t), con, lam0, _unstack(state.position),
+                               _unstack(state.rotation),
+                               _unstack(state.linvel), _unstack(angvel),
+                               _unstack(accel)), con.pid)
 
 
 def _finish_step(state, t, dt, body_out, lams, pid_new):

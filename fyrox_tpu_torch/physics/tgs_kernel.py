@@ -1,16 +1,19 @@
 """TGS-soft contact solve (K1) on the packed per-world layout.
 
-Replaces ``fyrox_tpu/physics/pallas_solver.py:816 solve_tgs_pallas`` for
-scenes without joints or centre-of-mass offsets. On the card it is
+Replaces ``fyrox_tpu/physics/pallas_solver.py:816 solve_tgs_pallas``,
+joints (up to 128) and centre-of-mass offsets included. On the card it is
 ``csrc/tgs_solve.cu`` (one CTA per world); a CPU tensor takes
 ``solve_tgs_plain``, which is the same computation in PyTorch (the
-semantics of ``slab2._solve_tgs_planes`` / ``pallas_solver.solve_planes``).
+semantics of ``pallas_solver.solve_planes`` and its joint passes).
 
 Layout (see csrc/tgs_solve.cu):
   con [W,15,S,Cg] f32 — n3, pt3, depth, fric, rest, act, own, sigma, lam3
   body_j [W,S,Cg] i32 — partner body of each slot
-  body [W,26,B] f32 — lv3, av3, pos3, q4, acc3, inv_mass, inv_inertia9
+  body [W,29,B] f32 — lv3, av3, pos3, q4, acc3, inv_mass, inv_inertia9,
+                      com_local3
   col_body [Cg] i32 — each grid collider's own body
+  joints — JointTables: body_a, body_b [J] i32; jtab [20,J] f32 (kind,
+           anchor_a3, anchor_b3, axis_a3, ref_rot4, com_a3, com_b3)
 Returns body_out [W,13,B] (lv3, av3, pos3, q4) and lam [W,3,S,Cg].
 """
 from __future__ import annotations
@@ -20,17 +23,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fyrox_tpu_torch.physics.joints import JTAB_ROWS, MAX_KERNEL_JOINTS
 from fyrox_tpu_torch.physics.planes import cross3 as _cross
 from fyrox_tpu_torch.physics.planes import dot3 as _dot
+from fyrox_tpu_torch.physics.planes import qmul as _qmul
 
-__all__ = ["SolverParams", "solver_params", "solve_tgs", "solve_tgs_plain",
-           "smem_bytes", "SMEM_LIMIT", "launches", "reset_launches",
-           "CON_ROWS", "BODY_ROWS"]
+__all__ = ["SolverParams", "JointTables", "solver_params", "solve_tgs",
+           "solve_tgs_plain", "smem_bytes", "SMEM_LIMIT", "launches",
+           "reset_launches", "CON_ROWS", "BODY_ROWS"]
 
 CON_ROWS = 15
-BODY_ROWS = 26
+BODY_ROWS = 29
 SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
-_BODY_SMEM_PLANES = 30
+_BODY_SMEM_PLANES = 30         # 26 body planes, count, step-start COM3
+_J_ERP = 0.2                   # joint velocity bias (pallas_solver._J_ERP)
+_J_POS_ERP = 0.5               # joint position pass (_J_POS_ERP)
 
 _LAUNCHES = 0
 
@@ -60,6 +67,13 @@ class SolverParams(NamedTuple):
     n_stab: int
 
 
+class JointTables(NamedTuple):
+    """The solve's static joint tables (slab2.joint_tables)."""
+    body_a: torch.Tensor      # [J] int32
+    body_b: torch.Tensor      # [J] int32
+    jtab: torch.Tensor        # [20,J] f32
+
+
 def solver_params(t, dt) -> SolverParams:
     """Soft-contact constants at substep scale (Box2D-v3 / rapier TGS-soft,
     contact_hertz 30, damping ratio 10), evaluated in float32 like the
@@ -81,8 +95,14 @@ def solver_params(t, dt) -> SolverParams:
         n_pgs=int(t.n_pgs), n_stab=int(t.n_stabilization))
 
 
-def smem_bytes(n_bodies: int, n_grid_colliders: int) -> int:
-    return 4 * (_BODY_SMEM_PLANES * n_bodies + 6 * n_grid_colliders)
+def smem_bytes(n_bodies: int, n_grid_colliders: int, has_com=False,
+               n_joints=0) -> int:
+    """Shared memory of one K1 block: the body planes (three more with COM
+    offsets), the per-collider impulse buffer and, with joints, the joint
+    table, its per-joint impulse buffer and the two body lists."""
+    planes = _BODY_SMEM_PLANES + (3 if has_com else 0)
+    return 4 * (planes * n_bodies + 6 * n_grid_colliders
+                + (JTAB_ROWS + 12 + 2) * n_joints)
 
 
 # --------------------------------------------------------------------------
@@ -107,9 +127,180 @@ def _qstep(q, w, scale):
     return tuple(qc * inv for qc in qn)
 
 
-def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
+def _jrot(q, v):
+    """Rotate v by the unit quaternion q (x,y,z,w), in the kernel's
+    operation order (pallas_solver._jrot)."""
+    tx = 2.0 * (q[1] * v[2] - q[2] * v[1])
+    ty = 2.0 * (q[2] * v[0] - q[0] * v[2])
+    tz = 2.0 * (q[0] * v[1] - q[1] * v[0])
+    return (v[0] + q[3] * tx + (q[1] * tz - q[2] * ty),
+            v[1] + q[3] * ty + (q[2] * tx - q[0] * tz),
+            v[2] + q[3] * tz + (q[0] * ty - q[1] * tx))
+
+
+def _conj(q):
+    return (-q[0], -q[1], -q[2], q[3])
+
+
+def _skew_sandwich(r, m):
+    """skew(r) @ M @ skew(r)ᵀ as 9 values (M row-major)."""
+    rx, ry, rz = r
+    t0 = (-rz * m[3] + ry * m[6], -rz * m[4] + ry * m[7],
+          -rz * m[5] + ry * m[8])
+    t1 = (rz * m[0] - rx * m[6], rz * m[1] - rx * m[7],
+          rz * m[2] - rx * m[8])
+    t2 = (-ry * m[0] + rx * m[3], -ry * m[1] + rx * m[4],
+          -ry * m[2] + rx * m[5])
+
+    def col(t):
+        return (-rz * t[1] + ry * t[2], rz * t[0] - rx * t[2],
+                -ry * t[0] + rx * t[1])
+
+    c0, c1, c2 = col(t0), col(t1), col(t2)
+    return (c0[0], c0[1], c0[2], c1[0], c1[1], c1[2], c2[0], c2[1], c2[2])
+
+
+def _solve3(m, b):
+    """3×3 solve through the adjugate (the kernel's, pallas_solver._solve3);
+    m row-major with the +1e-9 diagonal already added."""
+    c00 = m[4] * m[8] - m[5] * m[7]
+    c01 = m[5] * m[6] - m[3] * m[8]
+    c02 = m[3] * m[7] - m[4] * m[6]
+    det = m[0] * c00 + m[1] * c01 + m[2] * c02
+    inv_det = 1.0 / (det + 1e-18)
+    c10 = m[2] * m[7] - m[1] * m[8]
+    c11 = m[0] * m[8] - m[2] * m[6]
+    c12 = m[1] * m[6] - m[0] * m[7]
+    c20 = m[1] * m[5] - m[2] * m[4]
+    c21 = m[2] * m[3] - m[0] * m[5]
+    c22 = m[0] * m[4] - m[1] * m[3]
+    return ((c00 * b[0] + c10 * b[1] + c20 * b[2]) * inv_det,
+            (c01 * b[0] + c11 * b[1] + c21 * b[2]) * inv_det,
+            (c02 * b[0] + c12 * b[1] + c22 * b[2]) * inv_det)
+
+
+class _Joints:
+    """Per-joint gathers and per-body sums of the plain joint passes."""
+
+    def __init__(self, joints: JointTables, nb, h):
+        self.ia = joints.body_a.long()
+        self.ib = joints.body_b.long()
+        jt = [r[None] for r in joints.jtab.unbind(0)]       # 20 × [1,J]
+        self.kind = jt[0]
+        self.anch_a, self.anch_b = tuple(jt[1:4]), tuple(jt[4:7])
+        self.axis, self.ref = tuple(jt[7:10]), tuple(jt[10:14])
+        self.com_a, self.com_b = tuple(jt[14:17]), tuple(jt[17:20])
+        self.nb = nb
+        # 0.2 / h in float32, as the kernel divides
+        self.erp_h = float(np.float32(_J_ERP) / np.float32(h))
+
+    @staticmethod
+    def gather(planes, idx):
+        return tuple(p[:, idx] for p in planes)
+
+    def scatter(self, vals, idx):
+        """[W,J] values → [W,B] sums per body, in joint order."""
+        st = torch.stack(vals, 1)
+        out = torch.zeros(st.shape[:2] + (self.nb,), dtype=st.dtype,
+                          device=st.device)
+        out.index_add_(2, idx, st)
+        return out.unbind(1)
+
+    def add(self, planes, vals_a, vals_b):
+        """planes + Σ side-A deltas + Σ side-B deltas."""
+        sa = self.scatter(vals_a, self.ia)
+        sb = self.scatter(vals_b, self.ib)
+        return tuple(p + a + b for p, a, b in zip(planes, sa, sb))
+
+    def velocity_pass(self, lv, av, pos, q, im, ii0):
+        """One Jacobi velocity pass over all joints
+        (pallas_solver._joint_velocity_planes)."""
+        g = self.gather
+        ia, ib = self.ia, self.ib
+        qa, qb = g(q, ia), g(q, ib)
+        pos_a, pos_b = g(pos, ia), g(pos, ib)
+        lv_a, av_a, (im_a,), ii_a = (g(lv, ia), g(av, ia), g((im,), ia),
+                                     g(ii0, ia))
+        lv_b, av_b, (im_b,), ii_b = (g(lv, ib), g(av, ib), g((im,), ib),
+                                     g(ii0, ib))
+        ra = _jrot(qa, tuple(a - c for a, c in zip(self.anch_a, self.com_a)))
+        rb = _jrot(qb, tuple(a - c for a, c in zip(self.anch_b, self.com_b)))
+        pa = tuple(p + r for p, r in zip(pos_a, _jrot(qa, self.anch_a)))
+        pb = tuple(p + r for p, r in zip(pos_b, _jrot(qb, self.anch_b)))
+        va = tuple(x + c for x, c in zip(lv_a, _cross(av_a, ra)))
+        vb = tuple(x + c for x, c in zip(lv_b, _cross(av_b, rb)))
+        c3 = tuple(b_ - a_ for a_, b_ in zip(pa, pb))
+        axis_w0 = _jrot(qa, self.axis)
+        is_prism = self.kind == 3.0
+        cdot = _dot(c3, axis_w0)
+        c3 = tuple(torch.where(is_prism, cc - cdot * ax, cc)
+                   for cc, ax in zip(c3, axis_w0))
+        verr = tuple(vb_ - va_ + self.erp_h * cc
+                     for va_, vb_, cc in zip(va, vb, c3))
+        vdot = _dot(verr, axis_w0)
+        verr = tuple(torch.where(is_prism, ve - vdot * ax, ve)
+                     for ve, ax in zip(verr, axis_w0))
+        sa = _skew_sandwich(ra, ii_a)
+        sb = _skew_sandwich(rb, ii_b)
+        imab = im_a + im_b
+        k = [x + y for x, y in zip(sa, sb)]
+        for d in (0, 4, 8):
+            k[d] = k[d] + imab + 1e-9
+        imp = tuple(-i for i in _solve3(k, verr))
+        nimp = tuple(-i for i in imp)
+        lv_n, av_n = lv, av
+        lv = self.add(lv_n, tuple(i * im_a for i in nimp),
+                      tuple(i * im_b for i in imp))
+        av = self.add(av_n, _mv9(ii_a, _cross(ra, nimp)),
+                      _mv9(ii_b, _cross(rb, imp)))
+        # the angular locks see the post-point angular velocities, other
+        # joints' on the same body included
+        av_a, av_b = g(av, ia), g(av, ib)
+        rel_w = tuple(b_ - a_ for a_, b_ in zip(av_a, av_b))
+        q_err = _qmul(_conj(self.ref), _qmul(_conj(qa), qb))
+        sgn = torch.where(q_err[3] >= 0.0, 1.0, -1.0)
+        ang_err = _jrot(qa, tuple(2.0 * e * sgn for e in q_err[:3]))
+        target = tuple(rw + self.erp_h * ae for rw, ae in zip(rel_w, ang_err))
+        tdot = _dot(target, axis_w0)
+        t_rev = tuple(tt - tdot * ax for tt, ax in zip(target, axis_w0))
+        full = (self.kind == 1.0) | (self.kind == 3.0)
+        is_rev = self.kind == 2.0
+        ang_t = tuple(torch.where(full, tt, torch.where(
+            is_rev, tr, torch.zeros_like(tt))) for tt, tr in zip(target, t_rev))
+        k_ang = [x + y for x, y in zip(ii_a, ii_b)]
+        for d in (0, 4, 8):
+            k_ang[d] = k_ang[d] + 1e-9
+        ang_imp = tuple(-i for i in _solve3(k_ang, ang_t))
+        av = self.add(av, _mv9(ii_a, tuple(-i for i in ang_imp)),
+                      _mv9(ii_b, ang_imp))
+        return lv, av
+
+    def position_pass(self, pos, q, im):
+        """NGS anchor-separation correction
+        (pallas_solver._joint_position_planes)."""
+        g = self.gather
+        qa, qb = g(q, self.ia), g(q, self.ib)
+        pos_a, pos_b = g(pos, self.ia), g(pos, self.ib)
+        (im_a,), (im_b,) = g((im,), self.ia), g((im,), self.ib)
+        ra, rb = _jrot(qa, self.anch_a), _jrot(qb, self.anch_b)
+        c3 = tuple((p_b + r_b) - (p_a + r_a)
+                   for p_a, r_a, p_b, r_b in zip(pos_a, ra, pos_b, rb))
+        axis_w = _jrot(qa, self.axis)
+        is_prism = self.kind == 3.0
+        cdot = _dot(c3, axis_w)
+        c3 = tuple(torch.where(is_prism, cc - cdot * ax, cc)
+                   for cc, ax in zip(c3, axis_w))
+        denom = torch.clamp(im_a + im_b, min=1e-9)
+        corr = tuple(_J_POS_ERP * cc for cc in c3)
+        return self.add(pos, tuple(cc * im_a / denom for cc in corr),
+                        tuple(-cc * im_b / denom for cc in corr))
+
+
+def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams, *,
+                    has_com=False, joints: JointTables = None):
     """The whole TGS-soft solve in PyTorch (Jacobi over contact slots,
-    mass splitting, self-half impulses; see module docstring)."""
+    mass splitting, self-half impulses, optional joint passes and COM
+    tracking; see module docstring)."""
     w, _, s, cg = con.shape
     nb = body.shape[2]
     dev = con.device
@@ -123,6 +314,7 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
     swapped = sigma < 0.0
     bj = body_j.long().reshape(w, 1, s * cg)
     cb = col_body.long()
+    jp = None if joints is None else _Joints(joints, nb, p.h)
 
     def gather(planes):
         """[W,B] body planes → (partner [W,S,Cg], self [W,1,Cg]) lists."""
@@ -151,6 +343,7 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
     acc = tuple(body[:, i] for i in range(13, 16))
     im = body[:, 16]
     ii0 = tuple(body[:, i] for i in range(17, 26))
+    cm = tuple(body[:, i] for i in range(26, 29))
 
     # mass-splitting counts
     count = torch.clamp(to_bodies([actf / own])[0], min=1.0)
@@ -159,8 +352,10 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
     elif p.msp != 1.0:
         count = count ** p.msp
 
-    # lever arms measure from the step-start body origins
-    jg, ig = gather([im, count] + list(pos) + list(ii0))
+    # lever arms measure from the step-start world centre of mass
+    com_w0 = (tuple(x + r for x, r in zip(pos, _jrot(q, cm))) if has_com
+              else pos)
+    jg, ig = gather([im, count] + list(com_w0) + list(ii0))
     (im_a,), (im_b,) = pick(jg[0:1], ig[0:1])
     (cnt_a,), (cnt_b,) = pick(jg[1:2], ig[1:2])
     cnt_a, cnt_b = cnt_a * own, cnt_b * own
@@ -210,6 +405,8 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
 
     for _ in range(p.n_sub):
         lv = tuple(x + p.h * a for x, a in zip(lv, acc))
+        if jp is not None:
+            lv, av = jp.velocity_pass(lv, av, pos, q, im, ii0)
         lam_n, lam_t1, lam_t2 = lam_n * p.wc, lam_t1 * p.wc, lam_t2 * p.wc
         lv, av = apply_imp(lv, av, tuple(
             lam_n * a + lam_t1 * b + lam_t2 * c for a, b, c in zip(n, t1, t2)))
@@ -240,8 +437,19 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
                 dn * a + d1 * b + d2 * c for a, b, c in zip(n, t1, t2)))
         lam_mx = torch.maximum(lam_mx, lam_n)
         depth = depth - p.h * _dot(rel(lv, av), n)
-        q = _qstep(q, av, 0.5 * p.h)
-        pos = tuple(x + p.h * v for x, v in zip(pos, lv))
+        q_new = _qstep(q, av, 0.5 * p.h)
+        if has_com:
+            # the COM moves linearly; the origin follows the new orientation
+            com = tuple(x + r + p.h * v
+                        for x, r, v in zip(pos, _jrot(q, cm), lv))
+            pos = tuple(c - r for c, r in zip(com, _jrot(q_new, cm)))
+        else:
+            pos = tuple(x + p.h * v for x, v in zip(pos, lv))
+        q = q_new
+
+    if jp is not None:
+        for _ in range(p.n_stab):
+            pos = jp.position_pass(pos, q, im)
 
     vn = _dot(rel(lv, av), n)
     dl = (torch.clamp(-m_n * (vn - rest_t), min=0.0) * actf
@@ -254,6 +462,10 @@ def solve_tgs_plain(con, body_j, body, col_body, p: SolverParams):
         p_imp = m_n * corr * actf
         dpos, dth = impulse_sums(tuple(p_imp * x for x in n))
         pos = tuple(x + d for x, d in zip(pos, dpos))
+        if has_com:
+            # rotating about the COM shifts the origin by dθ × (−R(q)·cm)
+            arm = tuple(-r for r in _jrot(q, cm))
+            pos = tuple(x + d for x, d in zip(pos, _cross(dth, arm)))
         q = _qstep(q, dth, 0.5)
         depth = depth - _dot(rel(dpos, dth), n)
 
@@ -269,7 +481,8 @@ _CSR_CACHE: dict = {}
 
 
 def _csr(col_body: torch.Tensor, n_bodies: int):
-    """Body → grid-collider CSR lists (ascending collider order)."""
+    """Body → rows CSR lists (ascending row order) of an index vector:
+    each body's grid colliders, or each body's joints on one side."""
     key = (col_body.data_ptr(), n_bodies, str(col_body.device))
     hit = _CSR_CACHE.get(key)
     if hit is not None and hit[0] is col_body:
@@ -285,19 +498,27 @@ def _csr(col_body: torch.Tensor, n_bodies: int):
     return ptr_t, col_t
 
 
-def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams):
+def _check(name, t, device, dtype):
+    """Raise unless t is on `device` (the dispatching tensor's card),
+    contiguous, with the dtype the kernel takes."""
+    if t.device != device:
+        raise ValueError(f"solve_tgs: {name} must be on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"solve_tgs: {name} must be contiguous")
+    if t.dtype != dtype:
+        raise TypeError(f"solve_tgs: {name} must be {dtype}")
+
+
+def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
+                    joints):
     from fyrox_tpu_torch import kernels
     global _LAUNCHES
-    tensors = dict(con=con, body_j=body_j, body=body, col_body=col_body)
-    for name, t in tensors.items():
-        if not t.is_cuda or t.device != con.device:
-            raise ValueError(f"solve_tgs: {name} must be on {con.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"solve_tgs: {name} must be contiguous")
-    if con.dtype != torch.float32 or body.dtype != torch.float32:
-        raise TypeError("solve_tgs: con/body must be float32")
-    if body_j.dtype != torch.int32 or col_body.dtype != torch.int32:
-        raise TypeError("solve_tgs: body_j/col_body must be int32")
+    dev = con.device
+    for name, t, dtype in (("con", con, torch.float32),
+                           ("body_j", body_j, torch.int32),
+                           ("body", body, torch.float32),
+                           ("col_body", col_body, torch.int32)):
+        _check(name, t, dev, dtype)
     w, rows, s, cg = con.shape
     nb = body.shape[2]
     if (rows != CON_ROWS or tuple(body_j.shape) != (w, s, cg)
@@ -307,24 +528,39 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams):
             f"solve_tgs: shapes con {tuple(con.shape)}, body_j "
             f"{tuple(body_j.shape)}, body {tuple(body.shape)}, col_body "
             f"{tuple(col_body.shape)} do not match the packed layout")
-    need = smem_bytes(nb, cg)
+    nj = 0
+    jptrs = [None] * 7
+    if joints is not None:
+        nj = int(joints.body_a.shape[0])
+        _check("joints.body_a", joints.body_a, dev, torch.int32)
+        _check("joints.body_b", joints.body_b, dev, torch.int32)
+        _check("joints.jtab", joints.jtab, dev, torch.float32)
+        if (tuple(joints.body_b.shape) != (nj,)
+                or tuple(joints.jtab.shape) != (JTAB_ROWS, nj)):
+            raise ValueError("solve_tgs: joint tables do not match "
+                             "body_a [J], body_b [J], jtab [20,J]")
+        ptr_a, col_a = _csr(joints.body_a, nb)
+        ptr_b, col_b = _csr(joints.body_b, nb)
+        jptrs = [x.data_ptr() for x in (joints.jtab, joints.body_a,
+                                        joints.body_b, ptr_a, col_a, ptr_b,
+                                        col_b)]
+    need = smem_bytes(nb, cg, has_com, nj)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"solve_tgs: {nb} bodies / {cg} grid colliders need {need} B of "
-            f"shared memory per world, above the {SMEM_LIMIT} B a block "
-            "may use")
+            f"solve_tgs: {nb} bodies / {cg} grid colliders / {nj} joints "
+            f"need {need} B of shared memory per world, above the "
+            f"{SMEM_LIMIT} B a block may use")
     ptr, col = _csr(col_body, nb)
-    body_out = torch.empty((w, 13, nb), dtype=torch.float32, device=con.device)
-    lam = torch.empty((w, 3, s, cg), dtype=torch.float32, device=con.device)
-    scratch = torch.empty((w, 6, s, cg), dtype=torch.float32,
-                          device=con.device)
+    body_out = torch.empty((w, 13, nb), dtype=torch.float32, device=dev)
+    lam = torch.empty((w, 3, s, cg), dtype=torch.float32, device=dev)
+    scratch = torch.empty((w, 6, s, cg), dtype=torch.float32, device=dev)
     lib = kernels.library()
-    stream = torch.cuda.current_stream(con.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fyrox_tgs_solve(
         con.data_ptr(), body_j.data_ptr(), body.data_ptr(),
         col_body.data_ptr(), ptr.data_ptr(), col.data_ptr(),
-        body_out.data_ptr(), lam.data_ptr(), scratch.data_ptr(),
-        w, s, cg, nb, p.n_sub, p.n_pgs, p.n_stab,
+        body_out.data_ptr(), lam.data_ptr(), scratch.data_ptr(), *jptrs,
+        w, s, cg, nb, nj, int(bool(has_com)), p.n_sub, p.n_pgs, p.n_stab,
         p.h, p.allowed, p.max_corr, p.rest_thr, p.wc, p.erp, p.bias_rate,
         p.mscale_soft, p.iscale_soft, p.msp, stream)
     kernels.check(err, "fyrox_tgs_solve")
@@ -333,13 +569,18 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams):
 
 
 def solve_tgs(con, body_j, body, col_body, p: SolverParams, *,
-              has_com=False, joints=None):
+              has_com=False, joints: JointTables = None):
     """Dispatch: CPU tensors → plain version; CUDA tensors → the kernel.
-    Joints and centre-of-mass offsets are not ported yet and raise."""
-    if joints is not None:
-        raise NotImplementedError("joint planes in the TGS solve")
-    if has_com:
-        raise NotImplementedError("centre-of-mass offsets in the TGS solve")
+    Joint sets above the kernel's 128 joints raise on both (the JAX
+    package's XLA joint passes for them are not ported)."""
+    if joints is not None and joints.body_a.shape[0] > MAX_KERNEL_JOINTS:
+        raise NotImplementedError(
+            f"{joints.body_a.shape[0]} joints: the TGS kernel holds at most "
+            f"{MAX_KERNEL_JOINTS}; larger sets take the JAX package's XLA "
+            "joint passes (joints.solve_joints_velocity / "
+            "joint_position_pass), which are not ported yet")
     if con.is_cuda:
-        return _solve_tgs_cuda(con, body_j, body, col_body, p)
-    return solve_tgs_plain(con, body_j, body, col_body, p)
+        return _solve_tgs_cuda(con, body_j, body, col_body, p, has_com,
+                               joints)
+    return solve_tgs_plain(con, body_j, body, col_body, p, has_com=has_com,
+                           joints=joints)

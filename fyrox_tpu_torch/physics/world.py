@@ -4,9 +4,10 @@
 The port runs the slab pipeline only (``slab2.step_slab2``): hash-grid
 broadphase → plane narrowphase → per-collider compaction → TGS-soft
 solve, on the fused route (physics/fused_step.py) where the scene allows
-it, else on the staged path. Joints, centre-of-mass offsets, convex
-hulls, scenery, temporal broadphase reuse and the dense/grid broadphases
-raise NotImplementedError.
+it, else on the staged path. Joints (up to 128, solved inside the TGS
+kernel) and centre-of-mass offsets take the staged path, as in the JAX
+package. Convex hulls, scenery, temporal broadphase reuse and the
+dense/grid broadphases raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.core import quat
 from fyrox_tpu_torch.physics import shapes as sh
+from fyrox_tpu_torch.physics.joints import JointBuilder
 
 __all__ = ["BodyType", "PhysicsTemplate", "PhysicsBuilder", "PhysicsState",
            "init_physics_state", "step_physics", "SPECULATIVE_MARGIN",
@@ -59,6 +61,7 @@ class PhysicsTemplate:
     lin_lock: np.ndarray = None    # [B,3] 1 = free, 0 = locked
     ang_lock: np.ndarray = None    # [B,3]
     grid: object = None            # broadphase.SlabConfig
+    joints: object = None          # joints.JointSet (joint.rs:775)
     init_body_pos: np.ndarray = None
     init_body_rot: np.ndarray = None
     # solver config (reference defaults physics/mod.rs:892-908)
@@ -116,6 +119,7 @@ class PhysicsBuilder:
     def __init__(self):
         self._bodies = []
         self._colliders = []
+        self._joints = None
 
     def add_body(self, node=-1, body_type=DYNAMIC, position=(0, 0, 0),
                  rotation=(0, 0, 0, 1), lin_damping=0.0, ang_damping=0.0,
@@ -134,8 +138,26 @@ class PhysicsBuilder:
             ang_lock=np.asarray(lock_rotation, np.float32)))
         return len(self._bodies) - 1
 
-    def add_joint(self, *args, **kw):
-        raise NotImplementedError("joints in the torch port")
+    def add_joint(self, kind, body_a, body_b, anchor_a=(0, 0, 0),
+                  anchor_b=(0, 0, 0), axis=(0, 0, 1), ref_rot=None) -> int:
+        """Impulse joint; kind from physics.joints.JointKind. ref_rot: the
+        relative orientation (xyzw) the joint holds; by default the
+        bodies' creation-time qa0^-1 * qb0, computed in float64 (rapier
+        local_frame semantics)."""
+        if self._joints is None:
+            self._joints = JointBuilder()
+        if ref_rot is None:
+            qa = np.asarray(self._bodies[body_a]["rotation"], np.float64)
+            qb = np.asarray(self._bodies[body_b]["rotation"], np.float64)
+            ax, ay, az, aw = -qa[0], -qa[1], -qa[2], qa[3]      # qa^-1
+            bx, by, bz, bw = qb
+            ref_rot = np.asarray([
+                aw * bx + ax * bw + ay * bz - az * by,
+                aw * by - ax * bz + ay * bw + az * bx,
+                aw * bz + ax * by - ay * bx + az * bw,
+                aw * bw - ax * bx - ay * by - az * bz], np.float32)
+        return self._joints.add(kind, body_a, body_b, anchor_a, anchor_b,
+                                axis, ref_rot)
 
     def add_collider(self, body, shape, params=(), density=1.0,
                      friction=0.5, restitution=0.0, offset=(0, 0, 0),
@@ -193,9 +215,6 @@ class PhysicsBuilder:
                             + m * (np.dot(d, d) * np.eye(3) - np.outer(d, d)))
             inv_mass[bi] = 1.0 / mass
             inv_inertia[bi] = np.linalg.inv(inertia)
-        if np.any(com):
-            raise NotImplementedError("centre-of-mass offsets (off-centre "
-                                      "colliders) in the torch port")
 
         body_type = np.asarray([b["body_type"] for b in self._bodies],
                                np.int32)
@@ -256,6 +275,8 @@ class PhysicsBuilder:
             init_body_rot=(np.stack([b["rotation"] for b in self._bodies])
                            if nb else np.zeros((0, 4), np.float32)),
             grid=grid_cfg,
+            joints=(self._joints.build(com_local=com)
+                    if self._joints is not None else None),
             **solver_kw)
 
     def initial_pose(self):

@@ -13,7 +13,8 @@ import torch
 from fyrox_tpu.models import build_flagship as jax_build_flagship
 from fyrox_tpu_torch import kernels
 from fyrox_tpu_torch.models import build_flagship as torch_build_flagship
-from fyrox_tpu_torch.physics import BALL, CUBOID, HALFSPACE, PhysicsBuilder
+from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, PhysicsBuilder,
+                                     init_physics_state, step_physics)
 from fyrox_tpu_torch.physics import fused_step, plane_ops, tgs_kernel
 
 torch.set_num_threads(2)
@@ -180,6 +181,10 @@ def test_cpu_staged_route_takes_the_plain_versions():
 @pytest.mark.parametrize("case", ["joint", "dense", "period", "com",
                                   "shape"])
 def test_out_of_scope_features_raise(case):
+    """What the port does not run raises. Joints and centre-of-mass
+    offsets run on the staged route; still out of scope are more joints
+    than the TGS kernel holds (the JAX package's XLA joint passes) and
+    COM offsets on the fused kernels' own entry point."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=1)
     pb.add_collider(g, HALFSPACE, [])
@@ -189,7 +194,16 @@ def test_out_of_scope_features_raise(case):
                         offset=(0.1, 0, 0) if case == "com" else (0, 0, 0))
     with pytest.raises(NotImplementedError):
         if case == "joint":
-            pb.add_joint(0, 1, 2)
+            for _ in range(tgs_kernel.MAX_KERNEL_JOINTS + 1):
+                pb.add_joint(0, 1, 2)
+            t = pb.build()
+            step_physics(init_physics_state(pb.initial_pose(), t, 1,
+                                            device="cpu"), t, 1 / 60)
+        elif case == "com":
+            t = pb.build()
+            st = init_physics_state(pb.initial_pose(), t, 1, device="cpu")
+            zero = torch.zeros_like(st.linvel)
+            fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
         elif case == "dense":
             pb.build(broadphase="dense")
         elif case == "period":

@@ -172,7 +172,7 @@ def _jax_stages(jt, body, warm_lam, warm_pid):
     out = {k: [] for k in ("jv", "col", "con", "body_j", "pid")}
     for wi in range(body.shape[0]):
         bpl = np.zeros((29, d["bp"]), np.float32)
-        bpl[:26, :d["b"]] = body[wi]
+        bpl[:, :d["b"]] = body[wi]
         colj, coli, jall = jps._bp_candidates(
             jnp.asarray(prm), jnp.asarray(bpl), inc_j, inc_gct, bp_sta_j,
             bp_sta_i, jnp.asarray(sti), jv_big, cg=cgp, bp=d["bp"],

@@ -114,6 +114,69 @@ def test_tgs_kernel_refuses_oversized_worlds(settled):
         tgs_kernel.solve_tgs(con, body_j, big, col_body, params)
 
 
+# ---- K1 with joint tables and COM planes ---------------------------------
+
+@pytest.fixture
+def jointed(cuda):
+    """Packed solver inputs and joint tables of the joint zoo (all four
+    joint kinds, COM offsets) after 30 ticks, in 8 worlds jittered apart."""
+    import chip_smoke
+    pb, t = chip_smoke.joint_zoo(chip_smoke.port_lib())
+    st = phys_mod.init_physics_state(pb.initial_pose(), t, 8, device=cuda)
+    st = chip_smoke.jitter(st, t, cuda, 3)
+    for _ in range(30):
+        st = phys_mod.step_physics(st, t, 1 / 60)
+    accel, angvel = phys_mod.external_accelerations(st, t, 1 / 60)
+    packed, _ = slab2.solver_inputs(st, t, 1 / 60, accel, angvel)
+    cx = slab2._ctx(t)
+    assert cx.has_com and _all_differ(packed[2])
+    return (packed, tgs_kernel.solver_params(t, 1 / 60),
+            dict(has_com=True, joints=slab2.joint_tables(cx, cuda)))
+
+
+def test_tgs_kernel_with_joints_matches_plain(jointed):
+    packed, params, kw = jointed
+    before = tgs_kernel.launches()
+    body, lam = tgs_kernel.solve_tgs(*packed, params, **kw)
+    assert tgs_kernel.launches() == before + 1
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params, **kw)
+    # K1's bounds (test_tgs_kernel_matches_plain)
+    assert (body[:, 6:13] - ref_b[:, 6:13]).abs().max() < 1e-5
+    assert (body[:, 0:6] - ref_b[:, 0:6]).abs().max() < 1e-4
+    assert ((lam - ref_l).abs() <= 1e-3 * ref_l.abs() + 1e-5).all()
+    # the joint passes and the COM terms matter at this state
+    free, _ = tgs_kernel.solve_tgs(*packed, params)
+    assert (free[:, 0:6] - body[:, 0:6]).abs().max() > 1e-2
+
+
+def test_tgs_kernel_with_joints_repeats_bit_for_bit(jointed):
+    packed, params, kw = jointed
+    a = tgs_kernel.solve_tgs(*packed, params, **kw)
+    b = tgs_kernel.solve_tgs(*packed, params, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_tgs_kernel_refuses_more_than_128_joints(jointed):
+    packed, params, kw = jointed
+    j = kw["joints"]
+    many = tgs_kernel.JointTables(body_a=j.body_a.repeat(20),
+                                  body_b=j.body_b.repeat(20),
+                                  jtab=j.jtab.repeat(1, 20).contiguous())
+    with pytest.raises(NotImplementedError, match="128"):
+        tgs_kernel.solve_tgs(*packed, params, has_com=True, joints=many)
+
+
+def test_tgs_kernel_with_joints_refuses_oversized_worlds(jointed):
+    packed, params, kw = jointed
+    con, body_j, body, col_body = packed
+    # 1,850 bodies fit without the COM planes and joint tables, not with
+    big = torch.zeros((body.shape[0], body.shape[1], 1850),
+                      device=body.device)
+    assert tgs_kernel.smem_bytes(1850, con.shape[3]) <= tgs_kernel.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tgs_kernel.solve_tgs(con, body_j, big, col_body, params, **kw)
+
+
 # ---- the fused route: fused_bp (K3) and narrow_compact (K2) --------------
 
 @pytest.fixture

@@ -21,8 +21,10 @@ from fyrox_tpu_torch import kernels
 from fyrox_tpu_torch.models import build_flagship
 from fyrox_tpu_torch.physics import (BALL, CAPSULE, CUBOID, HALFSPACE,
                                      BodyType, PhysicsBuilder, fused_step,
-                                     plane_ops)
+                                     plane_ops, slab2, tgs_kernel)
 from fyrox_tpu_torch.physics import world as tworld
+
+import chip_smoke
 
 torch.set_num_threads(2)
 
@@ -158,6 +160,38 @@ def test_narrow_compact_matches_plain(on_cpu, settled):
     # ulp off IEEE in the flagship case here); on the card both sides are
     # IEEE and agree bit for bit (chip_smoke.py phase K2nc)
     assert (con - con_p).abs().max() <= 1e-6
+
+
+def _joint_zoo():
+    pb, t = chip_smoke.joint_zoo(chip_smoke.port_lib())
+    return pb.initial_pose(), t
+
+
+@pytest.mark.parametrize("scene", ["flagship", "zoo"])
+def test_tgs_solve_matches_plain(on_cpu, scene):
+    """K1 on a settled step's packed inputs, 2 worlds jittered apart: the
+    flagship (no joints, no COM) and the joint zoo (all four joint kinds,
+    COM offsets), at the kernel's card bounds."""
+    pose, t = (_flagship if scene == "flagship" else _joint_zoo)()
+    st = tworld.init_physics_state(pose, t, 2, device="cpu")
+    st = chip_smoke.jitter(st, t, "cpu", 1)
+    for _ in range(25):
+        st = tworld.step_physics(st, t, DT)
+    accel, angvel = tworld.external_accelerations(st, t, DT)
+    packed, _ = slab2.solver_inputs(st, t, DT, accel, angvel)
+    cx = slab2._ctx(t)
+    p = tgs_kernel.solver_params(t, DT)
+    joints = slab2.joint_tables(cx, "cpu")
+    assert (joints is not None) == cx.has_com == (scene == "zoo")
+    assert packed[0][:, 9].sum() > 0
+    body, lam = tgs_kernel._solve_tgs_cuda(*packed, p, cx.has_com, joints)
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, p, has_com=cx.has_com,
+                                              joints=joints)
+    assert not torch.equal(ref_b[0], ref_b[1])
+    # the card's bounds for K1 against its plain version (chip_smoke.py K1)
+    assert (body[:, 6:13] - ref_b[:, 6:13]).abs().max() <= 1e-5
+    assert (body[:, 0:6] - ref_b[:, 0:6]).abs().max() <= 1e-4
+    assert ((lam - ref_l).abs() <= 1e-3 * ref_l.abs() + 1e-5).all()
 
 
 def test_plane_gather_matches_plain(on_cpu):
