@@ -19,6 +19,11 @@ last line:
              two launches equal bit for bit;
   fused    — one whole fused step (K3 → K2 → K1 kernels) vs the same step
              through the plain versions, at K1's bounds;
+  rank     — on that settled flagship, the count-rank broadphase windows
+             (rank_rows → K4b) equal the sort windows (argsort → K4a) as
+             integers, demand included;
+  bp-audit — bp_demand_stats and overflow_stats of the settled flagship,
+             printed against the caps; equal card vs CPU on 16 worlds;
   small    — a small flagship on the card agrees with the same flagship on
              the CPU over 30 ticks (fused route, worlds differing);
   mixed    — a capsule / cuboid / ball pile on a halfspace, card vs CPU over
@@ -34,6 +39,21 @@ last line:
              slice's last state: device
              events (kernels, copies, fills) per tick and the device's busy
              share.
+Then the reuse flagship (the flagship at broadphase_period 4, windows
+16 / 8 / 12, walk 64), which takes the K2 route with the broadphase in
+PyTorch, count rank:
+  K4b      — plane_scatter vs its plain version on the inputs of one
+             count-rank rebuild of the settled flagship (W distinct
+             worlds): bit-equal on that row permutation, within 1e-6 on
+             random inputs with repeats and out-of-range indices, two
+             launches bit-equal;
+  reuse-small — a 192-collider fast-fall scene, card vs CPU over 40 ticks
+             (W=4): the same rebuild ticks and cached windows, K4b launched
+             once a rebuild;
+  reuse    — the full-width reuse slice through Engine.step: CALLS rolls of
+             TICKS ticks + skinning, timed; launches per tick (fused_bp 0,
+             narrow_compact 1, solve_tgs 1, K4b and K4a one each per
+             rebuild); then the host's rebuild read, timed.
 Then the jointed flagship (the flagship + 16 hanging chains with COM
 offsets + 4 ragdoll spines: 76 joints), which takes the staged route:
   K1joint  — the TGS solve kernel with its joint tables and COM planes vs its
@@ -284,7 +304,8 @@ def all_launches():
     return dict(fused_bp=fused_step.launches("fused_bp"),
                 narrow_compact=fused_step.launches("narrow_compact"),
                 solve_tgs=tgs_kernel.launches(),
-                plane_gather=plane_ops.launches())
+                plane_gather=plane_ops.launches("plane_gather"),
+                plane_scatter=plane_ops.launches("plane_scatter"))
 
 
 def phase_device():
@@ -727,6 +748,362 @@ def phase_piles():
         f"points; launches {n}): dp {dp:.3g}, dv {dv:.3g}")
 
 
+# ---------------------------------------------------------------- reuse
+# Temporal broadphase reuse: the flagship at broadphase_period 4 with the
+# JAX package's reuse windows (16 / 8 / 12, walk 64; FYROX_SLAB_BP_PERIOD=4),
+# count rank. K3 rebuilds every tick, so this flagship takes the K2 route:
+# the one full-width fused path whose broadphase runs in PyTorch, and so
+# the one that runs K4b (once a rebuild, with K4a for the walk).
+PERIOD = 4
+AUDIT_WORLDS = 16    # worlds of the settled flagship held card vs CPU
+REUSE_SMALL_TICKS = 40
+READ_TICKS = 10      # instrumented ticks timing the rebuild read
+
+
+def slab_aabbs(t, physics, dt):
+    """The staged step's fat AABBs of a state, [W,C,3] x 2."""
+    from fyrox_tpu_torch.physics import slab2
+    from fyrox_tpu_torch.physics.planes import scale3
+    cx = slab2._ctx(t)
+    cpos, _, crot9, lv_c = slab2._pose(cx, physics)
+    amin, amax = slab2._aabb_planes(cx, t, cpos, crot9, scale3(lv_c, dt),
+                                    slab2._margin(t))
+    return torch.stack(amin, -1), torch.stack(amax, -1)
+
+
+def phase_rank(engine, inputs):
+    """The count-rank windows (rank_rows → K4b) equal the sort windows
+    (argsort → K4a) as integers on the card, at the settled flagship."""
+    from fyrox_tpu_torch.physics import broadphase as bp
+    from fyrox_tpu_torch.physics import fused_step, slab2
+    t = engine.physics
+    cx = slab2._ctx(t)
+    amin, amax = slab_aabbs(t, inputs[0].physics, engine.dt)
+    out = {rank: bp.slab_candidates(t.grid, cx.col_body, cx.dyn_col, amin,
+                                    amax, tight_delta=fused_step._tight_delta(),
+                                    rank=rank, return_demand=True)
+           for rank in bp.RANKS}
+    torch.cuda.synchronize()
+    (cs, ds), (cc, dc) = out["sort"], out["count"]
+    for c in range(3):
+        for f in bp.SlabCandidates._fields:
+            if not torch.equal(getattr(cs[c], f), getattr(cc[c], f)):
+                fail(f"rank: count-rank class {c} {f} differs from sort")
+        for k in ("class_valid", "class_tight"):
+            if not torch.equal(ds[k][c], dc[k][c]):
+                fail(f"rank: count-rank {k}[{c}] differs from sort")
+    if not torch.equal(ds["walk_total"], dc["walk_total"]):
+        fail("rank: count-rank walk demand differs from sort")
+    valid = sum(int(c.valid.sum()) for c in cc)
+    if valid == 0 or not all_differ(cc[0].pid):
+        fail(f"rank: {valid} valid candidates, or windows repeat across worlds")
+    log(f"[rank] settled flagship (W={WORLDS} distinct worlds): the count-rank"
+        f" windows (rank_rows → plane_scatter) equal the sort windows "
+        f"(argsort → plane_gather) as integers, pids and demand included "
+        f"({valid} valid candidates)")
+
+
+def world_slice(physics, n):
+    """The first n worlds of a physics state."""
+    return type(physics)(*(x[:n] if isinstance(x, torch.Tensor) else x
+                           for x in physics))
+
+
+def phase_bp_audit(engine, inputs):
+    """bp_demand_stats and overflow_stats of the settled flagship on the
+    card, against the caps; the same on the CPU for AUDIT_WORLDS worlds."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.physics import slab2
+    t = engine.physics
+    ph = inputs[0].physics
+    dem = slab2.bp_demand_stats(t, ph)
+    ovf = slab2.overflow_stats(t, ph)
+    sub = world_slice(ph, AUDIT_WORLDS)
+    cpu = convert.physics_state(convert.to_numpy(sub), device="cpu")
+    for fn in (slab2.bp_demand_stats, slab2.overflow_stats):
+        on_card, on_cpu = fn(t, sub), fn(t, cpu)
+        if on_card != on_cpu:
+            fail(f"bp-audit: {fn.__name__} card {on_card} vs CPU {on_cpu}")
+    if ovf["max_active_points"] == 0:
+        fail("bp-audit: no active contact points in the settled flagship")
+    cls = "; ".join(
+        f"class {c} max {d['max_valid']} / cap {d['cap']} ({d['dropped']} "
+        f"dropped; tight max {d['max_tight']}, {d['tight_dropped']} dropped)"
+        for c, d in ((c, dem[f"class{c}"]) for c in range(3)) if d["cap"])
+    log(f"[bp-audit] settled flagship (period 1, W={WORLDS}) on the card: "
+        f"walk max {dem['max_walk']} / {dem['s_walk']} "
+        f"({dem['walk_dropped']} dropped); {cls}; active points max "
+        f"{ovf['max_active_points']} / s_active {ovf['s_active']} (mean "
+        f"{ovf['mean_active_points']:.3f}, {ovf['dropped_points']} dropped; "
+        f"tight max {ovf['max_tight_points']}, "
+        f"{ovf['tight_dropped_points']} dropped); both equal card vs CPU as "
+        f"integers on {AUDIT_WORLDS} worlds")
+    return dem, ovf
+
+
+def capture_k4b_inputs(engine, state):
+    """The K4b inputs of one count-rank rebuild of a reuse-flagship state
+    (forced by age 0), as the main path calls the dispatch point."""
+    from fyrox_tpu_torch.physics import plane_ops, slab2
+    seen = []
+    dispatch = plane_ops.plane_scatter
+
+    def spy(vals, idx, n):
+        seen.append((vals, idx, n))
+        return dispatch(vals, idx, n)
+
+    plane_ops.plane_scatter = spy
+    try:
+        ph = state.physics._replace(
+            bp_age=torch.zeros_like(state.physics.bp_age))
+        slab2.reuse_candidates(ph, engine.physics, engine.dt, "count")
+    finally:
+        plane_ops.plane_scatter = dispatch
+    torch.cuda.synchronize()
+    if len(seen) != 1:
+        fail(f"one count-rank rebuild made {len(seen)} plane_scatter calls")
+    return seen[0]
+
+
+def phase_k4b(inputs):
+    """K4b vs its plain version on a rebuild's permutation, and on random
+    inputs with repeats and out-of-range indices."""
+    from fyrox_tpu_torch.physics import plane_ops
+    vals, idx, n = inputs
+    w, a, k = vals.shape
+    if (w, a, k, n) != (WORLDS, 16, 1000, 1000):
+        fail(f"K4b: captured shapes {tuple(vals.shape)} into {n} rows")
+    perm = torch.arange(n, device=idx.device).expand(w, n)
+    if not (torch.equal(torch.sort(idx.long(), 1).values, perm)
+            and all_differ(vals) and all_differ(idx)):
+        fail("K4b: the captured indices are not per-world permutations, or "
+             "worlds repeat")
+
+    def kernel():
+        return plane_ops.plane_scatter(vals, idx, n)
+
+    def plain():
+        return plane_ops.plane_scatter_plain(vals, idx, n)
+
+    got, again, ref = kernel(), kernel(), plain()
+    rng = np.random.default_rng(11)
+    rv = torch.as_tensor(rng.uniform(-1, 1, (w, a, 3 * k)).astype(np.float32),
+                         device="cuda")
+    ri = torch.as_tensor(rng.integers(-n // 10, n + n // 10, (w, 3 * k))
+                         .astype(np.int32), device="cuda")
+    rgot, ragain = (plane_ops.plane_scatter(rv, ri, n) for _ in range(2))
+    rref = plane_ops.plane_scatter_plain(rv, ri, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(rgot, ragain)):
+        fail("K4b: two launches on the same inputs differ")
+    if not torch.equal(got, ref):
+        fail(f"K4b: kernel differs from plain on the rebuild's permutation at"
+             f" {int((got != ref).sum())} entries")
+    # sums of ~3 values in [-1, 1) in another order: a few ulps of 3
+    err = (rgot - rref).abs().max().item()
+    if not err <= 1e-6:
+        fail(f"K4b: kernel vs plain with repeats {err:.3g} (1e-6)")
+    # the library yardstick: one scatter_add_ into a zeroed copy with a
+    # spare column for the dropped indices (index set-up not timed)
+    lib_idx = torch.where((idx >= 0) & (idx < n), idx, n).long()[
+        :, None, :].expand(w, a, k)
+
+    def library():
+        return torch.zeros((w, a, n + 1), device="cuda").scatter_add_(
+            2, lib_idx, vals)
+
+    if not torch.equal(library()[..., :n], ref):
+        fail("K4b: the scatter_add_ yardstick disagrees")
+    ms_k = cuda_ms(kernel, 50)
+    ms_p = cuda_ms(plain, 20)
+    ms_lib = cuda_ms(library, 50)
+    b_ms, b_by = bound_ms(nbytes(vals, idx, got), w * a * k)
+    log(f"[K4b] plane_scatter bit-equal to plain on a count-rank rebuild's "
+        f"row permutation [{w},{a},{k}] → {n} rows (W={WORLDS} distinct "
+        f"worlds), within {err:.3g} with repeats and out-of-range indices, two"
+        f" launches bit-equal; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        f"scatter_add_ {ms_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="plane_scatter", route="cuda",
+                source="fyrox_tpu_torch/csrc/plane_scatter.cu",
+                replaces="fyrox_tpu/physics/pallas_ops.py:219",
+                max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=ms_lib)
+
+
+def fall_scene(n=190):
+    """tests/test_bp_reuse.py:127-155's fast-fall scene (190 cuboids and
+    balls 6 m apart, 3 m up) at period 4, plus one static 0.6 m ball that
+    sizes the hash cell, so that the falling bodies keep sweep headroom and
+    reuse ticks happen between rebuilds: 192 colliders."""
+    from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, BodyType,
+                                         PhysicsBuilder)
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [0, 0, 0], friction=0.5)
+    post = pb.add_body(body_type=BodyType.STATIC, position=(-6.0, 0.6, -6.0))
+    pb.add_collider(post, BALL, [0.6])
+    for i in range(n):
+        b = pb.add_body(position=(6.0 * (i % 14), 3.0 + 0.02 * i,
+                                  6.0 * (i // 14)))
+        if i % 2:
+            pb.add_collider(b, CUBOID, [0.3, 0.2, 0.25])
+        else:
+            pb.add_collider(b, BALL, [0.25])
+    return pb, pb.build(broadphase="slab", broadphase_period=PERIOD)
+
+
+def phase_reuse_small():
+    """The fast-fall scene, count rank, W=4 worlds with seeded velocities:
+    card vs CPU over REUSE_SMALL_TICKS ticks, the same rebuild ticks, and
+    K4b launched once a rebuild."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.physics import fused_step
+    from fyrox_tpu_torch.physics import world as phys_mod
+    pb, t = fall_scene()
+    if not fused_step.supports_fused(t) or fused_step.supports_fused_bp(t):
+        fail("the fast-fall scene is not on the K2 route")
+    cpu = phys_mod.init_physics_state(pb.initial_pose(), t, 4, device="cpu")
+    rng = np.random.default_rng(12)
+    dyn = torch.as_tensor(t.body_type == phys_mod.DYNAMIC)[None, :, None]
+    lv = torch.as_tensor(rng.uniform(-3, 3, cpu.linvel.shape).astype(
+        np.float32)) * dyn
+    av = torch.as_tensor(rng.uniform(-5, 5, cpu.angvel.shape).astype(
+        np.float32)) * dyn
+    cpu = cpu._replace(linvel=lv, angvel=av)
+    gpu = convert.physics_state(convert.to_numpy(cpu), device="cuda")
+    reset_all_launches()
+    ages_g, ages_c = [], []
+    for _ in range(REUSE_SMALL_TICKS):
+        gpu = phys_mod.step_physics(gpu, t, 1.0 / 60.0, bp_rank="count")
+        cpu = phys_mod.step_physics(cpu, t, 1.0 / 60.0, bp_rank="count")
+        ages_g.append(gpu.bp_age.cpu())
+        ages_c.append(cpu.bp_age)
+    n = all_launches()
+    if not torch.equal(torch.stack(ages_g), torch.stack(ages_c)):
+        fail("reuse-small: the card rebuilt on other ticks than the CPU")
+    rebuilds = sum(int(x[0]) == 1 for x in ages_c)
+    want = dict(fused_bp=0, narrow_compact=REUSE_SMALL_TICKS,
+                solve_tgs=REUSE_SMALL_TICKS, plane_gather=rebuilds,
+                plane_scatter=rebuilds)
+    if n != want or not 1 < rebuilds < REUSE_SMALL_TICKS:
+        fail(f"reuse-small: launches {n}, want {want} ({rebuilds} rebuilds)")
+    for c in range(3):
+        for x, y in zip(gpu.bp_cache[0][c], cpu.bp_cache[0][c]):
+            if not torch.equal(x.cpu(), y):
+                fail(f"reuse-small: cached class {c} candidates differ")
+    dp = (gpu.position.cpu() - cpu.position).abs().max().item()
+    dv = (gpu.linvel.cpu() - cpu.linvel).abs().max().item()
+    live = int((cpu.warm_pair >= 0).sum())
+    if not (dp < 5e-4 and dv < 5e-3 and live > 0
+            and all_differ(cpu.position)):
+        fail(f"reuse-small: card vs CPU dp {dp:.3g}, dv {dv:.3g}, live "
+             f"contact points {live}")
+    log(f"[reuse-small] fast-fall scene ({t.num_colliders} colliders, period"
+        f" {PERIOD}, count rank, K2 route), card == CPU over "
+        f"{REUSE_SMALL_TICKS} ticks (W=4 distinct worlds): {rebuilds} "
+        f"rebuilds on the same ticks, cached windows equal, dp {dp:.3g}, dv "
+        f"{dv:.3g}, {live} live contact points; launches {n}")
+
+
+def settled_reuse(engine):
+    """The reuse flagship, W distinct worlds after 30 count-rank ticks."""
+    state = distinct_worlds(engine, WORLDS, "cuda")
+    for _ in range(30):
+        state = engine.step(state, bp_rank="count")
+    return state
+
+
+def phase_reuse(engine, skin):
+    """The full-width reuse slice: Engine.step(bp_rank="count") on the
+    period-4 flagship, W worlds, K2 route: CALLS rolls of TICKS ticks +
+    skinning, timed as the slice; then READ_TICKS instrumented ticks that
+    time the host's rebuild read."""
+    from fyrox_tpu_torch.animation import skinning
+    from fyrox_tpu_torch.physics import broadphase as bp
+    from fyrox_tpu_torch.physics import fused_step, slab2
+    t = engine.physics
+    if fused_step.supports_fused_bp(t) or not fused_step.supports_fused(t):
+        fail("the reuse flagship is not on the K2 route")
+    walks = [0]
+    walk = bp.slab_candidates
+
+    def counted(*a, **k):
+        walks[0] += 1
+        return walk(*a, **k)
+
+    def roll(state):
+        for _ in range(TICKS):
+            state = engine.step(state, bp_rank="count")
+        bm = skinning.bone_matrices(state.scene.globals_, skin)
+        return state, skinning.skin_positions_dense(bm, skin)
+
+    state = engine.init_state(WORLDS, device="cuda")
+    state, verts = roll(state)                      # warm-up
+    torch.cuda.synchronize()
+    bp.slab_candidates = counted     # one broadphase walk per rebuild
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            state, verts = roll(state)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        n = all_launches()
+    finally:
+        bp.slab_candidates = walk
+    n_ticks = TICKS * CALLS
+    rebuilds = walks[0]
+    want = dict(fused_bp=0, narrow_compact=n_ticks, solve_tgs=n_ticks,
+                plane_gather=rebuilds, plane_scatter=rebuilds)
+    if n != want or rebuilds == 0:
+        fail(f"reuse slice launches {n}, want {want}")
+    live = check_state(state, verts, skin)
+    dem = slab2.bp_demand_stats(t, state.physics, period=PERIOD)
+    # the host's read: a synchronise ahead of each reuse decision takes the
+    # wait that the read would take; the decision then reads at once
+    waits, calls = [], []
+    decide = slab2.reuse_candidates
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = decide(*a, **k)
+        calls.append(time.perf_counter() - t1)
+        waits.append(t1 - t0)
+        return out
+
+    slab2.reuse_candidates = timed
+    try:
+        for _ in range(READ_TICKS):
+            state = engine.step(state, bp_rank="count")
+        torch.cuda.synchronize()
+    finally:
+        slab2.reuse_candidates = decide
+    wait_ms = 1e3 * sum(waits) / len(waits)
+    call_ms = 1e3 * sum(calls) / len(calls)
+    rate = WORLDS * n_ticks / elapsed
+    cls = ", ".join(f"class {c} max {dem[f'class{c}']['max_valid']} / "
+                    f"{dem[f'class{c}']['cap']} ({dem[f'class{c}']['dropped']}"
+                    f" dropped, tight {dem[f'class{c}']['tight_dropped']})"
+                    for c in range(3) if dem[f"class{c}"]["cap"])
+    log(f"[reuse] K2 route with temporal broadphase reuse (period {PERIOD}, "
+        f"count rank), flagship {skin.num_bones} bones / {skin.num_vertices}"
+        f" verts / {t.num_bodies - 1} bodies, W={WORLDS}: {rate:.1f} "
+        f"env·steps/s ({CALLS} x {TICKS} ticks + skinning in {elapsed:.3f} s,"
+        f" {elapsed * 1e3 / n_ticks:.3f} ms a tick, {live} live contact "
+        f"points); {rebuilds} rebuilds in {n_ticks} ticks "
+        f"({rebuilds / n_ticks:.3f} a tick); launches per tick: fused_bp 0, "
+        f"narrow_compact 1, solve_tgs 1, plane_scatter and plane_gather "
+        f"{rebuilds / n_ticks:.3f} (one each per rebuild); the rebuild read "
+        f"waits {wait_ms:.3f} ms for the device and decides in "
+        f"{call_ms:.3f} ms a tick ({READ_TICKS} instrumented ticks); demand "
+        f"of the last timed state (tick {TICKS + n_ticks}, period {PERIOD}):"
+        f" walk max {dem['max_walk']} / "
+        f"{dem['s_walk']}, {cls} on {CARD}")
+    return n
+
+
 # float operations of K1's joint passes per joint and world, a hand count
 # of csrc/tgs_solve.cu: the point constraint 330 and the angular lock 190
 # per substep (with the body sums), the position pass 70 per stabilisation
@@ -849,7 +1226,7 @@ def phase_jointed_small():
         lambda st: phys_mod.step_physics(st, t, 1.0 / 60.0), (2e-3, 2e-2))
     n = all_launches()
     want = dict(fused_bp=0, narrow_compact=0, solve_tgs=30,
-                plane_gather=30 * staged_gathers(t))
+                plane_gather=30 * staged_gathers(t), plane_scatter=0)
     if n != want:
         fail(f"the joint zoo's launches {n}, want {want}")
     kinds = sorted(set(int(k) for k in t.joints.kind))
@@ -887,7 +1264,7 @@ def phase_jointed(engine, skin, anchors):
     n_ticks = TICKS * CALLS
     gathers = staged_gathers(t)
     want = dict(fused_bp=0, narrow_compact=0, solve_tgs=n_ticks,
-                plane_gather=n_ticks * gathers)
+                plane_gather=n_ticks * gathers, plane_scatter=0)
     if n != want:
         fail(f"jointed slice launches {n}, want {want}")
     live = check_state(state, verts, skin)
@@ -961,7 +1338,7 @@ def phase_slice(engine, skin):
     n = all_launches()
     n_ticks = TICKS * CALLS
     want = dict(fused_bp=n_ticks, narrow_compact=n_ticks, solve_tgs=n_ticks,
-                plane_gather=0)
+                plane_gather=0, plane_scatter=0)
     if n != want:
         fail(f"fused slice launches {n}, want {want}")
     live = check_state(state, verts, skin)
@@ -991,7 +1368,7 @@ def phase_staged(engine, skin, state):
     elapsed = time.perf_counter() - t0
     n = all_launches()
     want = dict(fused_bp=0, narrow_compact=0, solve_tgs=STAGED,
-                plane_gather=STAGED * gathers_per_tick)
+                plane_gather=STAGED * gathers_per_tick, plane_scatter=0)
     if n != want:
         fail(f"staged roll launches {n}, want {want}")
     live = check_state(state, verts, skin)
@@ -1301,6 +1678,8 @@ def main():
     kbp, windows = phase_bp(engine, inputs)
     knc = phase_nc(engine, inputs, windows)
     phase_fused_step(engine, inputs)
+    phase_rank(engine, inputs)
+    phase_bp_audit(engine, inputs)
     del inputs, windows
     phase_small()
     phase_piles()
@@ -1308,6 +1687,15 @@ def main():
     n_staged = phase_staged(engine, skin, settled)
     phase_profile(engine, settled)
     del engine, skin, settled
+    t0 = time.perf_counter()
+    engine, skin = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000,
+                                  broadphase_period=PERIOD)
+    log(f"[setup] reuse flagship templates built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    k4b = phase_k4b(capture_k4b_inputs(engine, settled_reuse(engine)))
+    phase_reuse_small()
+    n_reuse = phase_reuse(engine, skin)
+    del engine, skin
     t0 = time.perf_counter()
     engine, skin, anchors, _ = jointed_engine()
     log(f"[setup] jointed flagship templates built in "
@@ -1331,7 +1719,8 @@ def main():
     k5f["launches"] = n_render["full"]
     k5d["launches"] = n_render["depth"]
     k1j["launches"] = n_jointed["solve_tgs"]
-    print(json.dumps({"kernels": [kbp, knc, k1, k4, k5f, k5d, k1j]}))
+    k4b["launches"] = n_reuse["plane_scatter"]
+    print(json.dumps({"kernels": [kbp, knc, k1, k4, k5f, k5d, k1j, k4b]}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

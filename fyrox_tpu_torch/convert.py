@@ -19,7 +19,7 @@ from fyrox_tpu_torch.animation.skinning import SkinTemplate
 from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
 from fyrox_tpu_torch.core.curve import CurveSet
 from fyrox_tpu_torch.engine import AnimState, Engine, EngineState
-from fyrox_tpu_torch.physics.broadphase import SlabConfig
+from fyrox_tpu_torch.physics.broadphase import SlabCandidates, SlabConfig
 from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
 from fyrox_tpu_torch.render.mesh import MeshData
@@ -105,8 +105,6 @@ def physics_template(t) -> PhysicsTemplate:
         raise NotImplementedError("convex hulls (incl. cylinder/cone)")
     if any(getattr(t, k, None) is not None for k in ("col_hf", "col_tm")):
         raise NotImplementedError("heightfield/trimesh scenery")
-    if int(getattr(t, "broadphase_period", 1) or 1) != 1:
-        raise NotImplementedError("broadphase_period > 1")
     if t.grid is None:
         raise NotImplementedError("the dense broadphase")
     names = ("body_node", "body_type", "inv_mass", "inv_inertia_local",
@@ -182,12 +180,19 @@ def _tuple(src, cls, device):
 
 
 def physics_state(p, device="cuda") -> PhysicsState:
+    """A JAX-package PhysicsState with numpy leaves → the port's (on the
+    card unless `device` says otherwise), a temporal-reuse cache included:
+    its per-class candidate tuples become SlabCandidates."""
     device = resolve_device(device)
-    if getattr(p, "bp_cache", None) is not None:
-        raise NotImplementedError("temporal broadphase reuse state")
-    return PhysicsState(**{f: _t(getattr(p, f), device)
-                           for f in PhysicsState._fields
-                           if f not in ("bp_cache", "bp_age")})
+    out = {f: _t(getattr(p, f), device) for f in PhysicsState._fields
+           if f != "bp_cache"}
+    cache = getattr(p, "bp_cache", None)
+    if cache is not None:
+        cands, pos0, cov = cache
+        out["bp_cache"] = (
+            tuple(SlabCandidates(*(_t(x, device) for x in c)) for c in cands),
+            _t(pos0, device), _t(cov, device))
+    return PhysicsState(**out)
 
 
 def scene_state(s, device="cuda") -> WorldState:

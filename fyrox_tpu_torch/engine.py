@@ -94,9 +94,11 @@ class Engine:
         return EngineState(scene=scene, physics=phys, animation=anim)
 
     def step(self, state: EngineState, machine_params=None,
-             dt: Optional[float] = None, fused=True) -> EngineState:
+             dt: Optional[float] = None, fused=True,
+             bp_rank="sort") -> EngineState:
         """One engine tick. machine_params: [W,P] bool ABSM rules.
-        fused=False keeps physics on the staged path."""
+        fused=False keeps physics on the staged path; bp_rank ("sort" or
+        "count") is the slab broadphase's rank (world.step_physics)."""
         dt = self.dt if dt is None else dt
         scene = state.scene
         anim = state.animation
@@ -129,7 +131,8 @@ class Engine:
         # ---- 3+4+5. physics, body → node sync, refresh ----
         phys = state.physics
         if phys is not None and self.physics is not None:
-            phys = phys_mod.step_physics(phys, self.physics, dt, fused=fused)
+            phys = phys_mod.step_physics(phys, self.physics, dt, fused=fused,
+                                         bp_rank=bp_rank)
             scene = self._sync_bodies_to_nodes(scene, phys)
             scene = graph_mod.update_hierarchical_data(scene, self.template)
         return EngineState(scene=scene, physics=phys, animation=anim)

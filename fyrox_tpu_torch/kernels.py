@@ -41,6 +41,7 @@ _F = ctypes.c_float
 # C entry points: name → argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "fyrox_plane_scatter": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_tgs_solve": [_VP] * 16 + [_I] * 9 + [_F] * 10 + [_VP],
     "fyrox_fused_bp": [_VP] * 13 + [_I] * 10 + [_F] * 5 + [_VP],
     "fyrox_narrow_compact": [_VP] * 11 + [_I] * 7 + [_F] * 2 + [_VP],

@@ -25,6 +25,10 @@ __all__ = ["build_flagship", "build_character_scene", "build_pile_scene"]
 SLAB_WINDOW = (12, 8, 10)
 SLAB_ACTIVE = 16
 SLAB_WALK = 48
+# under temporal broadphase reuse the fattened AABBs raise the demand
+# (class 0 on the settled pile 11 → 14), so the windows and the walk grow
+REUSE_WINDOW = (16, 8, 12)
+REUSE_WALK = 64
 
 
 def _linear_keys(times, values):
@@ -117,8 +121,11 @@ def build_pile_scene(sb: SceneBuilder, n_bodies=64, seed=1):
     return pb, body_nodes
 
 
-def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0):
-    """Character + pile + camera. Returns (Engine, SkinTemplate)."""
+def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0,
+                   broadphase_period=1):
+    """Character + pile + camera. Returns (Engine, SkinTemplate).
+    broadphase_period > 1 turns on temporal broadphase reuse (the JAX
+    package's FYROX_SLAB_BP_PERIOD), with its wider windows."""
     if n_bodies < 192:
         raise NotImplementedError(
             "piles under 192 bodies use the dense broadphase, which the "
@@ -128,8 +135,12 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0):
     pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
     sb.add_camera("main_camera", position=(0, 3.0, -10.0))
     template = sb.build()
-    pt = pb.build(broadphase="slab", slab_window=SLAB_WINDOW,
-                  slab_active=SLAB_ACTIVE, slab_walk=SLAB_WALK)
+    reuse = broadphase_period > 1
+    pt = pb.build(broadphase="slab",
+                  slab_window=REUSE_WINDOW if reuse else SLAB_WINDOW,
+                  slab_active=SLAB_ACTIVE,
+                  slab_walk=REUSE_WALK if reuse else SLAB_WALK,
+                  broadphase_period=broadphase_period)
     # inverse bind poses from the initial hierarchy
     st = graph_mod.update_hierarchical_data(
         init_state(template, 1, device="cpu"), template)

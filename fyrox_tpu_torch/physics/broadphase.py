@@ -1,13 +1,19 @@
 """Slab broadphase: hash-grid walk into static per-collider candidate
-windows (``fyrox_tpu.physics.broadphase`` slab path, period 1).
+windows (``fyrox_tpu.physics.broadphase`` slab path).
 
 1. quantize each grid collider's fat-AABB min corner to coarse x/y cells
-   and a fine z grid, pack (x, y, z) into one int key and sort stably;
+   and a fine z grid, pack (x, y, z) into one int key and order the
+   colliders stably by key: by a stable argsort and a row gather (rank
+   "sort"), or by the counting rank ``plane_ops.rank_rows`` and a row
+   scatter through K4b ``plane_scatter`` (rank "count", the JAX package's
+   ``FYROX_BP_RANK=count``); both give the same windows;
 2. each collider walks the 9 (dx, dy) neighbour columns over the exact
    z-interval into a raw window of ``s_walk`` slots;
 3. survivors (distinct bodies, one dynamic, fat-AABB overlap) compact per
-   manifold-size class into ``s_class[c]`` slots, pairs whose tight
-   (rapier prediction-distance) AABBs overlap first;
+   manifold-size class into ``s_class[c]`` slots, pairs whose tight AABBs
+   overlap first: the rapier prediction-distance AABBs (``tight_delta``),
+   or, under temporal broadphase reuse, the current step's own AABBs
+   beside the period-fattened ones (``amin_tight`` / ``amax_tight``);
 4. "big" colliders (halfspaces) get one static slot per class.
 
 Candidates are directed: (i, j) comes from i's window and (j, i) from j's.
@@ -23,11 +29,14 @@ import torch
 
 from fyrox_tpu_torch._util import const
 from fyrox_tpu_torch.physics import shapes as sh
-from fyrox_tpu_torch.physics.plane_ops import gather_rows
+from fyrox_tpu_torch.physics.plane_ops import (gather_rows, rank_rows,
+                                               scatter_rows)
 
 __all__ = ["CLASS_NPTS", "KIND_POINTS", "pair_class_table", "SlabConfig",
            "build_slab_config", "SlabCandidates", "class_windows",
-           "slab_candidates", "compact_slots"]
+           "slab_candidates", "compact_slots", "RANKS"]
+
+RANKS = ("sort", "count")
 
 _QBITS_XY = 9
 _QRANGE_XY = 1 << _QBITS_XY
@@ -236,21 +245,28 @@ def compact_slots(mask, first, values, s_out):
 
 
 def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
-                  tight_delta=None, plain=False):
-    """Stages 1-3 for the grid colliders. amin/amax [W,C,3] fat AABBs.
-    Returns per manifold class c (None where absent) the compacted
+                  tight_delta=None, amin_tight=None, amax_tight=None,
+                  rank="sort", plain=False):
+    """Stages 1-3 for the grid colliders. amin/amax [W,C,3] fat AABBs;
+    the tight tier is amin_tight/amax_tight [W,C,3] where given, else the
+    fat AABBs shrunk by tight_delta, else none. Returns (windows, aabb6,
+    walk_total): per manifold class c (None where absent) the compacted
     partners (j_real, kind_j, body_j) [W,Cg,s_class[c]] (0 where unfilled)
-    with the count of valid pairs [W,Cg], and the full AABBs [W,C,6].
-    plain: gather rows in PyTorch even on the card (no K4a launches)."""
+    with the counts of valid and of tight pairs [W,Cg]; the full AABBs
+    [W,C,6]; and the raw walk demand [W,Cg]. plain: gather and scatter
+    rows in PyTorch even on the card (no K4a / K4b launches)."""
+    if rank not in RANKS:
+        raise ValueError(f"rank {rank!r}, want one of {RANKS}")
     col_body = np.asarray(col_body)
     dyn_col = np.asarray(dyn_col)
     st = _statics(sc, col_body, dyn_col)
     dev = amin.device
     w = amin.shape[0]
     cg = int(sc.grid_cols.size)
+    gsel = const(st["gidx"], dev)
 
     aabb6 = torch.cat([amin, amax], dim=-1)                     # [W,C,6]
-    gaabb = aabb6[:, const(st["gidx"], dev)]                    # [W,Cg,6]
+    gaabb = aabb6[:, gsel]                                      # [W,Cg,6]
     gmin, gmax = gaabb[..., :3], gaabb[..., 3:]
     cell = const(st["cell"], dev)
     zfine = const(st["zfine"], dev)
@@ -258,8 +274,26 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
     qy = _floor_i32(gmin[..., 1] / cell)
     qz = _floor_i32(gmin[..., 2] / zfine)
     key = _pack_xyz(qx, qy, qz)                                 # [W,Cg]
-    order = torch.argsort(key, dim=1, stable=True)
-    skey = torch.gather(key, 1, order)
+
+    # per-grid-collider rows [j_real, kind, body, dyn, aabb6 (+ tight
+    # aabb6)], exact in f32, put into key order
+    two_tier = amin_tight is not None
+    parts = [const(st["attr_static"], dev).expand(w, cg, 4), gaabb]
+    if two_tier:
+        gtaabb = torch.cat([amin_tight, amax_tight], dim=-1)[:, gsel]
+        parts.append(gtaabb)
+    attrs = torch.cat(parts, dim=-1)                            # [W,Cg,10|16]
+    na = attrs.shape[-1]
+    if rank == "count":
+        # the keys go into sorted order by an integer scatter (packed keys
+        # reach 2^31, past float32's exact integers)
+        rk = rank_rows(key)
+        skey = torch.zeros_like(key).scatter_(1, rk.long(), key)
+        sorted_a = scatter_rows(attrs, rk, cg, plain=plain)
+    else:
+        order = torch.argsort(key, dim=1, stable=True)
+        skey = torch.gather(key, 1, order)
+        sorted_a = gather_rows(attrs, order, plain=plain)
 
     qz_lo = _floor_i32((gmin[..., 2] - sc.cell) / zfine)
     qz_hi = _floor_i32(gmax[..., 2] / zfine)
@@ -289,19 +323,15 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
     pos = torch.clamp(torch.where(in_window, pos, torch.zeros_like(pos)),
                       0, max(cg - 1, 0))
 
-    # per-grid-collider rows [j_real, kind, body, dyn, aabb6], exact in f32
-    attrs = torch.cat([const(st["attr_static"], dev).expand(w, cg, 4),
-                       gaabb], dim=-1)                          # [W,Cg,10]
-    sorted_a = gather_rows(attrs, order, plain=plain)
     slot_a = gather_rows(sorted_a, pos.reshape(w, -1), plain=plain).reshape(
-        w, cg, s_walk, 10)
+        w, cg, s_walk, na)
     jr_w = slot_a[..., 0].to(torch.int32)
     kind_w = slot_a[..., 1].to(torch.int32)
     body_w = slot_a[..., 2].to(torch.int32)
     dyn_w = slot_a[..., 3] > 0.5
     jmin_w, jmax_w = slot_a[..., 4:7], slot_a[..., 7:10]
 
-    gidx = const(st["gidx"], dev)[None, :, None]
+    gidx = gsel[None, :, None]
     i_body_g = const(st["i_body_g"], dev)[None, :, None]
     i_dyn_g = const(st["i_dyn_g"], dev)[None, :, None]
     imin = gaabb[..., None, :3]
@@ -309,7 +339,12 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
     valid_w = (in_window & (jr_w != gidx) & (body_w != i_body_g)
                & (i_dyn_g | dyn_w)
                & torch.all((imin <= jmax_w) & (imax >= jmin_w), dim=-1))
-    if tight_delta is not None:
+    if two_tier:
+        jtmin_w, jtmax_w = slot_a[..., 10:13], slot_a[..., 13:16]
+        tight_w = valid_w & torch.all(
+            (gtaabb[..., None, :3] <= jtmax_w)
+            & (gtaabb[..., None, 3:] >= jtmin_w), dim=-1)
+    elif tight_delta is not None:
         d2 = 2.0 * tight_delta
         tight_w = valid_w & torch.all((imin <= jmax_w - d2)
                                       & (imax >= jmin_w + d2), dim=-1)
@@ -328,19 +363,29 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
             out.append(None)
             continue
         in_c = cls_w == c
-        out.append(compact_slots(valid_w & in_c, tight_w & in_c,
-                                 [jr_w, kind_w, body_w], sc.s_class[c]))
-    return out, aabb6
+        tight_c = tight_w & in_c
+        packed, n_valid = compact_slots(valid_w & in_c, tight_c,
+                                        [jr_w, kind_w, body_w],
+                                        sc.s_class[c])
+        out.append((packed, n_valid, tight_c.sum(dim=2)))
+    return out, aabb6, total
 
 
 def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
-                    tight_delta=None) -> List[SlabCandidates]:
+                    tight_delta=None, amin_tight=None, amax_tight=None,
+                    rank="sort", return_demand=False) -> List[SlabCandidates]:
     """Hash-grid walk into the static slot layout, one SlabCandidates per
-    manifold class. amin/amax [W,C,3] fat AABBs. tight_delta: the fat
-    AABBs' surplus over the rapier-equivalent ones; pairs whose tight
-    AABBs overlap pack first."""
-    windows, aabb6 = class_windows(sc, col_body, dyn_col, amin, amax,
-                                   tight_delta)
+    manifold class. amin/amax [W,C,3] fat AABBs. The tight tier, whose
+    pairs pack first, is amin_tight/amax_tight where given (temporal
+    reuse: the current step's AABBs beside the period-fattened ones), else
+    the fat AABBs shrunk by tight_delta (their surplus over the
+    rapier-equivalent ones). rank: "sort" or "count" (class_windows).
+    return_demand: also return {"walk_total": [W,Cg], "class_valid": 3 x
+    [W,Cg], "class_tight": 3 x [W,Cg]}, the counts the windows had to hold
+    (zeros for an absent class)."""
+    windows, aabb6, total = class_windows(
+        sc, col_body, dyn_col, amin, amax, tight_delta, amin_tight,
+        amax_tight, rank)
     st = _statics(sc, np.asarray(col_body), np.asarray(dyn_col))
     dev = amin.device
     w = amin.shape[0]
@@ -362,15 +407,20 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
                   & torch.all((imin <= bmax) & (imax >= bmin), dim=-1))
 
     out = []
+    demand = {"walk_total": total, "class_valid": [], "class_tight": []}
     for c in range(3):
         nslot_c = sc.nslot(c)
         if nslot_c == 0:
             z = torch.zeros((w, 0), dtype=torch.int32, device=dev)
             zb = torch.zeros((w, 0), dtype=torch.bool, device=dev)
             out.append(SlabCandidates(z, z, zb, zb, z))
+            for k in ("class_valid", "class_tight"):
+                demand[k].append(torch.zeros_like(total))
             continue
         s_c = sc.s_class[c]
-        (j_real, kind_j, body_j), n_valid = windows[c]
+        (j_real, kind_j, body_j), n_valid, n_tight = windows[c]
+        demand["class_valid"].append(n_valid)
+        demand["class_tight"].append(n_tight)
         k_ar = torch.arange(s_c, device=dev)
         cvalid = k_ar[None, None, :] < n_valid[..., None]
         if nbig:
@@ -392,4 +442,6 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
                           torch.full_like(j_real, -1))
         out.append(SlabCandidates(j_real=j_real, body_j=body_j, valid=valid,
                                   swap=swap, pid=pid))
+    if return_demand:
+        return out, demand
     return out

@@ -12,7 +12,8 @@ memory (K1). So a step is
 
     K3: fused_bp (csrc/fused_bp.cu) → narrow_compact (csrc/narrow_compact.cu)
         → solve_tgs (K1, csrc/tgs_solve.cu): three launches;
-    K2: PyTorch pose, AABBs and slab broadphase → narrow_compact → solve_tgs.
+    K2: PyTorch pose, AABBs and slab broadphase (or, under temporal
+        broadphase reuse, its cached windows) → narrow_compact → solve_tgs.
 
 The window planes never reach device memory. A CPU tensor takes each
 kernel's plain version (``bp_candidates_plain``, ``narrow_compact_plain``:
@@ -146,11 +147,6 @@ def _statics(t) -> _Statics:
     return t._torch_fused_statics
 
 
-def _margin(t) -> float:
-    from fyrox_tpu_torch.physics.world import SPECULATIVE_MARGIN
-    return t.allowed_linear_error + SPECULATIVE_MARGIN
-
-
 def _tight_delta() -> float:
     from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
                                                SPECULATIVE_MARGIN)
@@ -194,7 +190,7 @@ def collider_planes(t, body, dt):
 def _aabbs(t, col):
     cpos, cq, vs = _split(col)
     amin, amax = slab2._aabb_planes(slab2._ctx(t), t, cpos, q_to_rot9(cq),
-                                    vs, _margin(t))
+                                    vs, slab2._margin(t))
     return torch.stack(amin, -1), torch.stack(amax, -1)
 
 
@@ -205,14 +201,15 @@ def bp_candidates_plain(t, body, dt):
     cx = fs.cx
     col = collider_planes(t, body, dt)
     amin, amax = _aabbs(t, col)
-    windows, _ = bp_mod.class_windows(t.grid, cx.col_body, cx.dyn_col,
-                                      amin, amax, _tight_delta(), plain=True)
+    windows, _, _ = bp_mod.class_windows(t.grid, cx.col_body, cx.dyn_col,
+                                         amin, amax, _tight_delta(),
+                                         plain=True)
     dev, w = body.device, body.shape[0]
     jv_big = const(fs.jv_big, dev)
     rows = []
     big_row = 0
     for cls, nslot, _r0 in fs.class_layout:
-        (j_real, _kind, _body), n_valid = windows[cls]
+        (j_real, _kind, _body), n_valid, _ = windows[cls]
         k = torch.arange(nslot - fs.nbig, device=dev)
         rows.append(torch.where(k < n_valid[..., None], j_real,
                                 -1).transpose(1, 2))
@@ -268,7 +265,7 @@ def narrow_compact_plain(t, col, jv, warm_lam, warm_pid):
                                            valid=valid, swap=swap, pid=pid))
     cpos, cq, vs = _split(col)
     attrs_f, attrs_i = slab2._narrowphase_windows(cx, t, cands, cpos, cq, vs,
-                                                  _margin(t), plain=True)
+                                                  slab2._margin(t), plain=True)
     con = slab2._compact(cx, attrs_f, attrs_i)
     same = (slab2.from_sc(cx, warm_pid) == con.pid).to(torch.float32) \
         * con.act
@@ -326,7 +323,7 @@ def _bp_candidates_cuda(t, body, dt):
         body.data_ptr(), *ptrs, jv.data_ptr(), col.data_ptr(),
         w, cx.b, cx.c, cx.cg, int(sc.s_walk), *fs.nslots, fs.nbig,
         int(cx.trivial_offsets),
-        float(f32(dt)), float(f32(_margin(t))), float(f32(sc.cell)),
+        float(f32(dt)), float(f32(slab2._margin(t))), float(f32(sc.cell)),
         float(f32(sc.cell / bp_mod._ZFINE)),
         float(f32(2.0 * _tight_delta())),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -369,7 +366,7 @@ def _narrow_compact_cuda(t, col, jv, warm_lam, warm_pid):
         col.data_ptr(), jv.data_ptr(), warm_lam.data_ptr(),
         warm_pid.data_ptr(), *ptrs, con.data_ptr(), body_j.data_ptr(),
         pid.data_ptr(), w, cx.c, cg, s, *fs.nslots,
-        float(f32(_margin(t))), float(f32(PREDICTION_DISTANCE)),
+        float(f32(slab2._margin(t))), float(f32(PREDICTION_DISTANCE)),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "fyrox_narrow_compact")
     _LAUNCHES["narrow_compact"] += 1
@@ -423,17 +420,22 @@ def _narrow_and_solve(t, dt, body, col, jv, warm_lam, warm_pid):
     return body_out, lam, pid
 
 
-def fused_step(state, t, dt, accel, angvel):
+def fused_step(state, t, dt, accel, angvel, cands=None, bp_rank="sort"):
     """K2 route (pallas_step.fused_step_pallas): pose, AABBs and the slab
-    broadphase in PyTorch, then narrow_compact and the K1 solve. Returns
-    (body_out [W,13,B], lam [W,3,S,Cg], pid [W,S,Cg])."""
+    broadphase in PyTorch, then narrow_compact and the K1 solve. `cands`:
+    the step's candidates where the caller has them (temporal broadphase
+    reuse, slab2.reuse_candidates), else the slab broadphase runs here with
+    rank `bp_rank`. Returns (body_out [W,13,B], lam [W,3,S,Cg], pid
+    [W,S,Cg])."""
     fs = _statics(t)
     cx = fs.cx
     body, warm_lam, warm_pid = _inputs(state, t, accel, angvel)
     col = collider_planes(t, body, dt)
-    amin, amax = _aabbs(t, col)
-    cands = bp_mod.slab_candidates(t.grid, cx.col_body, cx.dyn_col, amin,
-                                   amax, tight_delta=_tight_delta())
+    if cands is None:
+        amin, amax = _aabbs(t, col)
+        cands = bp_mod.slab_candidates(t.grid, cx.col_body, cx.dyn_col, amin,
+                                       amax, tight_delta=_tight_delta(),
+                                       rank=bp_rank)
     jv = _jv_from_candidates(fs, cands)
     return _narrow_and_solve(t, dt, body, col.contiguous(), jv, warm_lam,
                              warm_pid)

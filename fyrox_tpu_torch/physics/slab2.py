@@ -7,7 +7,8 @@ JAX package's ``FYROX_NO_FUSED_STEP=1``). Scenes with joints or
 centre-of-mass offsets always take the staged path, whose K1 call carries
 the joint tables and the COM planes:
 
-    collider pose + swept fat AABBs → slab broadphase windows
+    collider pose + swept fat AABBs → slab broadphase windows (or, under
+      temporal broadphase reuse, the cached windows; below)
     → per-class plane narrowphase (partner rows through K4a plane_gather)
     → per-collider compaction of active points to ``s_active`` slots,
       rapier-tier points first
@@ -18,6 +19,14 @@ the joint tables and the COM planes:
 Every contact slot is directed (the twin slot of the partner's window
 carries the other half of the impulse), so the solver applies only the
 self half of each impulse and Newton's third law holds exactly.
+
+Temporal broadphase reuse (``broadphase_period`` > 1, ``reuse_candidates``)
+rebuilds the candidate windows from two-sided, period-fattened AABBs every
+``period`` steps, or earlier once a body leaves its cached coverage, and
+reuses them in between; such templates take the K2 route (or the staged
+path), since K3 rebuilds every step. The rebuild-or-reuse decision is one
+for all worlds and is taken on the host, on one scalar read per step, so a
+reuse step does none of the rebuild's work.
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ from fyrox_tpu_torch.physics.planes import (norm3, q_to_rot9, qmul, qrotate,
                                             where_n)
 
 __all__ = ["step_slab2", "contacts", "solver_inputs", "pack_solver_inputs",
-           "pack_contacts", "pack_body_planes", "joint_tables"]
+           "pack_contacts", "pack_body_planes", "joint_tables",
+           "reuse_candidates", "bp_demand_stats", "overflow_stats"]
 
 DYNAMIC = 0
 
@@ -53,8 +63,6 @@ class _Ctx:
             raise NotImplementedError("the torch port steps slab templates "
                                       "only (dense and grid broadphases "
                                       "are not ported)")
-        if int(getattr(t, "broadphase_period", 1) or 1) != 1:
-            raise NotImplementedError("broadphase_period > 1")
         shapes_ok = (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE)
         if not np.all(np.isin(np.asarray(t.col_shape), shapes_ok)):
             raise NotImplementedError("convex hulls, cylinders/cones and "
@@ -116,6 +124,32 @@ class _Ctx:
             self.joint_a = np.asarray(self.joints.body_a, np.int32)
             self.joint_b = np.asarray(self.joints.body_b, np.int32)
             self.jtab = joint_table(self.joints)
+        # rotation-invariant radius bound per collider (the reuse window's
+        # AABBs must cover the bodies' rotation until the next rebuild);
+        # the capsule's is the norm of its conservative rotated-box extents,
+        # as build_slab_config sizes the cell; unbounded shapes get _HUGE
+        p = np.asarray(t.col_params, np.float64)
+        br = np.full(self.c, np.inf)
+        br = np.where(self.shape == sh.BALL, p[:, 0], br)
+        br = np.where(self.shape == sh.CUBOID,
+                      np.linalg.norm(p[:, :3], axis=1), br)
+        br = np.where(self.shape == sh.CAPSULE,
+                      np.sqrt(2 * p[:, 1] ** 2 + (p[:, 0] + p[:, 1]) ** 2), br)
+        self.bound_radius = np.where(np.isfinite(br), br,
+                                     sh._HUGE).astype(np.float32)
+        # static per-body coverage cap of a reuse window: half the smallest
+        # sweep cap over the body's grid colliders, less twice its largest
+        # collider offset (the offsets' swing room), at least 0
+        capb = np.full(self.b, np.inf, np.float32)
+        offb = np.zeros(self.b, np.float32)
+        gcols = set(int(x) for x in sc.grid_cols)
+        for ci in range(self.c):
+            bi = int(col_body[ci])
+            if ci in gcols:
+                capb[bi] = min(capb[bi], 0.5 * float(sc.sweep_cap[ci]))
+                offb[bi] = max(offb[bi],
+                               float(np.linalg.norm(self.col_pos[ci])))
+        self.body_cov_cap = np.maximum(capb - 2.0 * offb, 0.0)
 
 
 def _ctx(t) -> _Ctx:
@@ -147,8 +181,16 @@ def _collider_pose_planes(cx: _Ctx, pos_b, q_b, lv_b):
     return cpos, wq, lvc
 
 
-def _aabb_planes(cx: _Ctx, t, cpos, crot9, v_sweep, margin):
-    """Swept fat AABB planes [W,C] x 6 (amin3, amax3)."""
+def _aabb_planes(cx: _Ctx, t, cpos, crot9, v_sweep, margin,
+                 two_sided=False, extra=0.0):
+    """Swept fat AABB planes [W,C] x 6 (amin3, amax3).
+
+    two_sided: the temporal-reuse AABBs. The cached candidates must cover
+    motion in any direction and any rotation until the next rebuild, so
+    the extents are the rotation-invariant radius bounds and the sweep
+    |v_sweep| + `extra` (the gravity drift over the period) inflates both
+    sides, clipped at half the sweep cap to keep the whole extent within
+    the walk's ±1-cell reach."""
     dev = cpos[0].device
     sc = t.grid
     shp = const(cx.shape, dev)[None]
@@ -172,8 +214,17 @@ def _aabb_planes(cx: _Ctx, t, cpos, crot9, v_sweep, margin):
             is_box, box[i], torch.where(is_cap, cap[i], huge)))
         he.append(h + margin)
     cap3 = const(sc.sweep_cap, dev)[None]
+    if two_sided:
+        br = const(cx.bound_radius, dev)[None] + margin
+        he = [br, br, br]
     amin, amax = [], []
     for i in range(3):
+        if two_sided:
+            ext = torch.minimum(torch.clamp(torch.abs(v_sweep[i]) + extra,
+                                            min=0.0), cap3 * 0.5)
+            amin.append(cpos[i] - he[i] - ext)
+            amax.append(cpos[i] + he[i] + ext)
+            continue
         swc = torch.minimum(torch.maximum(v_sweep[i], -cap3), cap3)
         amin.append(cpos[i] - he[i] + torch.clamp(swc, max=0.0))
         amax.append(cpos[i] + he[i] + torch.clamp(swc, min=0.0))
@@ -390,53 +441,138 @@ def pack_solver_inputs(cx: _Ctx, con: _Contacts, lam0, pos, q, lv, av,
     return con_planes, body_j, body, const(cx.grid_body, pos[0].device)
 
 
-def step_slab2(state, t, dt, accel, angvel, fused=True):
-    """One slab step; returns the new PhysicsState. Scenes in the fused
-    scope take the fused route (K3 or K2) unless `fused` is False."""
-    from fyrox_tpu_torch.physics import fused_step
-    cx = _ctx(t)
-    if fused and fused_step.supports_fused(t):
-        run = (fused_step.fused_full_step if fused_step.supports_fused_bp(t)
-               else fused_step.fused_step)
-        body_out, lam, pid_sc = run(state, t, dt, accel, angvel)
-        pid = from_sc(cx, pid_sc)
-    else:
-        packed, pid = solver_inputs(state, t, dt, accel, angvel)
-        body_out, lam = tgs_kernel.solve_tgs(
-            *packed, tgs_kernel.solver_params(t, dt), has_com=cx.has_com,
-            joints=joint_tables(cx, packed[0].device))
-    lams = tuple(from_sc(cx, lam[:, i]) for i in range(3))
-    return _finish_step(state, t, dt, body_out, lams, pid)
+def _period(t) -> int:
+    return int(getattr(t, "broadphase_period", 1) or 1)
 
 
-def contacts(state, t, dt) -> _Contacts:
-    """The step's compacted contacts: collider pose, AABBs, broadphase,
-    narrowphase and compaction."""
-    from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
-                                               SPECULATIVE_MARGIN)
-    cx = _ctx(t)
-    sc = t.grid
-    margin = t.allowed_linear_error + SPECULATIVE_MARGIN
+def _margin(t) -> float:
+    from fyrox_tpu_torch.physics.world import SPECULATIVE_MARGIN
+    return t.allowed_linear_error + SPECULATIVE_MARGIN
+
+
+def _pose(cx: _Ctx, state):
+    """Collider pose planes of a state: (cpos v3, cq quat4, crot9, lv_c v3)."""
     cpos, cq, lv_c = _collider_pose_planes(cx, _unstack(state.position),
                                            _unstack(state.rotation),
                                            _unstack(state.linvel))
-    crot9 = q_to_rot9(cq)
+    return cpos, cq, q_to_rot9(cq), lv_c
+
+
+def _stack(planes):
+    return torch.stack(planes, -1)
+
+
+def step_slab2(state, t, dt, accel, angvel, fused=True, bp_rank="sort"):
+    """One slab step; returns the new PhysicsState. Scenes in the fused
+    scope take the fused route (K3 or K2) unless `fused` is False.
+    bp_rank: the slab broadphase's rank, "sort" or "count" (the JAX
+    package's FYROX_BP_RANK), wherever the broadphase runs in PyTorch (K3
+    ranks inside its kernel)."""
+    from fyrox_tpu_torch.physics import fused_step
+    cx = _ctx(t)
+    bp_cache, bp_age = state.bp_cache, state.bp_age
+    if fused and fused_step.supports_fused_bp(t):
+        body_out, lam, pid_sc = fused_step.fused_full_step(state, t, dt,
+                                                           accel, angvel)
+        pid = from_sc(cx, pid_sc)
+    else:
+        cands = None
+        if _period(t) > 1 and state.bp_cache is not None:
+            cands, bp_cache, bp_age = reuse_candidates(state, t, dt, bp_rank)
+        if fused and fused_step.supports_fused(t):
+            body_out, lam, pid_sc = fused_step.fused_step(
+                state, t, dt, accel, angvel, cands=cands, bp_rank=bp_rank)
+            pid = from_sc(cx, pid_sc)
+        else:
+            packed, pid = solver_inputs(state, t, dt, accel, angvel,
+                                        cands=cands, bp_rank=bp_rank)
+            body_out, lam = tgs_kernel.solve_tgs(
+                *packed, tgs_kernel.solver_params(t, dt), has_com=cx.has_com,
+                joints=joint_tables(cx, packed[0].device))
+    lams = tuple(from_sc(cx, lam[:, i]) for i in range(3))
+    return _finish_step(state, t, dt, body_out, lams, pid, bp_cache, bp_age)
+
+
+def reuse_candidates(state, t, dt, bp_rank="sort"):
+    """Temporal broadphase reuse (fyrox_tpu/physics/slab2.py:1099-1185).
+    Returns (candidates, bp_cache, bp_age) for this step.
+
+    A rebuild walks the slab broadphase over two-sided AABBs fattened by
+    |v|·period·dt plus the gravity drift over the period, with this step's
+    own AABBs as the tight tier, and caches the windows, the positions and
+    a per-body coverage budget (|v|·period·dt + drift, capped by
+    ``_Ctx.body_cov_cap``; zero if any window overflowed, so that the next
+    step rebuilds too). Between rebuilds the cached windows serve. A
+    rebuild happens when bp_age[0] % period == 0, or as soon as any body's
+    displacement since the rebuild plus this step's sweep leaves its
+    budget; one decision for all worlds, read on the host (one scalar per
+    step), and a rebuild restarts the cadence."""
+    cx = _ctx(t)
+    sc = t.grid
+    period = _period(t)
+    f32 = np.float32
+    dtv = f32(dt)
+    span = f32(period) * dtv                       # the reuse horizon, s
+    gmag = float(np.linalg.norm(np.asarray(t.gravity, np.float64)))
+    # discrete symplectic-Euler drift over the period, 0.5 g T^2 (1 + 1/p),
+    # with 1/p more as slack for the last step's sweep; float32 as the
+    # JAX package computes it
+    extra = float(f32(0.5 * gmag) * (span * span) * f32(1.0 + 2.0 / period))
+    cached, pos0, cov0 = state.bp_cache
+    need = (torch.abs(state.position - pos0)
+            + torch.abs(state.linvel) * float(dtv))
+    covered = torch.all(need <= cov0 + 1e-5)
+    if not bool(((state.bp_age[0] % period) == 0) | ~covered):
+        return list(cached), state.bp_cache, (state.bp_age + 1) % period
+    cpos, _, crot9, lv_c = _pose(cx, state)
+    margin = _margin(t)
+    aminf, amaxf = _aabb_planes(cx, t, cpos, crot9, scale3(lv_c, float(span)),
+                                margin, two_sided=True, extra=extra)
+    amint, amaxt = _aabb_planes(cx, t, cpos, crot9, scale3(lv_c, dt), margin)
+    cands, demand = bp_mod.slab_candidates(
+        sc, cx.col_body, cx.dyn_col, _stack(aminf), _stack(amaxf),
+        amin_tight=_stack(amint), amax_tight=_stack(amaxt), rank=bp_rank,
+        return_demand=True)
+    dev = state.position.device
+    cov = torch.minimum(torch.abs(state.linvel) * float(span) + extra,
+                        const(cx.body_cov_cap, dev)[None, :, None])
+    overflow = torch.any(demand["walk_total"] > sc.s_walk)
+    for c in range(3):
+        if sc.s_class[c]:
+            overflow = overflow | torch.any(
+                demand["class_valid"][c] > sc.s_class[c])
+    cov = torch.where(overflow, torch.zeros_like(cov), cov)
+    return cands, (tuple(cands), state.position, cov), \
+        torch.ones_like(state.bp_age)
+
+
+def contacts(state, t, dt, cands=None, bp_rank="sort") -> _Contacts:
+    """The step's compacted contacts: collider pose, AABBs, broadphase
+    (rank `bp_rank`; skipped where `cands` are given), narrowphase and
+    compaction."""
+    from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
+                                               SPECULATIVE_MARGIN)
+    cx = _ctx(t)
+    margin = _margin(t)
+    cpos, cq, crot9, lv_c = _pose(cx, state)
     v_sweep = scale3(lv_c, dt)
-    amin, amax = _aabb_planes(cx, t, cpos, crot9, v_sweep, margin)
-    cands = bp_mod.slab_candidates(
-        sc, cx.col_body, cx.dyn_col, torch.stack(amin, -1),
-        torch.stack(amax, -1),
-        tight_delta=SPECULATIVE_MARGIN - PREDICTION_DISTANCE)
+    if cands is None:
+        amin, amax = _aabb_planes(cx, t, cpos, crot9, v_sweep, margin)
+        cands = bp_mod.slab_candidates(
+            t.grid, cx.col_body, cx.dyn_col, _stack(amin), _stack(amax),
+            tight_delta=SPECULATIVE_MARGIN - PREDICTION_DISTANCE,
+            rank=bp_rank)
     attrs_f, attrs_i = _narrowphase_windows(cx, t, cands, cpos, cq, v_sweep,
                                             margin)
     return _compact(cx, attrs_f, attrs_i)
 
 
-def solver_inputs(state, t, dt, accel, angvel):
-    """Everything of the step before the solve: contacts and warm-start
-    matching. Returns the packed K1 inputs (con, body_j, body, col_body)
-    and the new point identities [W, Cg*s_active]."""
-    con = contacts(state, t, dt)
+def solver_inputs(state, t, dt, accel, angvel, cands=None, bp_rank="sort"):
+    """Everything of the step before the solve: contacts (on `cands` where
+    given) and warm-start matching. Returns the packed K1 inputs (con,
+    body_j, body, col_body) and the new point identities [W,
+    Cg*s_active]."""
+    con = contacts(state, t, dt, cands, bp_rank)
     # warm start: slots still holding the same contact point identity
     same = (state.warm_pair == con.pid).to(torch.float32) * con.act
     lam0 = (state.warm_n * same, state.warm_t1 * same, state.warm_t2 * same)
@@ -446,7 +582,7 @@ def solver_inputs(state, t, dt, accel, angvel):
                                _unstack(accel)), con.pid)
 
 
-def _finish_step(state, t, dt, body_out, lams, pid_new):
+def _finish_step(state, t, dt, body_out, lams, pid_new, bp_cache, bp_age):
     """Step tail: locks/damping, warm-carry routing, state pack."""
     from fyrox_tpu_torch.physics.world import (PhysicsState,
                                                _apply_locks_damping)
@@ -464,4 +600,78 @@ def _finish_step(state, t, dt, body_out, lams, pid_new):
                         warm_t1=lams[1].contiguous(),
                         warm_t2=lams[2].contiguous(),
                         warm_pair=pid_new.contiguous(),
-                        bp_cache=state.bp_cache, bp_age=state.bp_age)
+                        bp_cache=bp_cache, bp_age=bp_age)
+
+
+# --------------------------------------------------------------------------
+# diagnostics: demand against the windows (fyrox_tpu/physics/slab2.py:1841)
+# --------------------------------------------------------------------------
+
+def bp_demand_stats(t, state, period=1, dt=1.0 / 60.0):
+    """Broadphase window demand of the state at a temporal reuse period:
+    raw walk-window candidates against s_walk and per-class valid (and
+    tight-tier) candidates against s_class. Demand past a window drops
+    candidates silently. Returns a dict of Python ints."""
+    from fyrox_tpu_torch.physics.world import (PREDICTION_DISTANCE,
+                                               SPECULATIVE_MARGIN)
+    cx = _ctx(t)
+    sc = t.grid
+    cpos, _, crot9, lv_c = _pose(cx, state)
+    margin = _margin(t)
+    if period > 1:
+        gmag = float(np.linalg.norm(np.asarray(t.gravity, np.float64)))
+        extra = 0.5 * gmag * (period * dt) ** 2
+        amin, amax = _aabb_planes(cx, t, cpos, crot9,
+                                  scale3(lv_c, dt * period), margin,
+                                  two_sided=True, extra=extra)
+        amint, amaxt = _aabb_planes(cx, t, cpos, crot9, scale3(lv_c, dt),
+                                    margin)
+        kw = dict(amin_tight=_stack(amint), amax_tight=_stack(amaxt))
+    else:
+        amin, amax = _aabb_planes(cx, t, cpos, crot9, scale3(lv_c, dt),
+                                  margin)
+        kw = dict(tight_delta=SPECULATIVE_MARGIN - PREDICTION_DISTANCE)
+    _, demand = bp_mod.slab_candidates(sc, cx.col_body, cx.dyn_col,
+                                       _stack(amin), _stack(amax),
+                                       return_demand=True, **kw)
+    walk = demand["walk_total"].cpu().numpy()
+    out = dict(max_walk=int(walk.max()), s_walk=int(sc.s_walk),
+               walk_dropped=int(np.maximum(walk - sc.s_walk, 0).sum()))
+    for c in range(3):
+        nv = demand["class_valid"][c].cpu().numpy()
+        nt = demand["class_tight"][c].cpu().numpy()
+        cap = sc.s_class[c]
+        out[f"class{c}"] = dict(
+            max_valid=int(nv.max()), cap=int(cap),
+            dropped=int(np.maximum(nv - cap, 0).sum()) if cap else 0,
+            max_tight=int(nt.max()),
+            tight_dropped=int(np.maximum(nt - cap, 0).sum()) if cap else 0)
+    return out
+
+
+def overflow_stats(t, state):
+    """Active-point demand of the state against the s_active compaction
+    window: points past it drop. Returns dict(max_active_points,
+    mean_active_points, max_tight_points, s_active, dropped_points,
+    tight_dropped_points); the tight points are those within rapier's
+    prediction distance, which compaction packs first."""
+    from fyrox_tpu_torch.physics.world import PREDICTION_DISTANCE
+    cx = _ctx(t)
+    cpos, cq, crot9, lv_c = _pose(cx, state)
+    v_sweep = scale3(lv_c, 1.0 / 60.0)
+    margin = _margin(t)
+    amin, amax = _aabb_planes(cx, t, cpos, crot9, v_sweep, margin)
+    cands = bp_mod.slab_candidates(t.grid, cx.col_body, cx.dyn_col,
+                                   _stack(amin), _stack(amax))
+    attrs_f, _ = _narrowphase_windows(cx, t, cands, cpos, cq, v_sweep, margin)
+    act = attrs_f["act"]
+    n_valid = act.sum(dim=2).cpu().numpy()
+    n_tight = (act * (attrs_f["depth"] > -PREDICTION_DISTANCE)).sum(
+        dim=2).cpu().numpy()
+    s = cx.s_active
+    return dict(max_active_points=int(n_valid.max()),
+                mean_active_points=float(n_valid.mean()),
+                max_tight_points=int(n_tight.max()),
+                s_active=s,
+                dropped_points=int(np.maximum(n_valid - s, 0).sum()),
+                tight_dropped_points=int(np.maximum(n_tight - s, 0).sum()))

@@ -6,8 +6,9 @@ broadphase → plane narrowphase → per-collider compaction → TGS-soft
 solve, on the fused route (physics/fused_step.py) where the scene allows
 it, else on the staged path. Joints (up to 128, solved inside the TGS
 kernel) and centre-of-mass offsets take the staged path, as in the JAX
-package. Convex hulls, scenery, temporal broadphase reuse and the
-dense/grid broadphases raise NotImplementedError.
+package. Temporal broadphase reuse (``broadphase_period`` > 1) caches the
+candidate windows between rebuilds (``slab2.reuse_candidates``). Convex
+hulls, scenery and the dense/grid broadphases raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -100,6 +101,9 @@ class PhysicsState(NamedTuple):
     warm_t1: Optional[torch.Tensor] = None
     warm_t2: Optional[torch.Tensor] = None
     warm_pair: Optional[torch.Tensor] = None  # [W,Cg*s_active] int32
+    # temporal broadphase reuse (broadphase_period > 1): (per-class
+    # SlabCandidates, positions at the rebuild [W,B,3], coverage budgets
+    # [W,B,3]) and the steps since the rebuild [W] int32
     bp_cache: Optional[tuple] = None
     bp_age: Optional[torch.Tensor] = None
 
@@ -183,9 +187,6 @@ class PhysicsBuilder:
             raise NotImplementedError(
                 f"broadphase={broadphase!r}: the torch port has the slab "
                 "broadphase only")
-        if int(broadphase_period) != 1:
-            raise NotImplementedError("broadphase_period > 1 (temporal "
-                                      "broadphase reuse)")
         nb = len(self._bodies)
         nc = len(self._colliders)
         inv_mass = np.zeros(nb, np.float32)
@@ -277,6 +278,7 @@ class PhysicsBuilder:
             grid=grid_cfg,
             joints=(self._joints.build(com_local=com)
                     if self._joints is not None else None),
+            broadphase_period=int(broadphase_period),
             **solver_kw)
 
     def initial_pose(self):
@@ -288,8 +290,10 @@ class PhysicsBuilder:
 
 def init_physics_state(builder_or_pose, template: PhysicsTemplate,
                        num_worlds: int, device="cuda") -> PhysicsState:
-    """Bodies at rest at the given poses; empty warm-start carries. On the
-    card unless `device` says otherwise."""
+    """Bodies at rest at the given poses; empty warm-start carries and,
+    at broadphase_period > 1, an empty candidate cache whose age 0 and
+    zero coverage make the first step rebuild. On the card unless
+    `device` says otherwise."""
     device = resolve_device(device)
     if isinstance(builder_or_pose, PhysicsBuilder):
         pos, rot = builder_or_pose.initial_pose()
@@ -302,6 +306,21 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
     def z(*shape, dtype=f32, fill=0):
         return torch.full(shape, fill, dtype=dtype, device=device)
 
+    bp = {}
+    if int(getattr(template, "broadphase_period", 1) or 1) > 1:
+        from fyrox_tpu_torch.physics.broadphase import SlabCandidates
+        sc = template.grid
+        cands = []
+        for cls in range(3):
+            k = int(sc.grid_cols.size) * sc.nslot(cls)
+            cands.append(SlabCandidates(
+                j_real=z(w, k, dtype=torch.int32),
+                body_j=z(w, k, dtype=torch.int32),
+                valid=z(w, k, dtype=torch.bool),
+                swap=z(w, k, dtype=torch.bool),
+                pid=z(w, k, dtype=torch.int32, fill=-1)))
+        bp = dict(bp_cache=(tuple(cands), z(w, b, 3), z(w, b, 3)),
+                  bp_age=z(w, dtype=torch.int32))
     return PhysicsState(
         position=torch.as_tensor(np.asarray(pos, np.float32), device=device
                                  ).expand(w, b, 3).contiguous(),
@@ -310,17 +329,20 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         linvel=z(w, b, 3), angvel=z(w, b, 3), force=z(w, b, 3),
         torque=z(w, b, 3),
         warm_n=z(w, kk), warm_t1=z(w, kk), warm_t2=z(w, kk),
-        warm_pair=z(w, kk, dtype=torch.int32, fill=-1))
+        warm_pair=z(w, kk, dtype=torch.int32, fill=-1), **bp)
 
 
 def step_physics(state: PhysicsState, t: PhysicsTemplate, dt,
-                 fused=True) -> PhysicsState:
+                 fused=True, bp_rank="sort") -> PhysicsState:
     """One physics step: external accelerations, then the slab pipeline
     (the fused route where the scene allows it; fused=False keeps the
-    staged path)."""
+    staged path). bp_rank: "sort" or "count", how the slab broadphase
+    orders its keys where it runs in PyTorch (the JAX package's
+    FYROX_BP_RANK; "count" runs K4b plane_scatter)."""
     from fyrox_tpu_torch.physics import slab2
     accel, angvel = external_accelerations(state, t, dt)
-    return slab2.step_slab2(state, t, dt, accel, angvel, fused=fused)
+    return slab2.step_slab2(state, t, dt, accel, angvel, fused=fused,
+                            bp_rank=bp_rank)
 
 
 def external_accelerations(state: PhysicsState, t: PhysicsTemplate, dt):

@@ -6,16 +6,20 @@ Conventions of the reference (fyrox-impl/src/scene/camera.rs):
   * perspective = nalgebra new_perspective (RH, NDC z in [-1, 1], vertical
     fov; camera.rs:89-105);
   * ortho = new_orthographic(-vs*aspect, vs*aspect, -vs, vs, zn, zf).
-Matrices are row-major float32; scalar arguments are Python floats.
+Matrices are row-major float32; scalar arguments are Python floats. The
+constructors return their matrix on the card unless `device` says
+otherwise, as the port's other entry points do.
 """
 from __future__ import annotations
 
 import torch
 
+from fyrox_tpu_torch._util import resolve_device
+
 __all__ = ["perspective", "orthographic", "look_at_rh", "view_matrix"]
 
 
-def perspective(fov_y, aspect, z_near, z_far, device="cpu"):
+def perspective(fov_y, aspect, z_near, z_far, device="cuda"):
     """[4, 4] RH perspective with [-1, 1] depth, computed in float32."""
     f32 = torch.float32
     fov_y, aspect, z_near, z_far = (torch.tensor(float(x), dtype=f32)
@@ -27,10 +31,10 @@ def perspective(fov_y, aspect, z_near, z_far, device="cpu"):
     m[2, 2] = (z_far + z_near) / (z_near - z_far)
     m[2, 3] = 2.0 * z_far * z_near / (z_near - z_far)
     m[3, 2] = -1.0
-    return m.to(device)
+    return m.to(resolve_device(device))
 
 
-def orthographic(vertical_size, aspect, z_near, z_far, device="cpu"):
+def orthographic(vertical_size, aspect, z_near, z_far, device="cuda"):
     """[4, 4] RH orthographic, symmetric about the view axis
     (camera.rs:139-170), computed in float32."""
     f32 = torch.float32
@@ -43,7 +47,7 @@ def orthographic(vertical_size, aspect, z_near, z_far, device="cpu"):
     m[2, 2] = -2.0 / (z_far - z_near)
     m[2, 3] = -(z_far + z_near) / (z_far - z_near)
     m[3, 3] = 1.0
-    return m.to(device)
+    return m.to(resolve_device(device))
 
 
 def look_at_rh(eye, target, up):

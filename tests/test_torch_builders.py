@@ -92,6 +92,26 @@ def test_flagship_templates_equal(flagships, part, fields):
         _same(je.template.cameras, te.template.cameras, "cameras")
 
 
+@pytest.mark.parametrize("part,fields", [("physics", PHYS_FIELDS),
+                                         ("slab", SLAB_FIELDS)])
+def test_reuse_flagship_templates_equal(monkeypatch, part, fields):
+    """build_flagship(broadphase_period=4) against the JAX package's
+    flagship under FYROX_SLAB_BP_PERIOD=4: the period, windows (16, 8, 12)
+    and walk 64."""
+    monkeypatch.setenv("FYROX_SLAB_BP_PERIOD", "4")
+    for k in ("FYROX_SLAB_WINDOW", "FYROX_SLAB_WALK", "FYROX_SLAB_ACTIVE"):
+        monkeypatch.delenv(k, raising=False)
+    je, _ = jax_build_flagship(**FLAGSHIP)
+    te, _ = torch_build_flagship(**FLAGSHIP, broadphase_period=4)
+    get = (lambda e: e.physics.grid) if part == "slab" else \
+        (lambda e: e.physics)
+    for f in fields:
+        _same(getattr(get(je), f), getattr(get(te), f), f"{part}.{f}")
+    assert te.physics.broadphase_period == 4
+    assert (te.physics.grid.s_class, te.physics.grid.s_walk) == ((16, 0, 12),
+                                                                 64)
+
+
 def test_flagship_skin_equal(flagships):
     (_, jskin), (_, tskin) = flagships
     for f in ("bones", "vertices", "bone_indices", "bone_weights"):
@@ -117,6 +137,15 @@ def test_port_imports_and_builds_without_jax():
         assert fused_step.supports_fused_bp(e.physics)
         st = e.step(st)
         st = e.step(st, fused=False)
+        from fyrox_tpu_torch.physics import plane_ops, slab2
+        r, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192,
+                              broadphase_period=4)
+        rs = r.init_state(2, device="cpu")
+        rs = r.step(r.step(rs, bp_rank="count"), fused=False, bp_rank="count")
+        assert rs.physics.bp_age.tolist() == [1, 1]
+        assert plane_ops.launches("plane_scatter") == 0
+        assert slab2.bp_demand_stats(r.physics, rs.physics, period=4)
+        assert slab2.overflow_stats(r.physics, rs.physics)
         from fyrox_tpu_torch import render
         from fyrox_tpu_torch.core import aabb, frustum
         from fyrox_tpu_torch.render import tile_raster
@@ -165,7 +194,7 @@ def _plain_tick_launches(fused):
     e, _ = torch_build_flagship(**FLAGSHIP)
     st = e.step(e.init_state(1, device="cpu"), fused=fused)
     assert torch.isfinite(st.physics.position).all()
-    return (plane_ops.launches(), tgs_kernel.launches(),
+    return (plane_ops.launches("plane_gather"), tgs_kernel.launches(),
             fused_step.launches("fused_bp"),
             fused_step.launches("narrow_compact"))
 
@@ -178,8 +207,7 @@ def test_cpu_staged_route_takes_the_plain_versions():
     assert _plain_tick_launches(fused=False) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("case", ["joint", "dense", "period", "com",
-                                  "shape"])
+@pytest.mark.parametrize("case", ["joint", "dense", "com", "shape"])
 def test_out_of_scope_features_raise(case):
     """What the port does not run raises. Joints and centre-of-mass
     offsets run on the staged route; still out of scope are more joints
@@ -206,8 +234,6 @@ def test_out_of_scope_features_raise(case):
             fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
         elif case == "dense":
             pb.build(broadphase="dense")
-        elif case == "period":
-            pb.build(broadphase_period=2)
         elif case == "shape":
             pb.add_collider(g, 6, [])       # CONVEX
         else:

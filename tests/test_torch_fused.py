@@ -32,6 +32,7 @@ from fyrox_tpu_torch.physics import BALL, CAPSULE, CUBOID, HALFSPACE
 from fyrox_tpu_torch.physics import BodyType, PhysicsBuilder
 from fyrox_tpu_torch.physics import fused_step
 from fyrox_tpu_torch.physics import world as tworld
+from fyrox_tpu_torch.scene import camera as tcamera
 from fyrox_tpu_torch.scene import init_state as tscene_init
 
 torch.set_num_threads(2)
@@ -337,7 +338,7 @@ def test_fused_route_equals_staged_route_on_the_flagship():
 # ---- entry points default to the card -------------------------------------
 
 @pytest.mark.parametrize("entry", ["engine", "physics", "scene", "animation",
-                                   "machine", "convert"])
+                                   "machine", "convert", "camera"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     e, _ = torch_build_flagship(**FLAGSHIP)
@@ -351,6 +352,7 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "machine": lambda: tmachine.init_machine_state(e.machine, 2),
         "convert": lambda: convert.physics_state(
             convert.to_numpy(e.init_state(2, device="cpu").physics)),
+        "camera": lambda: tcamera.perspective(1.2, 1.5, 0.05, 100.0),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()

@@ -37,9 +37,9 @@ def test_plane_gather_kernel_is_bit_exact(cuda, w, a, n, k):
         np.float32), device=cuda)
     idx = torch.as_tensor(rng.integers(-n // 4, n + n // 4, (w, k)).astype(
         np.int32), device=cuda)
-    before = plane_ops.launches()
+    before = plane_ops.launches("plane_gather")
     got = plane_ops.plane_gather(planes, idx)
-    assert plane_ops.launches() == before + 1
+    assert plane_ops.launches("plane_gather") == before + 1
     assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
 
 
@@ -52,6 +52,55 @@ def test_plane_gather_kernel_rejects_bad_inputs(cuda):
         plane_ops.plane_gather(planes.transpose(1, 2),
                                torch.zeros((2, 4), dtype=torch.int32,
                                            device=cuda))
+
+
+@pytest.mark.parametrize("w,a,n", [(128, 16, 1000), (4, 10, 300),
+                                   (3, 40, 7)])
+def test_plane_scatter_kernel_is_bit_exact_on_a_permutation(cuda, w, a, n):
+    rng = np.random.default_rng(n)
+    vals = torch.as_tensor(rng.standard_normal((w, a, n)).astype(np.float32),
+                           device=cuda)
+    idx = torch.as_tensor(np.stack([rng.permutation(n) for _ in range(w)])
+                          .astype(np.int32), device=cuda)
+    before = plane_ops.launches("plane_scatter")
+    got = plane_ops.plane_scatter(vals, idx, n)
+    assert plane_ops.launches("plane_scatter") == before + 1
+    assert torch.equal(got, plane_ops.plane_scatter_plain(vals, idx, n))
+    # the broadphase's use: rows into key order
+    x = vals.transpose(1, 2).contiguous()
+    assert torch.equal(plane_ops.scatter_rows(x, idx, n),
+                       plane_ops.scatter_rows(x, idx, n, plain=True))
+
+
+def test_plane_scatter_kernel_with_repeats(cuda):
+    rng = np.random.default_rng(5)
+    w, a, k, n = 8, 16, 3000, 1000
+    vals = torch.as_tensor(rng.standard_normal((w, a, k)).astype(np.float32),
+                           device=cuda)
+    idx = torch.as_tensor(rng.integers(-50, n + 50, (w, k)).astype(np.int32),
+                          device=cuda)
+    got = plane_ops.plane_scatter(vals, idx, n)
+    again = plane_ops.plane_scatter(vals, idx, n)
+    assert torch.equal(got, again)          # a fixed order of sums
+    ref = plane_ops.plane_scatter_plain(vals, idx, n)
+    assert (got - ref).abs().max().item() <= 1e-6 * max(
+        1.0, ref.abs().max().item())
+
+
+def test_plane_scatter_kernel_rejects_bad_inputs(cuda):
+    vals = torch.zeros((2, 3, 10), device=cuda)
+    idx = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        plane_ops.plane_scatter(vals.double(), idx, 5)
+    with pytest.raises(TypeError):
+        plane_ops.plane_scatter(vals, idx.long(), 5)
+    with pytest.raises(ValueError):
+        plane_ops.plane_scatter(vals, idx[:, :4].contiguous(), 5)
+    with pytest.raises(ValueError):
+        plane_ops.plane_scatter(vals.transpose(1, 2).contiguous()
+                                .transpose(1, 2), idx, 5)
+    with pytest.raises(ValueError):
+        plane_ops.plane_scatter(vals, idx.cpu(), 5)
 
 
 def _all_differ(x):

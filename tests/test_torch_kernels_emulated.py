@@ -203,6 +203,30 @@ def test_plane_gather_matches_plain(on_cpu):
     assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
 
 
+@pytest.mark.parametrize("case", ["permutation", "repeats"])
+def test_plane_scatter_matches_plain(on_cpu, case):
+    """K4b over two index tiles, two blocks of rows and two attribute
+    chunks: a permutation bit-equal, repeats with out-of-range and
+    negative indices within 1e-6 (sums in another order)."""
+    rng = np.random.default_rng(3)
+    w, a, k, n = 2, 20, 300, 260
+    vals = torch.as_tensor(rng.standard_normal((w, a, k)).astype(np.float32))
+    if case == "permutation":
+        idx = np.stack([rng.permutation(k) for _ in range(w)]) - 20
+    else:
+        idx = rng.integers(-10, n + 10, (w, k))
+    idx = torch.as_tensor(idx.astype(np.int32))
+    before = plane_ops.launches("plane_scatter")
+    got = plane_ops._plane_scatter_cuda(vals, idx, n)
+    assert plane_ops.launches("plane_scatter") == before + 1
+    ref = plane_ops.plane_scatter_plain(vals, idx, n)
+    assert (ref != 0).float().mean() > 0.5
+    if case == "permutation":
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max() <= 1e-6
+
+
 def _raster_inputs(size, n_img=3, t=300, seed=0, cull=True):
     """Binned 2DH feature rows of seeded random triangles in n_img
     different images: enough per tile to walk several 64-row chunks."""

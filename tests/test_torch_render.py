@@ -213,9 +213,9 @@ def test_camera_frustum_aabb_match_jax():
     jg, tg = jnp.asarray(g), torch.as_tensor(g)
     pairs = [
         (jcamera.perspective(1.2, 1.5, 0.05, 100.0),
-         camera.perspective(1.2, 1.5, 0.05, 100.0)),
+         camera.perspective(1.2, 1.5, 0.05, 100.0, device="cpu")),
         (jcamera.orthographic(5.0, 1.5, 0.05, 100.0),
-         camera.orthographic(5.0, 1.5, 0.05, 100.0)),
+         camera.orthographic(5.0, 1.5, 0.05, 100.0, device="cpu")),
         (jcamera.view_matrix(jg), camera.view_matrix(tg)),
         (jfrustum.from_view_projection(jg), frustum.from_view_projection(tg)),
     ]
