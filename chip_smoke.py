@@ -10,7 +10,8 @@ last line:
              staged gather shapes, bit-equal;
   K1       — TGS solve kernel vs its plain version on the packed inputs of
              one flagship step after 30 settling ticks, in worlds that
-             differ from one another;
+             differ from one another; two launches bit-equal; the live
+             slots it visited per pass;
   K3bp     — fused_bp kernel vs its plain version on the same settled
              full-width flagship: candidate windows equal as integers, and
              different across worlds;
@@ -45,8 +46,9 @@ PyTorch, count rank:
   K4b      — plane_scatter vs its plain version on the inputs of one
              count-rank rebuild of the settled flagship (W distinct
              worlds): bit-equal on that row permutation, within 1e-6 on
-             random inputs with repeats and out-of-range indices, two
-             launches bit-equal;
+             random inputs with repeats and out-of-range indices,
+             bit-equal to the float32 sums in ascending k on three buckets
+             of ~1,000 indices each, two launches bit-equal;
   reuse-small — a 192-collider fast-fall scene, card vs CPU over 40 ticks
              (W=4): the same rebuild ticks and cached windows, K4b launched
              once a rebuild;
@@ -65,6 +67,12 @@ offsets + 4 ragdoll spines: 76 joints), which takes the staged route:
              TICKS ticks + skinning, timed; launches per tick (K1 1 with joint
              tables, K4a one per gather, no fused kernel); every chain's tip
              within reach of its anchor.
+Then the flagship with a 2,000-body pile (past one block's shared memory):
+  K1big    — W distinct worlds, 30 settling ticks, then BIG_TICKS fused ticks
+             with the launches counted (fused_bp, narrow_compact, solve_tgs
+             one each a tick); K1's global-memory variant vs its plain
+             version on the next step, at K1's bounds, two launches
+             bit-equal, timed against its bound.
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
@@ -82,7 +90,11 @@ worlds made distinct by seeded jitter of the mesh nodes):
              twice per frame;
   render-profile — device events per frame and the device's busy share.
 Then one JSON line describing the kernels, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+and as the last line {"ok": true, "device": {...}}. Each kernel's `ms` (and
+`plain_ms`, `library_ms`) is CUDA-event time over a run of calls, which
+counts the host's issue between launches where a launch is shorter than its
+issue; `device_ms` (and `library_device_ms`) is CUDA-event time over the
+same calls queued behind a spin kernel, which the card runs back to back.
 """
 import json
 import subprocess
@@ -125,6 +137,32 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds of the card per call of fn, without the host's
+    issue: CUDA events around reps calls queued behind a spin kernel
+    (torch.cuda._sleep), so that the card runs them back to back. The spin
+    is lengthened until the host has queued every call before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        if cycles >= 1 << 32:
+            fail("device_ms: the host could not queue the calls behind a "
+                 "spin of 2^32 cycles")
+        cycles <<= 2
 
 
 def bound_ms(n_bytes, n_ops):
@@ -341,7 +379,7 @@ def phase_plane_gather(engine):
     shapes = [(19, c, cg * sc.nslot(k)) for k in range(3) if sc.nslot(k)]
     shapes += [(10, cg, cg), (10, cg, cg * sc.s_walk)]
     worst = 0.0
-    t_k = t_p = t_lib = 0.0
+    t_k = t_p = t_lib = dev_k = dev_lib = 0.0
     moved = 0
     for a, n, k in shapes:
         planes = torch.as_tensor(rng.standard_normal((WORLDS, a, n)).astype(
@@ -356,6 +394,7 @@ def phase_plane_gather(engine):
                  f"[{WORLDS},{a},{n}] x [{WORLDS},{k}]")
         worst = max(worst, (got - ref).abs().max().item())
         t_k += cuda_ms(lambda: plane_ops.plane_gather(planes, idx), 20)
+        dev_k += device_ms(lambda: plane_ops.plane_gather(planes, idx), 20)
         t_p += cuda_ms(lambda: plane_ops.plane_gather_plain(planes, idx), 20)
         # the library yardstick: one torch.gather over a copy padded with a
         # zero column, out-of-range indices sent to it (set-up not timed)
@@ -366,17 +405,20 @@ def phase_plane_gather(engine):
         if not torch.equal(torch.gather(padded, 2, lib_idx), ref):
             fail("the torch.gather yardstick of plane_gather disagrees")
         t_lib += cuda_ms(lambda: torch.gather(padded, 2, lib_idx), 20)
+        dev_lib += device_ms(lambda: torch.gather(padded, 2, lib_idx), 20)
         moved += nbytes(planes, idx, got)
     b_ms, b_by = bound_ms(moved, 0)
     log(f"[K4a] plane_gather bit-equal to plain on {len(shapes)} flagship "
         f"shapes (W={WORLDS}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
         f"torch.gather {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) per "
-        f"tick's set of staged gathers")
+        f"tick's set of staged gathers; device time: kernel {dev_k:.4f} ms, "
+        f"torch.gather {dev_lib:.4f} ms")
     return dict(name="plane_gather", route="cuda",
                 source="fyrox_tpu_torch/csrc/plane_gather.cu",
                 replaces="fyrox_tpu/physics/pallas_ops.py:171",
                 max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=t_lib)
+                bound_by=b_by, library_ms=t_lib, device_ms=dev_k,
+                library_device_ms=dev_lib)
 
 
 def settled_inputs(engine):
@@ -404,6 +446,63 @@ def k1_ops(s, cg, w, p):
     return per_slot * s * cg * w
 
 
+def k1_against_plain(label, packed, params):
+    """K1 (no joints, no COM) vs its plain version on packed inputs: K1's
+    bounds, two launches bit-equal, the kernel's visited slots equal to
+    the inputs' live slots; then kernel and plain timed against the bound.
+    Returns (max error, the errors as text, kernel ms, kernel device ms,
+    plain ms, bound ms, bound by, visited slots per world)."""
+    from fyrox_tpu_torch.physics import tgs_kernel
+    got_b, got_l = tgs_kernel.solve_tgs(*packed, params)
+    visited = tgs_kernel.visited_slots().clone()
+    again_b, again_l = tgs_kernel.solve_tgs(*packed, params)
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_b, again_b) and torch.equal(got_l, again_l)):
+        fail(f"{label}: two launches on the same inputs differ")
+    if not torch.equal(visited, tgs_kernel.live_slots(packed[0])):
+        fail(f"{label}: the kernel visited other slots than the live ones")
+    err_pos = (got_b[:, 6:9] - ref_b[:, 6:9]).abs().max().item()
+    err_vel = (got_b[:, 0:6] - ref_b[:, 0:6]).abs().max().item()
+    err_q = (got_b[:, 9:13] - ref_b[:, 9:13]).abs().max().item()
+    lam_excess = ((got_l - ref_l).abs()
+                  - (1e-3 * ref_l.abs() + 1e-5)).max().item()
+    err_lam = (got_l - ref_l).abs().max().item()
+    if not (torch.isfinite(got_b).all() and torch.isfinite(got_l).all()):
+        fail(f"{label}: solve_tgs kernel produced non-finite values")
+    # bounds: ten times the JAX package's own bounds between two
+    # implementations of one cold step (pos 1e-6, vel 1e-5, lambda 1e-4),
+    # for the card's different summation order
+    if err_pos > 1e-5 or err_q > 1e-5 or err_vel > 1e-4 or lam_excess > 0:
+        fail(f"{label}: solve_tgs kernel vs plain: pos {err_pos:.3g} (1e-5), "
+             f"quat {err_q:.3g} (1e-5), vel {err_vel:.3g} (1e-4), lambda "
+             f"{err_lam:.3g} (1e-3 rel + 1e-5)")
+    ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params), 10)
+    dev_k = device_ms(lambda: tgs_kernel.solve_tgs(*packed, params), 10)
+    # the same launch without substeps and stabilisation passes: the prep
+    # (list build, effective masses), the restitution pass and the output
+    lean = params._replace(n_sub=0, n_stab=0)
+    ms_prep = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, lean), 10)
+    ms_p = cuda_ms(lambda: tgs_kernel.solve_tgs_plain(*packed, params), 3)
+    w, _, s, cg = packed[0].shape
+    b_ms, b_by = bound_ms(nbytes(*packed, got_b, got_l),
+                          k1_ops(s, cg, w, params))
+    errs = (f"pos {err_pos:.3g}, quat {err_q:.3g}, vel {err_vel:.3g}, "
+            f"lambda {err_lam:.3g}; without substeps and stabilisation "
+            f"{ms_prep:.3f} ms; device time {dev_k:.3f} ms")
+    return (max(err_pos, err_vel, err_q, err_lam), errs, ms_k, dev_k, ms_p,
+            b_ms, b_by, visited)
+
+
+def k1_record(name, err, ms_k, dev_k, ms_p, b_ms, b_by):
+    return dict(name=name, route="cuda",
+                source="fyrox_tpu_torch/csrc/tgs_solve.cu",
+                replaces="fyrox_tpu/physics/pallas_solver.py:816",
+                max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, device_ms=dev_k,
+                library_device_ms=None)
+
+
 def phase_solver(engine, inputs):
     from fyrox_tpu_torch.physics import slab2, tgs_kernel
     state, accel, angvel = inputs[:3]
@@ -414,42 +513,20 @@ def phase_solver(engine, inputs):
     n_act = int(packed[0][:, 9].sum().item())
     if not (all_differ(packed[0]) and all_differ(packed[2])):
         fail("the solver's packed inputs repeat across worlds")
-    got_b, got_l = tgs_kernel.solve_tgs(*packed, params)
-    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params)
-    torch.cuda.synchronize()
-    err_pos = (got_b[:, 6:9] - ref_b[:, 6:9]).abs().max().item()
-    err_vel = (got_b[:, 0:6] - ref_b[:, 0:6]).abs().max().item()
-    err_q = (got_b[:, 9:13] - ref_b[:, 9:13]).abs().max().item()
-    lam_excess = ((got_l - ref_l).abs()
-                  - (1e-3 * ref_l.abs() + 1e-5)).max().item()
-    err_lam = (got_l - ref_l).abs().max().item()
-    if not (torch.isfinite(got_b).all() and torch.isfinite(got_l).all()):
-        fail("solve_tgs kernel produced non-finite values")
     if n_act == 0:
-        fail("no active contacts after 30 settling ticks")
-    # bounds: ten times the JAX package's own bounds between two
-    # implementations of one cold step (pos 1e-6, vel 1e-5, lambda 1e-4),
-    # for the card's different summation order
-    if err_pos > 1e-5 or err_q > 1e-5 or err_vel > 1e-4 or lam_excess > 0:
-        fail(f"solve_tgs kernel vs plain: pos {err_pos:.3g} (1e-5), quat "
-             f"{err_q:.3g} (1e-5), vel {err_vel:.3g} (1e-4), lambda "
-             f"{err_lam:.3g} (1e-3 rel + 1e-5)")
-    ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params), 10)
-    ms_p = cuda_ms(lambda: tgs_kernel.solve_tgs_plain(*packed, params), 3)
+        fail("no active contact points after 30 settling ticks")
+    err, errs, ms_k, dev_k, ms_p, b_ms, b_by, visited = k1_against_plain(
+        "K1", packed, params)
     w, _, s, cg = packed[0].shape
-    b_ms, b_by = bound_ms(nbytes(*packed, got_b, got_l),
-                          k1_ops(s, cg, w, params))
+    n_vis = int(visited.sum())
     log(f"[K1] solve_tgs matches plain on a settled flagship step "
-        f"(W={WORLDS} distinct worlds, {n_act} active contact points): pos "
-        f"{err_pos:.3g}, quat {err_q:.3g}, vel {err_vel:.3g}, lambda "
-        f"{err_lam:.3g}; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
-    return dict(name="solve_tgs", route="cuda",
-                source="fyrox_tpu_torch/csrc/tgs_solve.cu",
-                replaces="fyrox_tpu/physics/pallas_solver.py:816",
-                max_abs_err=max(err_pos, err_vel, err_q, err_lam),
-                ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+        f"(W={WORLDS} distinct worlds, {n_act} active contact points): "
+        f"{errs}; two launches bit-equal; live slots visited per pass "
+        f"{n_vis} of {w * s * cg} ({n_vis / (w * cg):.3f} of {s} per "
+        f"collider, {int(visited.min())}-{int(visited.max())} per world); "
+        f"kernel {ms_k:.3f} ms, plain "
+        f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return k1_record("solve_tgs", err, ms_k, dev_k, ms_p, b_ms, b_by)
 
 
 def bp_ops(t, w):
@@ -507,6 +584,7 @@ def phase_bp(engine, inputs):
         fail("the candidate windows repeat across worlds")
     n_valid = int((jv >= 0).sum())
     ms_k = cuda_ms(lambda: fused_step.bp_candidates(t, body, dt), 20)
+    dev_k = device_ms(lambda: fused_step.bp_candidates(t, body, dt), 20)
     ms_p = cuda_ms(lambda: fused_step.bp_candidates_plain(t, body, dt), 5)
     fs = fused_step._statics(t)
     statics = sum(a.nbytes for a in (fs.col_body, fs.shape, fs.kinds,
@@ -518,13 +596,14 @@ def phase_bp(engine, inputs):
     b_ms, b_by = bound_ms(moved, bp_ops(t, WORLDS))
     log(f"[K3bp] fused_bp windows equal to plain as integers (W={WORLDS} "
         f"distinct worlds, {n_valid} valid candidates), collider planes "
-        f"bit-equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
+        f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="fused_bp", route="cuda",
                 source="fyrox_tpu_torch/csrc/fused_bp.cu",
                 replaces="fyrox_tpu/physics/pallas_step.py:794",
                 max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None), (jv, col)
+                bound_by=b_by, library_ms=None, device_ms=dev_k,
+                library_device_ms=None), (jv, col)
 
 
 def phase_nc(engine, inputs, windows):
@@ -557,6 +636,8 @@ def phase_nc(engine, inputs, windows):
         fail(f"narrow_compact: {n_act} active slots, {matched} warm-started")
     ms_k = cuda_ms(lambda: fused_step.narrow_compact(
         t, col, jv, warm_lam, warm_pid), 20)
+    dev_k = device_ms(lambda: fused_step.narrow_compact(
+        t, col, jv, warm_lam, warm_pid), 20)
     ms_p = cuda_ms(lambda: fused_step.narrow_compact_plain(
         t, col, jv, warm_lam, warm_pid), 3)
     fs = fused_step._statics(t)
@@ -570,12 +651,14 @@ def phase_nc(engine, inputs, windows):
     log(f"[K2nc] narrow_compact equal to plain on pid, partner body and "
         f"activity, planes within {err:.3g}, two launches bit-equal "
         f"({n_act} active slots, {matched} warm-started); kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms_k:.4f} ms (device time {dev_k:.4f}), plain {ms_p:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
     return dict(name="narrow_compact", route="cuda",
                 source="fyrox_tpu_torch/csrc/narrow_compact.cu",
                 replaces="fyrox_tpu/physics/pallas_step.py:641",
                 max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, device_ms=dev_k,
+                library_device_ms=None)
 
 
 def phase_fused_step(engine, inputs):
@@ -865,6 +948,30 @@ def capture_k4b_inputs(engine, state):
     return seen[0]
 
 
+def scatter_sum_bound(vals, idx, n):
+    """Per output of plane_scatter, the error bound of a float32 sum of its
+    m terms in any order against the exact sum: m·2⁻²⁴·Σ|v| (float64)."""
+    from fyrox_tpu_torch.physics import plane_ops
+    terms = plane_ops.plane_scatter_plain(torch.ones_like(vals).double(),
+                                          idx, n)
+    mag = plane_ops.plane_scatter_plain(vals.abs().double(), idx, n)
+    return terms * 2.0 ** -24 * mag
+
+
+def scatter_in_order(vals, idx, n):
+    """plane_scatter as K4b promises to round it: each output the float32
+    sum of its values in ascending k, from 0. One scatter_add_ per k, each
+    adding one value into each (world, attribute) row, so no two adds meet
+    and each rounds once; out-of-range indices land in a spare column."""
+    w, a, k = vals.shape
+    out = torch.zeros((w, a, n + 1), dtype=vals.dtype, device=vals.device)
+    safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    for j in range(k):
+        out.scatter_add_(2, safe[:, None, j:j + 1].expand(w, a, 1),
+                         vals[:, :, j:j + 1])
+    return out[..., :n]
+
+
 def phase_k4b(inputs):
     """K4b vs its plain version on a rebuild's permutation, and on random
     inputs with repeats and out-of-range indices."""
@@ -893,9 +1000,27 @@ def phase_k4b(inputs):
                          .astype(np.int32), device="cuda")
     rgot, ragain = (plane_ops.plane_scatter(rv, ri, n) for _ in range(2))
     rref = plane_ops.plane_scatter_plain(rv, ri, n)
+    # one bucket: every index in one of three rows, ~1,000 values a row
+    bi = torch.as_tensor(rng.choice([0, n // 2, n - 1], (w, 3 * k))
+                         .astype(np.int32), device="cuda")
+    bgot, bagain = (plane_ops.plane_scatter(rv, bi, n) for _ in range(2))
+    bref = plane_ops.plane_scatter_plain(rv, bi, n)
     torch.cuda.synchronize()
-    if not (torch.equal(got, again) and torch.equal(rgot, ragain)):
+    if not (torch.equal(got, again) and torch.equal(rgot, ragain)
+            and torch.equal(bgot, bagain)):
         fail("K4b: two launches on the same inputs differ")
+    # sums of ~1,000 values: bit-equal to the float32 sums in ascending k;
+    # and kernel vs plain (whose order is its own) within twice the float32
+    # bound of a sum of m terms in any order, m·2⁻²⁴·Σ|v| (Higham)
+    border = scatter_in_order(rv, bi, n)
+    if not torch.equal(bgot, border):
+        fail(f"K4b: kernel differs from the ascending-k float32 sums on three"
+             f" buckets at {int((bgot != border).sum())} entries")
+    b_rel = (bref.double() - bgot).abs().div(
+        2 * scatter_sum_bound(rv, bi, n)).nan_to_num().max().item()
+    if not b_rel <= 1.0:
+        fail(f"K4b: kernel vs plain on three buckets at {b_rel:.3g} of twice "
+             f"the float32 summation bound")
     if not torch.equal(got, ref):
         fail(f"K4b: kernel differs from plain on the rebuild's permutation at"
              f" {int((got != ref).sum())} entries")
@@ -914,20 +1039,29 @@ def phase_k4b(inputs):
 
     if not torch.equal(library()[..., :n], ref):
         fail("K4b: the scatter_add_ yardstick disagrees")
-    ms_k = cuda_ms(kernel, 50)
+    # a launch takes a few µs of the card: CUDA events around a run of
+    # calls (ms, as for every kernel) count the host's issue between
+    # launches too; device_ms does not
+    ms_k, ms_lib = cuda_ms(kernel, 50), cuda_ms(library, 50)
     ms_p = cuda_ms(plain, 20)
-    ms_lib = cuda_ms(library, 50)
+    dev_k, dev_lib = device_ms(kernel, 50), device_ms(library, 50)
     b_ms, b_by = bound_ms(nbytes(vals, idx, got), w * a * k)
     log(f"[K4b] plane_scatter bit-equal to plain on a count-rank rebuild's "
         f"row permutation [{w},{a},{k}] → {n} rows (W={WORLDS} distinct "
-        f"worlds), within {err:.3g} with repeats and out-of-range indices, two"
-        f" launches bit-equal; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-        f"scatter_add_ {ms_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"worlds), within {err:.3g} with repeats and out-of-range indices, "
+        f"bit-equal to the ascending-k sums on three buckets ({b_rel:.3g} of "
+        f"twice the summation bound from plain), two launches bit-equal; "
+        f"CUDA events over 50 calls: kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, scatter_add_ {ms_lib:.4f} ms; device time: kernel "
+        f"{dev_k:.4f} ms, scatter_add_ {dev_lib:.4f} ms (zeroed copy "
+        f"included); bound {b_ms:.4f} ms ({b_by})")
+
     return dict(name="plane_scatter", route="cuda",
                 source="fyrox_tpu_torch/csrc/plane_scatter.cu",
                 replaces="fyrox_tpu/physics/pallas_ops.py:219",
                 max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=ms_lib)
+                bound_by=b_by, library_ms=ms_lib, device_ms=dev_k,
+                library_device_ms=dev_lib)
 
 
 def fall_scene(n=190):
@@ -1179,6 +1313,8 @@ def phase_solver_jointed(engine):
              f"{err_lam:.3g} (1e-3 rel + 1e-5); vel vs float64 kernel "
              f"{k_vs_64:.3g}, plain {p_vs_64:.3g}")
     ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params, **kw), 10)
+    dev_k = device_ms(lambda: tgs_kernel.solve_tgs(*packed, params, **kw),
+                      10)
     ms_p = cuda_ms(lambda: tgs_kernel.solve_tgs_plain(*packed, params, **kw),
                    3)
     w, _, s, cg = packed[0].shape
@@ -1191,14 +1327,79 @@ def phase_solver_jointed(engine):
         f"{nb} bodies, {n_act} active contact points): pos {err_pos:.3g}, "
         f"quat {err_q:.3g}, vel {err_vel:.3g}, lambda {err_lam:.3g}; vel "
         f"vs float64 kernel {k_vs_64:.3g}, plain {p_vs_64:.3g}; two "
-        f"launches bit-equal; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"launches bit-equal; kernel {ms_k:.3f} ms (device time "
+        f"{dev_k:.3f}), plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="solve_tgs_jointed", route="cuda",
                 source="fyrox_tpu_torch/csrc/tgs_solve.cu",
                 replaces="fyrox_tpu/physics/pallas_solver.py:816",
                 max_abs_err=max(err_pos, err_vel, err_q, err_lam),
                 ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_k, library_device_ms=None)
+
+
+# ---------------------------------------------------------------- K1big
+# The flagship with a 2,000-body pile: past the 1,614 bodies whose planes
+# fit one block's shared memory, so K1 takes its global-memory variant.
+BIG_BODIES = 2000
+BIG_TICKS = 5
+
+
+def phase_k1_big():
+    """build_flagship(n_bodies=2000) at W distinct worlds on the fused
+    route: 30 settling ticks, then BIG_TICKS ticks with the launches
+    counted; then K1 on the next step's packed inputs vs its plain
+    version, at K1's bounds, timed against its bound."""
+    from fyrox_tpu_torch.models import build_flagship
+    from fyrox_tpu_torch.physics import fused_step, slab2, tgs_kernel
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t0 = time.perf_counter()
+    engine, _ = build_flagship(n_bones=100, n_verts=50_000,
+                               n_bodies=BIG_BODIES)
+    t = engine.physics
+    nb, cg = t.num_bodies, int(t.grid.grid_cols.size)
+    if not fused_step.supports_fused_bp(t):
+        fail("K1big: the 2,000-body flagship is outside the K3 scope")
+    if not tgs_kernel._layout(nb, cg, int(t.grid.s_active), False, 0)[0]:
+        fail(f"K1big: {nb} bodies fit one block: not the global variant")
+    # a raise here (the fault this variant repairs) ends the run non-zero
+    state = distinct_worlds(engine, WORLDS, "cuda", seed=7)
+    for _ in range(30):
+        state = engine.step(state)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    for _ in range(BIG_TICKS):
+        state = engine.step(state)
+    torch.cuda.synchronize()
+    n = all_launches()
+    want = dict(fused_bp=BIG_TICKS, narrow_compact=BIG_TICKS,
+                solve_tgs=BIG_TICKS, plane_gather=0, plane_scatter=0)
+    if n != want:
+        fail(f"K1big: launches {n}, want {want}")
+    ph = state.physics
+    if not (torch.isfinite(ph.position).all()
+            and torch.isfinite(ph.linvel).all()):
+        fail("K1big: non-finite body state")
+    live = int((ph.warm_pair >= 0).sum())
+    if live == 0:
+        fail("K1big: no live contact points: physics did no work")
+    accel, angvel = phys_mod.external_accelerations(ph, t, engine.dt)
+    packed, _ = slab2.solver_inputs(ph, t, engine.dt, accel, angvel)
+    params = tgs_kernel.solver_params(t, engine.dt)
+    if not (all_differ(packed[0]) and all_differ(packed[2])):
+        fail("K1big: the solver's packed inputs repeat across worlds")
+    err, errs, ms_k, dev_k, ms_p, b_ms, b_by, visited = k1_against_plain(
+        "K1big", packed, params)
+    log(f"[K1big] flagship with {BIG_BODIES} bodies ({nb} with the ground, "
+        f"{cg} grid colliders, {tgs_kernel.smem_bytes(nb, cg)} B > "
+        f"{tgs_kernel.SMEM_LIMIT} B of shared memory), W={WORLDS}: "
+        f"{BIG_TICKS} fused ticks with launches {n}, {live} live contact "
+        f"points (set up in {time.perf_counter() - t0:.1f} s); K1 "
+        f"(global-memory variant) matches plain on the next step: {errs}; "
+        f"two launches bit-equal; {int(visited.sum())} live slots visited "
+        f"per pass; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return k1_record("solve_tgs_big", err, ms_k, dev_k, ms_p, b_ms,
+                     b_by), n
 
 
 def staged_gathers(t):
@@ -1531,6 +1732,7 @@ def phase_k5(inputs, depth_only):
     if not (all_differ(z) and hit > 0.05):
         fail(f"{label}: images repeat, or {hit:.3f} of pixels hit")
     ms_k = cuda_ms(kernel, 20)
+    dev_k = device_ms(kernel, 20)
     ms_p = cuda_ms(plain, 2)
     walked = int(count.sum())
     b_ms, b_by = bound_ms(nbytes(feats, ids, count, *got),
@@ -1539,13 +1741,14 @@ def phase_k5(inputs, depth_only):
         f"bit-equal to plain (z{'' if depth_only else ', idx, w0, w1'}) on "
         f"{feats.shape[0]} distinct images of {h}x{w}, K={ids.shape[2]}, "
         f"{walked} walked slots, {hit:.3f} of pixels hit; two launches "
-        f"bit-equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
+        f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="tile_raster_depth" if depth_only else "tile_raster_full",
                 route="cuda", source="fyrox_tpu_torch/csrc/tile_raster.cu",
                 replaces="fyrox_tpu/render/pallas_raster.py:352",
                 max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, device_ms=dev_k,
+                library_device_ms=None)
 
 
 def phase_render_audit(t, rt, st, cfg):
@@ -1704,6 +1907,7 @@ def main():
     phase_jointed_small()
     n_jointed = phase_jointed(engine, skin, anchors)
     del engine, skin
+    k1b, n_big = phase_k1_big()
     scene = render_scene(RENDER_WORLDS, "cuda")
     inputs = capture_k5_inputs(*scene)
     k5f = phase_k5(inputs, depth_only=False)
@@ -1720,7 +1924,9 @@ def main():
     k5d["launches"] = n_render["depth"]
     k1j["launches"] = n_jointed["solve_tgs"]
     k4b["launches"] = n_reuse["plane_scatter"]
-    print(json.dumps({"kernels": [kbp, knc, k1, k4, k5f, k5d, k1j, k4b]}))
+    k1b["launches"] = n_big["solve_tgs"]
+    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b]
+    print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

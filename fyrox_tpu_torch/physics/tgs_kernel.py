@@ -2,9 +2,11 @@
 
 Replaces ``fyrox_tpu/physics/pallas_solver.py:816 solve_tgs_pallas``,
 joints (up to 128) and centre-of-mass offsets included. On the card it is
-``csrc/tgs_solve.cu`` (one CTA per world); a CPU tensor takes
-``solve_tgs_plain``, which is the same computation in PyTorch (the
-semantics of ``pallas_solver.solve_planes`` and its joint passes).
+``csrc/tgs_solve.cu`` (one CTA per world, walking only each world's live
+slots); a CPU tensor takes ``solve_tgs_plain``, which is the same
+computation in PyTorch (the semantics of ``pallas_solver.solve_planes`` and
+its joint passes). Any body count runs on the card: a world whose body
+planes do not fit a block's shared memory keeps them in global memory.
 
 Layout (see csrc/tgs_solve.cu):
   con [W,15,S,Cg] f32 — n3, pt3, depth, fric, rest, act, own, sigma, lam3
@@ -30,7 +32,8 @@ from fyrox_tpu_torch.physics.planes import qmul as _qmul
 
 __all__ = ["SolverParams", "JointTables", "solver_params", "solve_tgs",
            "solve_tgs_plain", "smem_bytes", "SMEM_LIMIT", "launches",
-           "reset_launches", "CON_ROWS", "BODY_ROWS"]
+           "reset_launches", "live_slots", "visited_slots", "CON_ROWS",
+           "BODY_ROWS"]
 
 CON_ROWS = 15
 BODY_ROWS = 29
@@ -38,8 +41,14 @@ SMEM_LIMIT = 232448            # bytes of shared memory one H100 block may use
 _BODY_SMEM_PLANES = 30         # 26 body planes, count, step-start COM3
 _J_ERP = 0.2                   # joint velocity bias (pallas_solver._J_ERP)
 _J_POS_ERP = 0.5               # joint position pass (_J_POS_ERP)
+_ENT_F, _ENT_I = 18, 2         # fields of a live slot in the kernel's list
+_MIN_TILE = 128                # least slot-buffer length (csrc/tgs_solve.cu)
+# most slot-buffer length of the global-memory variant: the shared memory it
+# leaves unused serves as L1 for the body planes
+_BIG_TILE = 4096
 
 _LAUNCHES = 0
+_VISITED = None
 
 
 def launches() -> int:
@@ -49,6 +58,21 @@ def launches() -> int:
 def reset_launches():
     global _LAUNCHES
     _LAUNCHES = 0
+
+
+def visited_slots():
+    """The live slots per world [W] int32 that the last kernel launch built
+    its list of and walked in every pass (None before the first launch)."""
+    return _VISITED
+
+
+def live_slots(con):
+    """Live slots per world [W] of packed contact planes: act != 0 or a
+    nonzero warm impulse. The kernel visits these and no others; every
+    update of any other slot is an exact zero."""
+    lam = con[:, 12:15]
+    live = (con[:, 9] != 0) | (lam != 0).any(1)
+    return live.flatten(1).sum(1, dtype=torch.int32)
 
 
 class SolverParams(NamedTuple):
@@ -95,14 +119,50 @@ def solver_params(t, dt) -> SolverParams:
         n_pgs=int(t.n_pgs), n_stab=int(t.n_stabilization))
 
 
-def smem_bytes(n_bodies: int, n_grid_colliders: int, has_com=False,
-               n_joints=0) -> int:
-    """Shared memory of one K1 block: the body planes (three more with COM
-    offsets), the per-collider impulse buffer and, with joints, the joint
-    table, its per-joint impulse buffer and the two body lists."""
+def _world_floats(n_bodies, n_grid_colliders, has_com):
+    """The world's body planes (three more with COM offsets), per-collider
+    impulse buffer and slot-list offsets, in floats."""
     planes = _BODY_SMEM_PLANES + (3 if has_com else 0)
-    return 4 * (planes * n_bodies + 6 * n_grid_colliders
-                + (JTAB_ROWS + 12 + 2) * n_joints)
+    return planes * n_bodies + 7 * n_grid_colliders + 1
+
+
+def _world_smem_floats(n_bodies, n_grid_colliders, has_com):
+    """The world's planes and buffers in shared memory, with a copy of the
+    body → collider CSR lists."""
+    return (_world_floats(n_bodies, n_grid_colliders, has_com) + n_bodies
+            + 1 + n_grid_colliders)
+
+
+def smem_bytes(n_bodies: int, n_grid_colliders: int, has_com=False,
+               n_joints=0, n_slots=16) -> int:
+    """Least shared memory of one K1 block that holds its world: the body
+    planes, the per-collider buffer, the list offsets and the CSR lists,
+    with joints the joint table, its per-joint impulse buffer and the two
+    body lists, and the shortest slot buffer. Above SMEM_LIMIT the world's
+    planes go to global memory instead."""
+    return 4 * (_world_smem_floats(n_bodies, n_grid_colliders, has_com)
+                + (JTAB_ROWS + 12 + 2) * n_joints
+                + 6 * max(n_slots, _MIN_TILE))
+
+
+def _layout(n_bodies, n_grid_colliders, n_slots, has_com, n_joints):
+    """(big, tile): whether the world's planes live in global memory, and
+    the slot buffer's length in live slots, from the shapes alone; the
+    slot buffer takes the shared memory that is left, up to every slot."""
+    big = smem_bytes(n_bodies, n_grid_colliders, has_com, n_joints,
+                     n_slots) > SMEM_LIMIT
+    room = (SMEM_LIMIT // 4 - (JTAB_ROWS + 12 + 2) * n_joints
+            - (0 if big else _world_smem_floats(n_bodies, n_grid_colliders,
+                                                has_com)))
+    least = max(n_slots, _MIN_TILE)
+    if big:
+        room = min(room, 6 * max(_BIG_TILE, least))
+    if room // 6 < least:
+        raise ValueError(
+            f"solve_tgs: {n_slots} slots per collider and {n_joints} joints "
+            f"leave no room for the slot buffer in {SMEM_LIMIT} B of shared "
+            "memory")
+    return big, min(room // 6, max(n_slots * n_grid_colliders, least))
 
 
 # --------------------------------------------------------------------------
@@ -512,7 +572,7 @@ def _check(name, t, device, dtype):
 def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
                     joints):
     from fyrox_tpu_torch import kernels
-    global _LAUNCHES
+    global _LAUNCHES, _VISITED
     dev = con.device
     for name, t, dtype in (("con", con, torch.float32),
                            ("body_j", body_j, torch.int32),
@@ -544,27 +604,31 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
         jptrs = [x.data_ptr() for x in (joints.jtab, joints.body_a,
                                         joints.body_b, ptr_a, col_a, ptr_b,
                                         col_b)]
-    need = smem_bytes(nb, cg, has_com, nj)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"solve_tgs: {nb} bodies / {cg} grid colliders / {nj} joints "
-            f"need {need} B of shared memory per world, above the "
-            f"{SMEM_LIMIT} B a block may use")
+    big, tile = _layout(nb, cg, s, has_com, nj)
     ptr, col = _csr(col_body, nb)
     body_out = torch.empty((w, 13, nb), dtype=torch.float32, device=dev)
     lam = torch.empty((w, 3, s, cg), dtype=torch.float32, device=dev)
-    scratch = torch.empty((w, 6, s, cg), dtype=torch.float32, device=dev)
+    ent_f = torch.empty((w, _ENT_F, s * cg), dtype=torch.float32, device=dev)
+    ent_i = torch.empty((w, _ENT_I, s * cg), dtype=torch.int32, device=dev)
+    masks = torch.empty((w, cg * ((s + 31) // 32)), dtype=torch.int32,
+                        device=dev)
+    visited = torch.empty((w,), dtype=torch.int32, device=dev)
+    gws = (torch.empty((w, _world_floats(nb, cg, has_com)),
+                       dtype=torch.float32, device=dev) if big else None)
     lib = kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fyrox_tgs_solve(
         con.data_ptr(), body_j.data_ptr(), body.data_ptr(),
         col_body.data_ptr(), ptr.data_ptr(), col.data_ptr(),
-        body_out.data_ptr(), lam.data_ptr(), scratch.data_ptr(), *jptrs,
-        w, s, cg, nb, nj, int(bool(has_com)), p.n_sub, p.n_pgs, p.n_stab,
-        p.h, p.allowed, p.max_corr, p.rest_thr, p.wc, p.erp, p.bias_rate,
-        p.mscale_soft, p.iscale_soft, p.msp, stream)
+        body_out.data_ptr(), lam.data_ptr(), ent_f.data_ptr(),
+        ent_i.data_ptr(), masks.data_ptr(), visited.data_ptr(),
+        None if gws is None else gws.data_ptr(), *jptrs,
+        w, s, cg, nb, nj, int(bool(has_com)), int(big), tile, p.n_sub,
+        p.n_pgs, p.n_stab, p.h, p.allowed, p.max_corr, p.rest_thr, p.wc,
+        p.erp, p.bias_rate, p.mscale_soft, p.iscale_soft, p.msp, stream)
     kernels.check(err, "fyrox_tgs_solve")
     _LAUNCHES += 1
+    _VISITED = visited
     return body_out, lam
 
 

@@ -84,11 +84,27 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   __syncwarp();
   return r;
 }
+// shared-memory integer atomics (the kernels use no float atomics)
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+// lanes of the calling warp whose `value` equals this lane's
+inline unsigned __match_any_sync(unsigned, int value) {
+  const unsigned w = threadIdx.x / 32;
+  emu::votes[threadIdx.x] = (unsigned)value;
+  __syncwarp();
+  unsigned r = 0;
+  for (unsigned i = 0; i < 32; ++i)
+    if (emu::votes[w * 32 + i] == (unsigned)value) r |= 1u << i;
+  __syncwarp();
+  return r;
+}
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

@@ -21,11 +21,19 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = dict(n_bones=10, n_verts=300, n_bodies=192)
+# a pile too large for one shared-memory block of K1 (tgs_kernel.smem_bytes)
+BIG_FLAGSHIP = dict(n_bones=10, n_verts=300, n_bodies=2000)
 
 
 @pytest.fixture(scope="module")
 def flagships():
     return (jax_build_flagship(**FLAGSHIP), torch_build_flagship(**FLAGSHIP))
+
+
+@pytest.fixture(scope="module")
+def big_flagships():
+    return (jax_build_flagship(**BIG_FLAGSHIP),
+            torch_build_flagship(**BIG_FLAGSHIP))
 
 
 def _same(a, b, what):
@@ -76,12 +84,18 @@ MACHINE_FIELDS = ("state_anim", "state_names", "entry_state", "t_from",
                   "state_clips", "state_weights")
 
 
-@pytest.mark.parametrize("part,fields", [
-    ("template", SCENE_FIELDS), ("physics", PHYS_FIELDS),
-    ("slab", SLAB_FIELDS), ("animations", ANIM_FIELDS),
-    ("machine", MACHINE_FIELDS)])
-def test_flagship_templates_equal(flagships, part, fields):
-    (je, _), (te, _) = flagships
+PARTS = [("template", SCENE_FIELDS), ("physics", PHYS_FIELDS),
+         ("slab", SLAB_FIELDS), ("animations", ANIM_FIELDS),
+         ("machine", MACHINE_FIELDS)]
+
+
+@pytest.mark.parametrize("part,fields,pair", [
+    pytest.param(p, f, "flagships", id=f"{p}-fields{i}")
+    for i, (p, f) in enumerate(PARTS)] + [
+    pytest.param(p, f, "big_flagships", id=f"{p}-2000-bodies")
+    for p, f in PARTS])
+def test_flagship_templates_equal(request, part, fields, pair):
+    (je, _), (te, _) = request.getfixturevalue(pair)
 
     def get(e):
         return e.physics.grid if part == "slab" else getattr(e, part)
@@ -110,6 +124,25 @@ def test_reuse_flagship_templates_equal(monkeypatch, part, fields):
     assert te.physics.broadphase_period == 4
     assert (te.physics.grid.s_class, te.physics.grid.s_walk) == ((16, 0, 12),
                                                                  64)
+
+
+def test_big_flagship_steps_on_the_fused_route(big_flagships):
+    """The 2,000-body flagship (past one shared-memory block of K1 on the
+    card) takes the fused route and steps: 2 ticks at W = 1 on the CPU,
+    finite, with its dynamic bodies moving."""
+    _, (te, _) = big_flagships
+    t = te.physics
+    assert fused_step.supports_fused_bp(t) and t.num_bodies == 2001
+    assert tgs_kernel._layout(t.num_bodies, int(t.grid.grid_cols.size),
+                              int(t.grid.s_active), False, 0)[0]
+    st = te.init_state(1, device="cpu")
+    p0 = st.physics.position.clone()
+    for _ in range(2):
+        st = te.step(st)
+    pos = st.physics.position
+    dyn = torch.as_tensor(t.body_type == 0)
+    assert torch.isfinite(pos).all() and torch.isfinite(st.physics.linvel).all()
+    assert (pos - p0)[0, dyn].norm(dim=-1).min() > 0
 
 
 def test_flagship_skin_equal(flagships):

@@ -155,12 +155,24 @@ def test_tgs_kernel_repeats_bit_for_bit(settled):
 
 
 def test_tgs_kernel_refuses_oversized_worlds(settled):
+    """K1 takes any body count (the global-memory variant), but a slot
+    buffer of one collider's slots must fit a block's shared memory."""
     packed, params = settled
-    con, body_j, body, col_body = packed
-    big = torch.zeros((body.shape[0], body.shape[1], 8000),
-                      device=body.device)
-    with pytest.raises(ValueError, match="shared memory"):
-        tgs_kernel.solve_tgs(con, body_j, big, col_body, params)
+    body = packed[2][:1].contiguous()
+    s = 10_000                              # 240 KB of slot buffer
+    con = torch.zeros((1, 15, s, 1), device=body.device)
+    body_j = torch.zeros((1, s, 1), dtype=torch.int32, device=body.device)
+    col_body = torch.zeros((1,), dtype=torch.int32, device=body.device)
+    with pytest.raises(ValueError, match="shared"):
+        tgs_kernel.solve_tgs(con, body_j, body, col_body, params)
+
+
+def test_tgs_kernel_visits_the_live_slots(settled):
+    packed, params = settled
+    tgs_kernel.solve_tgs(*packed, params)
+    live = tgs_kernel.live_slots(packed[0])
+    assert torch.equal(tgs_kernel.visited_slots(), live)
+    assert 0 < int(live.sum()) < packed[0][:, 9].numel()
 
 
 # ---- K1 with joint tables and COM planes ---------------------------------
@@ -215,15 +227,36 @@ def test_tgs_kernel_refuses_more_than_128_joints(jointed):
         tgs_kernel.solve_tgs(*packed, params, has_com=True, joints=many)
 
 
-def test_tgs_kernel_with_joints_refuses_oversized_worlds(jointed):
+def _pad_bodies(body, n):
+    """The packed body planes with inert bodies appended up to n (no
+    collider or joint refers to them; unit quaternion, zero mass)."""
+    pad = torch.zeros((body.shape[0], body.shape[1], n - body.shape[2]),
+                      device=body.device)
+    pad[:, 12] = 1.0
+    return torch.cat([body, pad], 2).contiguous()
+
+
+def test_tgs_kernel_takes_oversized_worlds(jointed):
+    """1,850 bodies with COM offsets and joints do not fit one block's
+    shared memory: K1 takes its global-memory variant and matches plain at
+    K1's bounds."""
     packed, params, kw = jointed
     con, body_j, body, col_body = packed
-    # 1,850 bodies fit without the COM planes and joint tables, not with
-    big = torch.zeros((body.shape[0], body.shape[1], 1850),
-                      device=body.device)
-    assert tgs_kernel.smem_bytes(1850, con.shape[3]) <= tgs_kernel.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        tgs_kernel.solve_tgs(con, body_j, big, col_body, params, **kw)
+    nj = int(kw["joints"].body_a.shape[0])
+    big = _pad_bodies(body, 1850)
+    assert tgs_kernel.smem_bytes(1850, con.shape[3], True, nj) > \
+        tgs_kernel.SMEM_LIMIT
+    assert tgs_kernel._layout(1850, con.shape[3], con.shape[2], True, nj)[0]
+    got_b, got_l = tgs_kernel.solve_tgs(con, body_j, big, col_body, params,
+                                        **kw)
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(con, body_j, big, col_body,
+                                              params, **kw)
+    assert (got_b[:, 6:13] - ref_b[:, 6:13]).abs().max() < 1e-5
+    assert (got_b[:, 0:6] - ref_b[:, 0:6]).abs().max() < 1e-4
+    assert ((got_l - ref_l).abs() <= 1e-3 * ref_l.abs() + 1e-5).all()
+    # the bodies the solve knows take the same result as without the pad
+    small_b, _ = tgs_kernel.solve_tgs(*packed, params, **kw)
+    assert (got_b[:, :, :body.shape[2]] - small_b).abs().max() < 1e-5
 
 
 # ---- the fused route: fused_bp (K3) and narrow_compact (K2) --------------
@@ -326,9 +359,10 @@ def test_fused_wrappers_reject_bad_inputs(fused_inputs):
             warm_pid)
 
 
-def test_fused_route_refuses_worlds_beyond_k1_shared_memory(cuda):
-    """The fused route inherits K1's limit: one world's bodies in one
-    block's shared memory. It raises; it never falls back."""
+def test_fused_route_takes_worlds_beyond_one_k1_block(cuda):
+    """2,000 balls over a halfspace: past the bodies one block's shared
+    memory holds, K1 keeps the world's planes in global memory and the
+    fused route steps the pile."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=BodyType.STATIC)
     pb.add_collider(g, HALFSPACE, [])
@@ -338,8 +372,12 @@ def test_fused_route_refuses_worlds_beyond_k1_shared_memory(cuda):
         pb.add_collider(b, BALL, [0.25])
     t = pb.build(broadphase="slab")
     st = phys_mod.init_physics_state(pb, t, 1, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        phys_mod.step_physics(st, t, 1 / 60)
+    before = tgs_kernel.launches()
+    for _ in range(3):
+        st = phys_mod.step_physics(st, t, 1 / 60)
+    assert tgs_kernel.launches() == before + 3
+    assert torch.isfinite(st.position).all()
+    assert (st.position[0, 1:, 1] < 0.5).all()      # falling
 
 
 def _raster_scene(device, n_worlds=3):

@@ -167,31 +167,82 @@ def _joint_zoo():
     return pb.initial_pose(), t
 
 
-@pytest.mark.parametrize("scene", ["flagship", "zoo"])
-def test_tgs_solve_matches_plain(on_cpu, scene):
-    """K1 on a settled step's packed inputs, 2 worlds jittered apart: the
-    flagship (no joints, no COM) and the joint zoo (all four joint kinds,
-    COM offsets), at the kernel's card bounds."""
-    pose, t = (_flagship if scene == "flagship" else _joint_zoo)()
-    st = tworld.init_physics_state(pose, t, 2, device="cpu")
-    st = chip_smoke.jitter(st, t, "cpu", 1)
-    for _ in range(25):
-        st = tworld.step_physics(st, t, DT)
-    accel, angvel = tworld.external_accelerations(st, t, DT)
-    packed, _ = slab2.solver_inputs(st, t, DT, accel, angvel)
-    cx = slab2._ctx(t)
-    p = tgs_kernel.solver_params(t, DT)
-    joints = slab2.joint_tables(cx, "cpu")
-    assert (joints is not None) == cx.has_com == (scene == "zoo")
-    assert packed[0][:, 9].sum() > 0
-    body, lam = tgs_kernel._solve_tgs_cuda(*packed, p, cx.has_com, joints)
-    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, p, has_com=cx.has_com,
+_K1_INPUTS = {}
+
+
+def _k1_inputs(scene):
+    """K1's packed inputs of a settled step, 2 worlds jittered apart, with
+    its parameters and joint tables (built once per scene)."""
+    if scene not in _K1_INPUTS:
+        pose, t = (_flagship if scene == "flagship" else _joint_zoo)()
+        st = tworld.init_physics_state(pose, t, 2, device="cpu")
+        st = chip_smoke.jitter(st, t, "cpu", 1)
+        for _ in range(25):
+            st = tworld.step_physics(st, t, DT)
+        accel, angvel = tworld.external_accelerations(st, t, DT)
+        packed, _ = slab2.solver_inputs(st, t, DT, accel, angvel)
+        cx = slab2._ctx(t)
+        _K1_INPUTS[scene] = (packed, tgs_kernel.solver_params(t, DT),
+                             cx.has_com, slab2.joint_tables(cx, "cpu"))
+    return _K1_INPUTS[scene]
+
+
+def _punch_hole(con, body_j):
+    """The packed inputs with slot 0 of one collider that has two or more
+    live slots set to the unfilled-slot pattern (all planes 0, own 1,
+    partner 0), so that its live slots are no longer a prefix."""
+    act = con[0, 9]                                           # [S,Cg]
+    g = int(torch.nonzero(act.sum(0) >= 2)[0, 0])
+    con, body_j = con.clone(), body_j.clone()
+    con[0, :, 0, g] = 0.0
+    con[0, 10, 0, g] = 1.0
+    body_j[0, 0, g] = 0
+    assert con[0, 9, 1, g] != 0 and con[0, 9, 0, g] == 0
+    return con, body_j
+
+
+@pytest.mark.parametrize("case", ["flagship", "zoo", "hole", "big-flagship",
+                                  "big-zoo"])
+def test_tgs_solve_matches_plain(on_cpu, monkeypatch, case):
+    """K1 on a settled step's packed inputs, 2 worlds jittered apart, at the
+    kernel's card bounds: the flagship (no joints, no COM) and the joint
+    zoo (all four joint kinds, COM offsets); the flagship with a hole in
+    one collider's live slots; and both scenes through the global-memory
+    variant (SMEM_LIMIT cut to the least a block with that variant needs,
+    so its slot buffer holds 128 slots and every pass runs in tiles)."""
+    scene = "zoo" if case.endswith("zoo") else "flagship"
+    packed, p, has_com, joints = _k1_inputs(scene)
+    assert (joints is not None) == has_com == (scene == "zoo")
+    if case == "hole":
+        packed = _punch_hole(packed[0], packed[1]) + tuple(packed[2:])
+    con, nb, cg = packed[0], packed[2].shape[2], packed[0].shape[3]
+    nj = 0 if joints is None else int(joints.body_a.shape[0])
+    if case.startswith("big"):
+        least = tgs_kernel.smem_bytes(0, 0, n_joints=nj,
+                                      n_slots=con.shape[2])
+        assert least < tgs_kernel.smem_bytes(nb, cg, has_com, nj)
+        monkeypatch.setattr(tgs_kernel, "SMEM_LIMIT", least)
+        assert tgs_kernel._layout(nb, cg, con.shape[2], has_com, nj) == (
+            True, 128)
+        if scene == "flagship":         # several tiles of 128 live slots
+            assert int(tgs_kernel.live_slots(con).min()) > 3 * 128
+    else:
+        assert not tgs_kernel._layout(nb, cg, con.shape[2], has_com, nj)[0]
+    assert con[:, 9].sum() > 0
+    body, lam = tgs_kernel._solve_tgs_cuda(*packed, p, has_com, joints)
+    assert torch.equal(tgs_kernel.visited_slots(),
+                       tgs_kernel.live_slots(con))
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, p, has_com=has_com,
                                               joints=joints)
     assert not torch.equal(ref_b[0], ref_b[1])
     # the card's bounds for K1 against its plain version (chip_smoke.py K1)
     assert (body[:, 6:13] - ref_b[:, 6:13]).abs().max() <= 1e-5
     assert (body[:, 0:6] - ref_b[:, 0:6]).abs().max() <= 1e-4
     assert ((lam - ref_l).abs() <= 1e-3 * ref_l.abs() + 1e-5).all()
+    if case == "hole":
+        # the dead slot's λ is written as 0, as the plain version has it
+        g = int(torch.nonzero((con[0, 9, 0] == 0) & (con[0, 9, 1] != 0))[0, 0])
+        assert (lam[0, :, 0, g] == 0).all() and (ref_l[0, :, 0, g] == 0).all()
 
 
 def test_plane_gather_matches_plain(on_cpu):
@@ -203,16 +254,25 @@ def test_plane_gather_matches_plain(on_cpu):
     assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
 
 
-@pytest.mark.parametrize("case", ["permutation", "repeats"])
+@pytest.mark.parametrize("case", ["permutation", "repeats", "one_bucket",
+                                  "empty", "tiles"])
 def test_plane_scatter_matches_plain(on_cpu, case):
-    """K4b over two index tiles, two blocks of rows and two attribute
-    chunks: a permutation bit-equal, repeats with out-of-range and
-    negative indices within 1e-6 (sums in another order)."""
+    """K4b against its plain version: a permutation bit-equal; repeats with
+    out-of-range and negative indices within 1e-6 (the same sums, in
+    ascending k, where the plain version's order is its own); all indices
+    in three buckets (K >> N: long buckets), bit-equal to the ascending-k
+    sums; every index out of range (all zeros); and a shape past one tile of output rows, one chunk of indices
+    and one chunk of attribute rows (kMaxRows, kMaxIdx, kValFloats)."""
     rng = np.random.default_rng(3)
-    w, a, k, n = 2, 20, 300, 260
+    w, a, k, n = {"one_bucket": (2, 20, 300, 8), "tiles": (1, 9, 4500, 4200)
+                  }.get(case, (2, 20, 300, 260))
     vals = torch.as_tensor(rng.standard_normal((w, a, k)).astype(np.float32))
     if case == "permutation":
         idx = np.stack([rng.permutation(k) for _ in range(w)]) - 20
+    elif case == "one_bucket":
+        idx = rng.choice([0, 3, 7], (w, k))
+    elif case == "empty":
+        idx = rng.choice([-7, -1, n, n + 5], (w, k))
     else:
         idx = rng.integers(-10, n + 10, (w, k))
     idx = torch.as_tensor(idx.astype(np.int32))
@@ -220,9 +280,21 @@ def test_plane_scatter_matches_plain(on_cpu, case):
     got = plane_ops._plane_scatter_cuda(vals, idx, n)
     assert plane_ops.launches("plane_scatter") == before + 1
     ref = plane_ops.plane_scatter_plain(vals, idx, n)
-    assert (ref != 0).float().mean() > 0.5
-    if case == "permutation":
+    if case == "empty":
+        assert not ref.any() and not got.any()
+    elif case == "one_bucket":
+        assert (ref[..., [0, 3, 7]] != 0).all()
+    else:
+        assert (ref != 0).float().mean() > 0.5
+    if case in ("permutation", "empty"):
         assert torch.equal(got, ref)
+    elif case == "one_bucket":
+        # buckets of ~100 values: bit-equal to the float32 sums in ascending
+        # k; against plain (its own order) within twice the float32 bound of
+        # a sum of m terms in any order, m·2⁻²⁴·Σ|v| (Higham)
+        assert torch.equal(got, chip_smoke.scatter_in_order(vals, idx, n))
+        bound = chip_smoke.scatter_sum_bound(vals, idx, n)
+        assert ((got - ref).abs() <= 2 * bound).all()
     else:
         assert (got - ref).abs().max() <= 1e-6
 
