@@ -13,8 +13,9 @@ last line:
              differ from one another; two launches bit-equal; the live
              slots it visited per pass;
   K3bp     — fused_bp kernel vs its plain version on the same settled
-             full-width flagship: candidate windows equal as integers, and
-             different across worlds;
+             full-width flagship: candidate windows equal as integers and
+             different across worlds, collider planes bit-equal, two
+             launches bit-equal;
   K2nc     — narrow_compact kernel vs its plain version on those windows:
              pid, partner body and activity equal, floats within 1e-5, and
              two launches equal bit for bit;
@@ -43,6 +44,9 @@ last line:
 Then the reuse flagship (the flagship at broadphase_period 4, windows
 16 / 8 / 12, walk 64), which takes the K2 route with the broadphase in
 PyTorch, count rank:
+  K2nc-reuse — narrow_compact vs its plain version on the K2 route's
+             windows of the settled reuse flagship (69 window rows a
+             collider), with K2nc's checks;
   K4b      — plane_scatter vs its plain version on the inputs of one
              count-rank rebuild of the settled flagship (W distinct
              worlds): bit-equal on that row permutation, within 1e-6 on
@@ -70,9 +74,10 @@ offsets + 4 ragdoll spines: 76 joints), which takes the staged route:
 Then the flagship with a 2,000-body pile (past one block's shared memory):
   K1big    — W distinct worlds, 30 settling ticks, then BIG_TICKS fused ticks
              with the launches counted (fused_bp, narrow_compact, solve_tgs
-             one each a tick); K1's global-memory variant vs its plain
-             version on the next step, at K1's bounds, two launches
-             bit-equal, timed against its bound.
+             one each a tick); on the next step fused_bp and narrow_compact
+             with K3bp's and K2nc's checks (2,000 grid colliders), and K1's
+             global-memory variant vs its plain version, at K1's bounds,
+             two launches bit-equal, timed against its bound.
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
@@ -566,23 +571,81 @@ def combo_census(t, jv):
             for v, n in zip(vals.tolist(), counts.tolist())}
 
 
+def bp_against_plain(label, t, body, dt):
+    """K3 vs its plain version: windows equal as integers, collider planes
+    bit-equal, two launches bit-equal, windows different across worlds.
+    Returns (jv, col) and the number of valid candidates."""
+    from fyrox_tpu_torch.physics import fused_step
+    jv, col = fused_step.bp_candidates(t, body, dt)
+    again = fused_step.bp_candidates(t, body, dt)
+    jv_p, col_p = fused_step.bp_candidates_plain(t, body, dt)
+    torch.cuda.synchronize()
+    if not (torch.equal(jv, again[0]) and torch.equal(col, again[1])):
+        fail(f"{label}: fused_bp: two launches on the same inputs differ")
+    if not torch.equal(jv, jv_p):
+        fail(f"{label}: fused_bp windows differ from the plain version at "
+             f"{int((jv != jv_p).sum())} of {jv.numel()} entries")
+    if not torch.equal(col, col_p):
+        fail(f"{label}: fused_bp collider planes differ from the plain "
+             f"version by {(col - col_p).abs().max().item():.3g}")
+    if not all_differ(jv):
+        fail(f"{label}: the candidate windows repeat across worlds")
+    return (jv, col), int((jv >= 0).sum())
+
+
+def nc_against_plain(label, t, col, jv, warm_lam, warm_pid):
+    """K2 vs its plain version: pid, partner body and activity equal,
+    planes within 1e-5, two launches bit-equal, some slots active and
+    warm-started. Returns (outputs, max error, active, warm-started)."""
+    from fyrox_tpu_torch.physics import fused_step
+    got = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
+    again = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
+    ref = fused_step.narrow_compact_plain(t, col, jv, warm_lam, warm_pid)
+    torch.cuda.synchronize()
+    con, body_j, pid = got
+    con_p, body_j_p, pid_p = ref
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{label}: narrow_compact: two launches on the same inputs "
+             "differ")
+    if not (torch.equal(pid, pid_p) and torch.equal(body_j, body_j_p)):
+        fail(f"{label}: narrow_compact pids / partner bodies differ from "
+             f"plain at {int((pid != pid_p).sum())} / "
+             f"{int((body_j != body_j_p).sum())} slots")
+    if not torch.equal(con[:, 9], con_p[:, 9]):
+        fail(f"{label}: narrow_compact activity differs from plain")
+    err = (con - con_p).abs().max().item()
+    # the same float32 operations in the same order: 1e-5 leaves room for
+    # nothing but rounding
+    if not (err <= 1e-5 and torch.isfinite(con).all()):
+        fail(f"{label}: narrow_compact planes differ from plain by "
+             f"{err:.3g} (1e-5)")
+    n_act = int(con[:, 9].sum())
+    matched = int((con[:, 12] != 0).sum())
+    if n_act == 0 or matched == 0:
+        fail(f"{label}: narrow_compact: {n_act} active slots, {matched} "
+             "warm-started")
+    return got, err, n_act, matched
+
+
+def k2_route_windows(t, body, dt):
+    """The K2 route's inputs to narrow_compact: collider planes and the
+    PyTorch slab broadphase's windows (sort rank)."""
+    from fyrox_tpu_torch.physics import broadphase as bp
+    from fyrox_tpu_torch.physics import fused_step
+    fs = fused_step._statics(t)
+    col = fused_step.collider_planes(t, body, dt).contiguous()
+    amin, amax = fused_step._aabbs(t, col)
+    cands = bp.slab_candidates(t.grid, fs.cx.col_body, fs.cx.dyn_col, amin,
+                               amax, tight_delta=fused_step._tight_delta())
+    return col, fused_step._jv_from_candidates(fs, cands)
+
+
 def phase_bp(engine, inputs):
     from fyrox_tpu_torch.physics import fused_step
     body = inputs[3]
     t = engine.physics
     dt = engine.dt
-    jv, col = fused_step.bp_candidates(t, body, dt)
-    jv_p, col_p = fused_step.bp_candidates_plain(t, body, dt)
-    torch.cuda.synchronize()
-    if not torch.equal(jv, jv_p):
-        fail(f"fused_bp windows differ from the plain version at "
-             f"{int((jv != jv_p).sum())} of {jv.numel()} entries")
-    if not torch.equal(col, col_p):
-        fail(f"fused_bp collider planes differ from the plain version by "
-             f"{(col - col_p).abs().max().item():.3g}")
-    if not all_differ(jv):
-        fail("the candidate windows repeat across worlds")
-    n_valid = int((jv >= 0).sum())
+    (jv, col), n_valid = bp_against_plain("K3bp", t, body, dt)
     ms_k = cuda_ms(lambda: fused_step.bp_candidates(t, body, dt), 20)
     dev_k = device_ms(lambda: fused_step.bp_candidates(t, body, dt), 20)
     ms_p = cuda_ms(lambda: fused_step.bp_candidates_plain(t, body, dt), 5)
@@ -596,7 +659,7 @@ def phase_bp(engine, inputs):
     b_ms, b_by = bound_ms(moved, bp_ops(t, WORLDS))
     log(f"[K3bp] fused_bp windows equal to plain as integers (W={WORLDS} "
         f"distinct worlds, {n_valid} valid candidates), collider planes "
-        f"bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
+        f"bit-equal, two launches bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
         f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="fused_bp", route="cuda",
                 source="fyrox_tpu_torch/csrc/fused_bp.cu",
@@ -611,29 +674,8 @@ def phase_nc(engine, inputs, windows):
     _, _, _, body, warm_lam, warm_pid = inputs
     jv, col = windows
     t = engine.physics
-    got = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
-    again = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
-    ref = fused_step.narrow_compact_plain(t, col, jv, warm_lam, warm_pid)
-    torch.cuda.synchronize()
-    con, body_j, pid = got
-    con_p, body_j_p, pid_p = ref
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail("narrow_compact: two launches on the same inputs differ")
-    if not (torch.equal(pid, pid_p) and torch.equal(body_j, body_j_p)):
-        fail(f"narrow_compact pids / partner bodies differ from plain at "
-             f"{int((pid != pid_p).sum())} / {int((body_j != body_j_p).sum())}"
-             " slots")
-    if not torch.equal(con[:, 9], con_p[:, 9]):
-        fail("narrow_compact activity differs from plain")
-    err = (con - con_p).abs().max().item()
-    # the same float32 operations in the same order: 1e-5 leaves room for
-    # nothing but rounding
-    if not (err <= 1e-5 and torch.isfinite(con).all()):
-        fail(f"narrow_compact planes differ from plain by {err:.3g} (1e-5)")
-    n_act = int(con[:, 9].sum())
-    matched = int((con[:, 12] != 0).sum())
-    if n_act == 0 or matched == 0:
-        fail(f"narrow_compact: {n_act} active slots, {matched} warm-started")
+    got, err, n_act, matched = nc_against_plain("K2nc", t, col, jv, warm_lam,
+                                                warm_pid)
     ms_k = cuda_ms(lambda: fused_step.narrow_compact(
         t, col, jv, warm_lam, warm_pid), 20)
     dev_k = device_ms(lambda: fused_step.narrow_compact(
@@ -659,6 +701,35 @@ def phase_nc(engine, inputs, windows):
                 max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, device_ms=dev_k,
                 library_device_ms=None)
+
+
+def fused_inputs(engine, state):
+    """The fused step's body planes and warm carries at `state`."""
+    from fyrox_tpu_torch.physics import fused_step
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t = engine.physics
+    accel, angvel = phys_mod.external_accelerations(state.physics, t,
+                                                    engine.dt)
+    return fused_step._inputs(state.physics, t, accel, angvel)
+
+
+def phase_nc_reuse(engine, state):
+    """narrow_compact on the settled reuse flagship's K2-route windows
+    (16 / 8 / 12, walk 64: 69 window rows a collider) vs plain."""
+    from fyrox_tpu_torch.physics import fused_step
+    t = engine.physics
+    body, warm_lam, warm_pid = fused_inputs(engine, state)
+    col, jv = k2_route_windows(t, body, engine.dt)
+    fs = fused_step._statics(t)
+    _, err, n_act, matched = nc_against_plain("K2nc-reuse", t, col, jv,
+                                              warm_lam, warm_pid)
+    dev_k = device_ms(lambda: fused_step.narrow_compact(
+        t, col, jv, warm_lam, warm_pid), 20)
+    log(f"[K2nc-reuse] narrow_compact on the reuse flagship's windows "
+        f"({fs.wd} window rows, {fs.ns} candidate rows, W={WORLDS}) equal to "
+        f"plain on pid, partner body and activity, planes within {err:.3g}, "
+        f"two launches bit-equal ({n_act} active slots, {matched} "
+        f"warm-started); device time {dev_k:.4f} ms")
 
 
 def phase_fused_step(engine, inputs):
@@ -1347,8 +1418,9 @@ BIG_TICKS = 5
 def phase_k1_big():
     """build_flagship(n_bodies=2000) at W distinct worlds on the fused
     route: 30 settling ticks, then BIG_TICKS ticks with the launches
-    counted; then K1 on the next step's packed inputs vs its plain
-    version, at K1's bounds, timed against its bound."""
+    counted; then fused_bp, narrow_compact and K1 on the next step's inputs
+    vs their plain versions (K3 and K2 as in K3bp / K2nc, K1 at its
+    bounds), timed."""
     from fyrox_tpu_torch.models import build_flagship
     from fyrox_tpu_torch.physics import fused_step, slab2, tgs_kernel
     from fyrox_tpu_torch.physics import world as phys_mod
@@ -1382,6 +1454,21 @@ def phase_k1_big():
     live = int((ph.warm_pair >= 0).sum())
     if live == 0:
         fail("K1big: no live contact points: physics did no work")
+    body, warm_lam, warm_pid = fused_inputs(engine, state)
+    (jv, col), n_valid = bp_against_plain("K1big", t, body, engine.dt)
+    _, err_nc, n_act, _ = nc_against_plain("K1big", t, col, jv, warm_lam,
+                                           warm_pid)
+    dev_bp = device_ms(lambda: fused_step.bp_candidates(t, body, engine.dt),
+                       20)
+    dev_nc = device_ms(lambda: fused_step.narrow_compact(
+        t, col, jv, warm_lam, warm_pid), 20)
+    del jv, col, warm_lam, warm_pid
+    log(f"[K1big] K3 fused_bp on {cg} grid colliders: windows equal to "
+        f"plain as integers ({n_valid} valid candidates), collider planes "
+        f"and two launches bit-equal, device time {dev_bp:.4f} ms; K2 "
+        f"narrow_compact equal on pid, partner body and activity, planes "
+        f"within {err_nc:.3g}, two launches bit-equal ({n_act} active "
+        f"slots), device time {dev_nc:.4f} ms")
     accel, angvel = phys_mod.external_accelerations(ph, t, engine.dt)
     packed, _ = slab2.solver_inputs(ph, t, engine.dt, accel, angvel)
     params = tgs_kernel.solver_params(t, engine.dt)
@@ -1895,7 +1982,10 @@ def main():
                                   broadphase_period=PERIOD)
     log(f"[setup] reuse flagship templates built in "
         f"{time.perf_counter() - t0:.1f} s")
-    k4b = phase_k4b(capture_k4b_inputs(engine, settled_reuse(engine)))
+    reuse_state = settled_reuse(engine)
+    phase_nc_reuse(engine, reuse_state)
+    k4b = phase_k4b(capture_k4b_inputs(engine, reuse_state))
+    del reuse_state
     phase_reuse_small()
     n_reuse = phase_reuse(engine, skin)
     del engine, skin

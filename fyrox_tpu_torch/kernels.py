@@ -43,8 +43,8 @@ _SIGNATURES = {
     "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_plane_scatter": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_tgs_solve": [_VP] * 20 + [_I] * 11 + [_F] * 10 + [_VP],
-    "fyrox_fused_bp": [_VP] * 13 + [_I] * 10 + [_F] * 5 + [_VP],
-    "fyrox_narrow_compact": [_VP] * 11 + [_I] * 7 + [_F] * 2 + [_VP],
+    "fyrox_fused_bp": [_VP] * 12 + [_I] * 12 + [_F] * 5 + [_VP],
+    "fyrox_narrow_compact": [_VP] * 11 + [_I] * 8 + [_F] * 2 + [_VP],
     "fyrox_tile_raster": [_VP] * 7 + [_I] * 8 + [_VP],
 }
 

@@ -6,9 +6,10 @@ The JAX package runs pose → AABB → broadphase → narrowphase → compaction
 → TGS solve as one resident program per world (K3; K2 leaves the
 broadphase outside). On Hopper the program is cut where the JAX split mode
 cuts it, for reasons of its own: one world's contact planes (~1 MB) do not
-fit the 227 KB of shared memory a block may use, the narrowphase wants a
-warp per collider, and the solve a CTA per world with the bodies in shared
-memory (K1). So a step is
+fit the 227 KB of shared memory a block may use, the narrowphase wants
+tiles of consecutive grid colliders (whole 128-byte rows of contact planes
+per store), and the solve a CTA per world with the bodies in shared memory
+(K1). So a step is
 
     K3: fused_bp (csrc/fused_bp.cu) → narrow_compact (csrc/narrow_compact.cu)
         → solve_tgs (K1, csrc/tgs_solve.cu): three launches;
@@ -47,9 +48,12 @@ __all__ = ["supports_fused", "supports_fused_bp", "collider_planes",
            "bp_smem_bytes", "nc_smem_bytes", "launches", "reset_launches"]
 
 _LAUNCHES = {"fused_bp": 0, "narrow_compact": 0}
-_NC_WARPS = 4         # warps (grid colliders) per narrow_compact block
+_NC_TILES = (32, 16, 8, 4, 2, 1)   # narrow_compact: grid colliders a block
+                                   # takes, widest first (see _nc_tile)
 _MAX_WALK = 64        # fused_bp keeps a walk window's flags in 64-bit masks
 _MAX_ROWS = 256       # narrow_compact packs window flags in 8 × 32 bits
+_BP_PARTS = 0         # fused_bp blocks per world; 0: as many as fill the
+                      # card's resident blocks, 64+ grid colliders each
 
 
 def launches(name: str) -> int:
@@ -139,6 +143,14 @@ class _Statics:
                 rows.append(np.where(ok, int(bidx), -1).astype(np.int32))
         self.jv_big = (np.stack(rows) if rows
                        else np.full((1, cx.cg), -1, np.int32))   # [NSB,Cg]
+        # fused_bp's per-collider grid index (-1: big) and per-grid-index
+        # static words: collider; body << 5 | kind (0-8) << 1 | dynamic
+        self.col_grid = np.full(cx.c, -1, np.int32)
+        self.col_grid[gi] = np.arange(cx.cg, dtype=np.int32)
+        self.grid_stat = np.stack([
+            gi, cx.col_body[gi].astype(np.int64) << 5
+            | np.clip(cx.kinds[gi], 0, 8).astype(np.int64) << 1
+            | cx.dyn_col[gi].astype(np.int64)]).astype(np.int32)  # [2,Cg]
 
 
 def _statics(t) -> _Statics:
@@ -153,17 +165,33 @@ def _tight_delta() -> float:
     return SPECULATIVE_MARGIN - PREDICTION_DISTANCE
 
 
-def bp_smem_bytes(n_grid_colliders: int) -> int:
-    """Shared memory of one fused_bp block: the sort's (key, index) pairs
-    over the next power of two, and the grid colliders' AABBs."""
-    np2 = 1 << max(n_grid_colliders - 1, 0).bit_length()
-    return 8 * np2 + 24 * n_grid_colliders
+def bp_smem_bytes(n_grid_colliders: int, cand_rows: int) -> int:
+    """The least shared memory one fused_bp block needs: the sort's (key,
+    index) words and the AABBs of every grid collider, cls_tab, a row map,
+    and a window tile one collider wide. The kernel adds the static word
+    table (8 B a grid collider) and a wider tile where they fit."""
+    return 32 * n_grid_colliders + 4 * (81 + cand_rows) + 8 * cand_rows
 
 
-def nc_smem_bytes(window_rows: int) -> int:
-    """Shared memory of one narrow_compact block: each warp's window rows
-    (14 words each)."""
-    return 4 * 14 * window_rows * _NC_WARPS
+def nc_smem_bytes(window_rows: int, cand_rows: int, slots: int,
+                  tile: int) -> int:
+    """Shared memory of one narrow_compact block of `tile` grid colliders:
+    their 18 collider words and 2 ints, per candidate row the partner, the
+    pair's 7 words and a work-list entry, per window row its 5 point words
+    (on tile + 1 columns) and its pair, per slot the kept row, the kept
+    count, the work list's pads (16 buckets, each starting a warp) and the
+    33 bucket counters (csrc/narrow_compact.cu)."""
+    words = (tile * (20 + 9 * cand_rows + slots + 1)
+             + 5 * window_rows * (tile + 1) + window_rows + 16 * 31 + 33)
+    return 4 * words
+
+
+def _nc_tile(window_rows: int, cand_rows: int, slots: int) -> int:
+    """narrow_compact's tile: the widest of _NC_TILES whose block fits the
+    shared memory a block may use (32 at the flagship and its reuse
+    windows; 0 if none does)."""
+    return next((tg for tg in _NC_TILES if nc_smem_bytes(
+        window_rows, cand_rows, slots, tg) <= tgs_kernel.SMEM_LIMIT), 0)
 
 
 # --------------------------------------------------------------------------
@@ -303,7 +331,7 @@ def _bp_candidates_cuda(t, body, dt):
     w = body.shape[0] if body.dim() == 3 else -1
     _check_tensor("bp_candidates", "body", body, torch.float32,
                   (w, tgs_kernel.BODY_ROWS, cx.b), dev)
-    need = bp_smem_bytes(cx.cg)
+    need = bp_smem_bytes(cx.cg, fs.ns)
     _need(need <= tgs_kernel.SMEM_LIMIT, ValueError,
           f"bp_candidates: {cx.cg} grid colliders need {need} B of shared "
           f"memory per world, above the {tgs_kernel.SMEM_LIMIT} B a block "
@@ -315,14 +343,14 @@ def _bp_candidates_cuda(t, body, dt):
     if w == 0:
         return jv, col
     ptrs = [const(a, dev).data_ptr() for a in (
-        fs.col_body, fs.shape, fs.kinds, fs.dyn, fs.col_sta, fs.col_off,
-        fs.sweep_cap, fs.grid_cols, fs.cls_tab, fs.jv_big)]
+        fs.col_body, fs.shape, fs.col_sta, fs.col_off, fs.sweep_cap,
+        fs.col_grid, fs.grid_stat, fs.cls_tab, fs.jv_big)]
     f32 = np.float32
     lib = kernels.library()
     err = lib.fyrox_fused_bp(
         body.data_ptr(), *ptrs, jv.data_ptr(), col.data_ptr(),
         w, cx.b, cx.c, cx.cg, int(sc.s_walk), *fs.nslots, fs.nbig,
-        int(cx.trivial_offsets),
+        int(cx.trivial_offsets), _BP_PARTS, tgs_kernel.SMEM_LIMIT,
         float(f32(dt)), float(f32(slab2._margin(t))), float(f32(sc.cell)),
         float(f32(sc.cell / bp_mod._ZFINE)),
         float(f32(2.0 * _tight_delta())),
@@ -348,10 +376,11 @@ def _narrow_compact_cuda(t, col, jv, warm_lam, warm_pid):
     _need(fs.wd <= _MAX_ROWS, ValueError,
           f"narrow_compact: {fs.wd} window rows per collider, above the "
           f"kernel's {_MAX_ROWS}")
-    need = nc_smem_bytes(fs.wd)
-    _need(need <= tgs_kernel.SMEM_LIMIT, ValueError,
-          f"narrow_compact: {fs.wd} window rows need {need} B of shared "
-          "memory per block")
+    tile = _nc_tile(fs.wd, fs.ns, s)
+    _need(tile > 0, ValueError,
+          f"narrow_compact: {fs.wd} window rows and {s} slots need "
+          f"{nc_smem_bytes(fs.wd, fs.ns, s, 1)} B of shared memory per "
+          "block")
     con = torch.empty((w, tgs_kernel.CON_ROWS, s, cg), dtype=torch.float32,
                       device=dev)
     body_j = torch.empty((w, s, cg), dtype=torch.int32, device=dev)
@@ -365,7 +394,7 @@ def _narrow_compact_cuda(t, col, jv, warm_lam, warm_pid):
     err = lib.fyrox_narrow_compact(
         col.data_ptr(), jv.data_ptr(), warm_lam.data_ptr(),
         warm_pid.data_ptr(), *ptrs, con.data_ptr(), body_j.data_ptr(),
-        pid.data_ptr(), w, cx.c, cg, s, *fs.nslots,
+        pid.data_ptr(), w, cx.c, cg, s, *fs.nslots, tile,
         float(f32(slab2._margin(t))), float(f32(PREDICTION_DISTANCE)),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "fyrox_narrow_compact")

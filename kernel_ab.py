@@ -1,6 +1,7 @@
-"""Times the K1 and K4b kernels of one tree of the PyTorch port on one card.
+"""Times the K1, K4b, K3 and K2 kernels of one tree of the PyTorch port on
+one card.
 
-    python3 kernel_ab.py [--root DIR]
+    python3 kernel_ab.py [--root DIR] [--kernels NAME,...]
 
 Imports `fyrox_tpu_torch` and `chip_smoke.py` from DIR (default: the
 directory of this script), builds that tree's kernels, and times, on the
@@ -14,6 +15,12 @@ inputs that chip_smoke.py's phases give them:
                        rebuild's shape and kind);
   scatter_add_       — one scatter_add_ into a zeroed copy with a spare
                        column, the same function on the same inputs;
+  fused_bp           — K3 on the body planes of the settled flagship's
+                       next step (held to its plain version first:
+                       windows equal as integers, collider planes
+                       bit-equal);
+  narrow_compact     — K2 on those windows (held to its plain version
+                       first: pid, partner body and activity equal);
 each by CUDA events around a run of calls (`ms`) and around the same
 calls queued behind a spin kernel, which the card runs back to back
 without the host's issue (`device_ms`), as chip_smoke.py's kernels line. K4b's output is held to its plain version bit for bit
@@ -75,7 +82,12 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernels", default="solve_tgs,solve_tgs_jointed,"
+                    "plane_scatter,fused_bp,narrow_compact",
+                    help="comma-separated names of the kernels to time "
+                    "(plane_scatter brings scatter_add_)")
     args = ap.parse_args()
+    names = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import numpy as np
@@ -85,7 +97,7 @@ def main():
     import chip_smoke as cs
     import fyrox_tpu_torch
     from fyrox_tpu_torch.models import build_flagship
-    from fyrox_tpu_torch.physics import plane_ops, slab2, tgs_kernel
+    from fyrox_tpu_torch.physics import fused_step, plane_ops, slab2, tgs_kernel
     if not fyrox_tpu_torch.__file__.startswith(root):
         sys.exit(f"fyrox_tpu_torch came from {fyrox_tpu_torch.__file__}, "
                  f"not from {root}")
@@ -101,19 +113,43 @@ def main():
                          device_ms=device_ms(torch, fn, args.reps))
 
     engine, _ = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000)
-    state, accel, angvel = cs.settled_inputs(engine)[:3]
-    packed, _ = slab2.solver_inputs(state.physics, engine.physics, engine.dt,
-                                    accel, angvel)
-    params = tgs_kernel.solver_params(engine.physics, engine.dt)
-    both("solve_tgs", lambda: tgs_kernel.solve_tgs(*packed, params))
-    del engine, state, packed
+    state, accel, angvel, body, warm_lam, warm_pid = cs.settled_inputs(engine)
+    t, dt = engine.physics, engine.dt
+    if "solve_tgs" in names:
+        packed, _ = slab2.solver_inputs(state.physics, t, dt, accel, angvel)
+        params = tgs_kernel.solver_params(t, dt)
+        both("solve_tgs", lambda: tgs_kernel.solve_tgs(*packed, params))
+        del packed
+    if "fused_bp" in names or "narrow_compact" in names:
+        jv, col = fused_step.bp_candidates(t, body, dt)
+        jv_p, col_p = fused_step.bp_candidates_plain(t, body, dt)
+        if not (torch.equal(jv, jv_p) and torch.equal(col, col_p)):
+            sys.exit("fused_bp differs from its plain version")
+        got = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
+        ref = fused_step.narrow_compact_plain(t, col, jv, warm_lam, warm_pid)
+        if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+                and torch.equal(got[0][:, 9], ref[0][:, 9])):
+            sys.exit("narrow_compact differs from its plain version")
+        del got, ref, jv_p, col_p
+        if "fused_bp" in names:
+            both("fused_bp", lambda: fused_step.bp_candidates(t, body, dt))
+        if "narrow_compact" in names:
+            both("narrow_compact", lambda: fused_step.narrow_compact(
+                t, col, jv, warm_lam, warm_pid))
+        del jv, col
+    del engine, state, body, warm_lam, warm_pid
 
-    engine = cs.jointed_engine()[0]
-    packed, has_com, joints = cs.jointed_inputs(engine)
-    params = tgs_kernel.solver_params(engine.physics, engine.dt)
-    both("solve_tgs_jointed", lambda: tgs_kernel.solve_tgs(
-        *packed, params, has_com=has_com, joints=joints))
-    del engine, packed, joints
+    if "solve_tgs_jointed" in names:
+        engine = cs.jointed_engine()[0]
+        packed, has_com, joints = cs.jointed_inputs(engine)
+        params = tgs_kernel.solver_params(engine.physics, engine.dt)
+        both("solve_tgs_jointed", lambda: tgs_kernel.solve_tgs(
+            *packed, params, has_com=has_com, joints=joints))
+        del engine, packed, joints
+    if "plane_scatter" not in names:
+        print(card)
+        print(json.dumps(out), flush=True)
+        return
 
     w, a, n = cs.WORLDS, 16, 1000
     rng = np.random.default_rng(0)

@@ -3,8 +3,11 @@
 // run on the CPU for tests/test_torch_kernels_emulated.py. One std::thread
 // per CUDA thread, one block at a time; std::barrier stands in for
 // __syncthreads and for the warp-wide syncs of __syncwarp / __ballot_sync.
-// The __f*_rn intrinsics become plain float operations, which the flag
-// -ffp-contract=off keeps unfused. Launches are rewritten by the test
+// Warp shuffles exchange values through a per-thread slot between two warp
+// barriers. The __f*_rn intrinsics become plain float operations, which the
+// flag -ffp-contract=off keeps unfused. The emulated card has kEmuSMs SMs
+// that hold one resident block each (the occupancy queries' answers).
+// Launches are rewritten by the test
 // (`k<<<g, t, smem, stream>>>(args)` → `EMU_LAUNCH(g, t, smem, k, args)`),
 // and `extern __shared__ T name[];` becomes a pointer into emu::smem.
 #pragma once
@@ -12,6 +15,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -22,7 +26,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -39,6 +43,8 @@ inline dim3 bDim;
 inline std::unique_ptr<std::barrier<>> block_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
 inline std::vector<unsigned> votes;
+inline std::vector<unsigned long long> lanes;   // shuffle slots
+constexpr int kEmuSMs = 4;
 inline std::vector<unsigned char> smem;
 
 inline void launch(dim3 grid, dim3 threads, size_t smem_bytes,
@@ -52,6 +58,7 @@ inline void launch(dim3 grid, dim3 threads, size_t smem_bytes,
       for (unsigned w = 0; w < (threads.x + 31) / 32; ++w)
         warp_bars.push_back(std::make_unique<std::barrier<>>(32));
       votes.assign(threads.x, 0);
+      lanes.assign(threads.x, 0);
       std::vector<std::thread> pool;
       for (unsigned t = 0; t < threads.x; ++t)
         pool.emplace_back([=, &kernel] {
@@ -99,6 +106,25 @@ inline unsigned __match_any_sync(unsigned, int value) {
   __syncwarp();
   return r;
 }
+// the value `v` of lane `src` of the calling warp (every lane calls)
+template <class T>
+inline T emu_shfl(T v, unsigned src) {
+  static_assert(sizeof(T) <= 8, "shuffles move at most 64 bits");
+  const unsigned base = threadIdx.x & ~31u;
+  unsigned long long bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  emu::lanes[threadIdx.x] = bits;
+  __syncwarp();
+  bits = emu::lanes[base + src];
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &bits, sizeof(T));
+  return r;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {   // width 32
+  return emu_shfl(v, (threadIdx.x & 31u) ^ (unsigned)mask);
+}
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -122,3 +148,19 @@ inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu::kEmuSMs;
+  return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T,
+                                                                 int,
+                                                                 size_t) {
+  *n = 1;
+  return cudaSuccess;
+}

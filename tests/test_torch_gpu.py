@@ -261,11 +261,12 @@ def test_tgs_kernel_takes_oversized_worlds(jointed):
 
 # ---- the fused route: fused_bp (K3) and narrow_compact (K2) --------------
 
-@pytest.fixture
-def fused_inputs(cuda):
-    """The fused step's inputs on the settled, distinct small flagship."""
-    engine, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
-    st = engine.init_state(8, device=cuda)
+def _settled_fused_inputs(cuda, n_worlds=8, **kw):
+    """The fused step's inputs on a settled flagship of distinct worlds
+    (build_flagship(n_bones=10, n_verts=300, n_bodies=192, **kw))."""
+    kw.setdefault("n_bodies", 192)
+    engine, _ = build_flagship(n_bones=10, n_verts=300, **kw)
+    st = engine.init_state(n_worlds, device=cuda)
     rng = np.random.default_rng(4)
     dyn = torch.as_tensor(engine.physics.body_type == phys_mod.DYNAMIC,
                           device=cuda)[None, :, None].float()
@@ -282,19 +283,54 @@ def fused_inputs(cuda):
     return t, engine.dt, body, warm_lam, warm_pid
 
 
-def test_fused_bp_kernel_is_bit_exact(fused_inputs):
-    t, dt, body = fused_inputs[:3]
+@pytest.fixture
+def fused_inputs(cuda):
+    """The fused step's inputs on the settled, distinct small flagship."""
+    return _settled_fused_inputs(cuda)
+
+
+# the small flagship; its reuse variant (broadphase_period=4: windows 16 /
+# 8 / 12, walk 64, 69 window rows a collider, K2 route); the flagship with
+# 2,000 bodies (Cg = 2,000)
+_FUSED_CASES = {"flagship": dict(), "reuse": dict(broadphase_period=4),
+                "big": dict(n_bodies=2000, n_worlds=4)}
+
+
+@pytest.fixture(params=list(_FUSED_CASES))
+def fused_case(cuda, request):
+    return request.param, _settled_fused_inputs(
+        cuda, **_FUSED_CASES[request.param])
+
+
+def test_fused_bp_kernel_is_bit_exact(fused_case):
+    """K3's windows equal plain's as integers and its collider planes bit
+    for bit, and two launches agree; on the reuse template too, whose
+    windows (walk 64) K3 computes as the K2 route's broadphase does."""
+    case, (t, dt, body) = fused_case[0], fused_case[1][:3]
+    assert fused_step.supports_fused_bp(t) == (case != "reuse")
     before = fused_step.launches("fused_bp")
     jv, col = fused_step.bp_candidates(t, body, dt)
     assert fused_step.launches("fused_bp") == before + 1
+    again = fused_step.bp_candidates(t, body, dt)
     jv_p, col_p = fused_step.bp_candidates_plain(t, body, dt)
     assert (jv >= 0).sum() > 0 and _all_differ(jv)
     assert torch.equal(jv, jv_p) and torch.equal(col, col_p)
+    assert torch.equal(jv, again[0]) and torch.equal(col, again[1])
 
 
-def test_narrow_compact_kernel_matches_plain_and_repeats(fused_inputs):
-    t, dt, body, warm_lam, warm_pid = fused_inputs
-    jv, col = fused_step.bp_candidates_plain(t, body, dt)
+def test_narrow_compact_kernel_matches_plain_and_repeats(fused_case):
+    case, (t, dt, body, warm_lam, warm_pid) = fused_case
+    if case == "reuse":                 # the K2 route's windows
+        fs = fused_step._statics(t)
+        col = fused_step.collider_planes(t, body, dt).contiguous()
+        amin, amax = fused_step._aabbs(t, col)
+        jv = fused_step._jv_from_candidates(
+            fs, fused_step.bp_mod.slab_candidates(
+                t.grid, fs.cx.col_body, fs.cx.dyn_col, amin, amax,
+                tight_delta=fused_step._tight_delta()))
+        assert fs.wd == 69
+    else:
+        jv, col = fused_step.bp_candidates_plain(t, body, dt)
     got = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
     again = fused_step.narrow_compact(t, col, jv, warm_lam, warm_pid)
     con_p, bj_p, pid_p = fused_step.narrow_compact_plain(t, col, jv,

@@ -47,7 +47,7 @@ def emulated(tmp_path_factory):
         code = re.sub(r"extern __shared__ (float|unsigned long long) (\w+)\[\];",
                       r"\1* \2 = reinterpret_cast<\1*>(emu::smem.data());",
                       code)
-        code = re.sub(r"(\w+)<<<([^,]+),([^,]+),([^,]+),[^>]*>>>\(",
+        code = re.sub(r"(\w+(?:<\w+>)?)<<<([^,]+),([^,]+),([^,]+),[^>]*>>>\(",
                       r"EMU_LAUNCH(\2,\3,\4, \1, ", code)
         dst = out / (src.stem + ".cpp")
         dst.write_text(code)
@@ -100,14 +100,33 @@ def _pile(big_cuboid=False, n=36, seed=5):
     return pb.initial_pose(), pb.build(broadphase="slab")
 
 
-def _flagship():
-    e, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+def _flagship(**kw):
+    e, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192, **kw)
     st = e.init_state(1, device="cpu").physics
     return (st.position[0].numpy(), st.rotation[0].numpy()), e.physics
 
 
+def _crowd():
+    """108 balls in free fall in one coarse grid cell, 36 to a fine z slab
+    (one sort key each, past jitter; the slabs take turns in grid index
+    order, so every key spans both of the sort's 64-word runs), 0.02 m
+    apart: most balls' walks pass their cap of 48 slots and their windows
+    fill. A static cuboid far off widens the cell (the largest grid
+    collider sets it)."""
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC, position=(-6.0, 0.0, 0.0))
+    pb.add_collider(g, CUBOID, [0.4, 0.4, 0.4])
+    for j in range(6):
+        for i in range(6):
+            for z in (0.43, 0.80, 1.17):
+                b = pb.add_body(position=(0.25 + 0.22 * i, 1.3 + 0.22 * j, z))
+                pb.add_collider(b, BALL, [0.1], friction=0.5)
+    return pb.initial_pose(), pb.build(broadphase="slab")
+
+
 SCENES = {"flagship": _flagship, "pile": _pile,
-          "platform": lambda: _pile(big_cuboid=True)}
+          "platform": lambda: _pile(big_cuboid=True), "crowd": _crowd,
+          "reuse": lambda: _flagship(broadphase_period=4)}
 
 
 @pytest.fixture(scope="module", params=list(SCENES))
@@ -126,18 +145,88 @@ def settled(request):
     return request.param, t, body, warm_lam, warm_pid
 
 
-@pytest.mark.parametrize("settled", ["flagship", "pile"], indirect=True)
-def test_fused_bp_matches_plain(on_cpu, settled):
+def _walk_demand(t, col):
+    """The slab walk's raw demand [W,Cg] and each grid collider's sort key
+    on these collider planes (the plain broadphase's own numbers)."""
+    amin, amax = fused_step._aabbs(t, col)
+    cx = fused_step._statics(t).cx
+    _, _, total = fused_step.bp_mod.class_windows(
+        t.grid, cx.col_body, cx.dyn_col, amin, amax,
+        fused_step._tight_delta(), plain=True)
+    gmin = amin[:, torch.as_tensor(t.grid.grid_cols, dtype=torch.long)]
+    cell = np.float32(t.grid.cell)
+    zfine = np.float32(t.grid.cell / fused_step.bp_mod._ZFINE)
+    key = fused_step.bp_mod._pack_xyz(
+        torch.floor(gmin[..., 0] / cell).int(),
+        torch.floor(gmin[..., 1] / cell).int(),
+        torch.floor(gmin[..., 2] / zfine).int())
+    return total, key
+
+
+# K3 cases: the scene (the `settled` fixture's), fused_bp's blocks per world
+# (0: as many as fill the emulated card: 2 for the flagship's 192 grid
+# colliders over 2 worlds, 1 for the pile's 36) and whether the shared
+# memory a block may use is cut to the least the kernel takes, so that the
+# static word table stays in global memory and the walk goes in tiles of a
+# few colliders
+_BP_CASES = {
+    "flagship": ("flagship", 0, False),
+    "pile": ("pile", 0, False),
+    "crowd": ("crowd", 0, False),
+    "flagship-parts3": ("flagship", 3, False),
+    "flagship-parts7": ("flagship", 7, False),
+    "crowd-lean": ("crowd", 1, True),
+}
+
+
+@pytest.mark.parametrize("settled, parts, lean", list(_BP_CASES.values()),
+                         ids=list(_BP_CASES), indirect=["settled"])
+def test_fused_bp_matches_plain(on_cpu, monkeypatch, settled, parts, lean):
+    """K3 against its plain version: windows equal as integers, collider
+    planes bit-equal. The crowd holds 36 balls to one sort key (the sort's
+    stability across its merge rounds) and sends most walks past their
+    cap; the split cases walk each world's colliders over several blocks,
+    each writing its slice of the collider planes."""
     scene, t, body = settled[:3]
     assert fused_step.supports_fused_bp(t)
+    monkeypatch.setattr(fused_step, "_BP_PARTS", parts)
+    fs = fused_step._statics(t)
+    if lean:
+        least = fused_step.bp_smem_bytes(fs.cx.cg, fs.ns)
+        monkeypatch.setattr(tgs_kernel, "SMEM_LIMIT", least + 4 * fs.ns * 3)
     jv, col = fused_step._bp_candidates_cuda(t, body, DT)
     jv_p, col_p = fused_step.bp_candidates_plain(t, body, DT)
     assert (jv_p >= 0).sum() > 0
+    if scene == "crowd":
+        total, key = _walk_demand(t, col_p)
+        assert int((total > t.grid.s_walk).sum()) >= 0.75 * 2 * 108
+        assert int(torch.unique(key[0], return_counts=True)[1].max()) >= 36
     assert torch.equal(jv, jv_p)
     assert torch.equal(col, col_p)
 
 
-def test_narrow_compact_matches_plain(on_cpu, settled):
+# K2 cases: the scene and whether every window row of one collider in one
+# world is cut to -1 (a collider with no candidate at all); the pile's 36
+# grid colliders are not a multiple of the 32-wide tile; "flagship-tile8"
+# cuts the shared memory a block may use so that the tile is 8 wide
+_NC_CASES = {
+    "flagship": ("flagship", False, None),
+    "pile": ("pile", False, None),
+    "platform": ("platform", False, None),
+    "crowd": ("crowd", False, None),
+    "reuse": ("reuse", False, None),
+    "pile-empty": ("pile", True, None),
+    "flagship-tile8": ("flagship", False, 8),
+}
+
+
+@pytest.mark.parametrize("settled, empty, tile", list(_NC_CASES.values()),
+                         ids=list(_NC_CASES), indirect=["settled"])
+def test_narrow_compact_matches_plain(on_cpu, monkeypatch, settled, empty,
+                                      tile):
+    """K2 against its plain version on K3's windows or, where the scene
+    takes the K2 route (the platform; the reuse flagship, windows 16 / 8 /
+    12, walk 64, 69 window rows), on the PyTorch broadphase's."""
     scene, t, body, warm_lam, warm_pid = settled
     if fused_step.supports_fused_bp(t):
         jv, col = fused_step.bp_candidates_plain(t, body, DT)
@@ -149,11 +238,26 @@ def test_narrow_compact_matches_plain(on_cpu, settled):
             fused_step._statics(t), fused_step.bp_mod.slab_candidates(
                 t.grid, cx.col_body, cx.dyn_col, amin, amax,
                 tight_delta=fused_step._tight_delta()))
+    fs = fused_step._statics(t)
+    s = fs.cx.s_active
+    assert fused_step._nc_tile(fs.wd, fs.ns, s) == 32
+    if scene == "reuse":
+        assert fs.wd == 69 and t.grid.s_walk == 64
+    if empty:
+        g = int(torch.nonzero((jv[0] >= 0).any(0))[0, 0])
+        jv = jv.clone()
+        jv[0, :, g] = -1
+    if tile:
+        monkeypatch.setattr(tgs_kernel, "SMEM_LIMIT", fused_step.nc_smem_bytes(
+            fs.wd, fs.ns, s, tile))
+        assert fused_step._nc_tile(fs.wd, fs.ns, s) == tile
     con, body_j, pid = fused_step._narrow_compact_cuda(t, col, jv, warm_lam,
                                                        warm_pid)
     con_p, body_j_p, pid_p = fused_step.narrow_compact_plain(
         t, col, jv, warm_lam, warm_pid)
     assert con_p[:, 9].sum() > 0
+    if empty:
+        assert (pid[0, :, g] == -1).all() and (con[0, 9, :, g] == 0).all()
     assert torch.equal(pid, pid_p) and torch.equal(body_j, body_j_p)
     assert torch.equal(con[:, 9], con_p[:, 9])
     # PyTorch's float32 sqrt on the CPU is not always correctly rounded (one
