@@ -81,8 +81,10 @@ Then the flagship with a 2,000-body pile (past one block's shared memory):
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
-             the camera pass of one frame: z, idx, w0, w1 bit-equal, two
-             launches bit-equal;
+             the camera pass of one frame and on the knife-edge inputs
+             (k5_knife_edges): z, idx, w0, w1 bit-equal, two launches
+             bit-equal; slots per tile, the split of the long tiles,
+             covered pairs and the bound;
   K5depth  — the depth-only variant on the batched cascade pass (3 x 16
              maps), the same checks;
   render-audit — per-pass true bin demand against the caps (424; 896 for
@@ -1724,9 +1726,11 @@ RENDER_WORLDS = 16
 RENDER_SIZE = 256
 RENDER_FRAMES = 5    # timed frames after one warm-up frame
 RENDER_PROFILED = 3  # frames under the profiler
-# float operations per (pixel, walked slot) of csrc/tile_raster.cu, a hand
-# count: five affine forms of 2 multiplies and 2 adds, two subtracts, one
-# divide, eight compares
+# float operations K5 must spend on a (pixel, slot) pair whose three edge
+# tests pass, a hand count: five affine forms of 2 multiplies and 2 adds,
+# two subtracts, one divide, eight compares. K5's bound counts these for the
+# covered pairs only (k5_covered_pairs): a pair that an edge test rejects
+# needs no z, and csrc/tile_raster.cu skips most such pairs unevaluated.
 K5_OPS = 31
 
 
@@ -1788,6 +1792,128 @@ def capture_k5_inputs(t, rt, st, cfg):
     return seen
 
 
+def k5_covered_pairs(feats, ids, count, height, width, tile_h, tile_w):
+    """The (pixel, walked slot) pairs whose e0, e1, e2 >= 0, by
+    visibility_plain's arithmetic on the same inputs: the pairs that any
+    implementation of K5 has to finish."""
+    from fyrox_tpu_torch.render import tile_raster
+    b = feats.shape[0]
+    nty, ntx = height // tile_h, width // tile_w
+    nt, k = nty * ntx, ids.shape[-1]
+    rows = torch.gather(feats, 1, ids.reshape(b, nt * k, 1).long().expand(
+        b, nt * k, 16)).reshape(b, nt, k, 16)
+    cnt = count.reshape(b, nt, 1, 1)
+    px, py = tile_raster._pixel_centres(nty, ntx, tile_h, tile_w,
+                                        feats.device)
+    total = 0
+    for j in range(int(count.max()) if count.numel() else 0):
+        f = rows[:, :, j, :, None, None]
+
+        def aff(i):
+            return f[:, :, i] * px + f[:, :, i + 1] * py + f[:, :, i + 2]
+
+        e0, e1, s = aff(0), aff(3), aff(6)
+        e2 = s - e0 - e1
+        total += int(((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (j < cnt)).sum())
+    return total
+
+
+def k5_bytes(feats, ids, count, outs):
+    """The bytes K5 has to move: each tile's count and the ids of the slots
+    it walks read once, each feature row that some tile of its image walks
+    read once, the outputs written once."""
+    b, t = feats.shape[:2]
+    walked = torch.arange(ids.shape[-1], device=ids.device) < count[..., None]
+    img = torch.arange(b, device=ids.device).reshape(b, 1, 1) * t
+    rows = torch.unique((ids.long() + img)[walked]).numel()
+    return (nbytes(count, *outs) + int(walked.sum()) * ids.element_size()
+            + rows * feats.shape[2] * feats.element_size())
+
+
+def k5_knife_edges(height=16, width=256, tile_h=8, tile_w=128, n_img=2,
+                   n_rows=150, seed=0, device="cpu"):
+    """K5 inputs on its knife edges, as visibility() takes them. Feature
+    rows are written directly from half-integers, so every form rounds
+    exactly and an edge through a pixel centre gives e = 0 there (inside):
+    vertical and horizontal edges through the centres on K5's warp
+    rectangles' borders (every 16 columns) and the tiles' outer rows and
+    columns, strips whose e2 is 0 everywhere, diagonal e2 edges through
+    centres, rows whose ok flag is 0 or whose W <= 1e-12 over the image
+    (both nearest the camera), negative-zero coefficients, z ties (+0
+    against -0 among them), W slopes. Each tile walks its rows in its own
+    seeded order, most of them more than one 64-row chunk (and more than
+    tile_raster.SPLIT_SPAN); one tile walks none."""
+    rng = np.random.default_rng(seed)
+    xs = sorted({0.5, width - 0.5} | {c + d for c in range(16, width, 16)
+                                      for d in (-0.5, 0.5)})
+    ys = sorted({0.5, height - 0.5} | {c + d for c in range(tile_h, height,
+                                                            tile_h)
+                                       for d in (-0.5, 0.5)})
+
+    def centre(edges, n):
+        if rng.random() < 0.7:
+            return float(rng.choice(edges))
+        return float(rng.integers(0, n)) + 0.5
+
+    def nz():
+        return -0.0 if rng.random() < 0.5 else 0.0
+
+    feats = np.zeros((n_img, n_rows, 16), np.float32)
+    for b in range(n_img):
+        z_seen = []
+        for r in range(n_rows):
+            cx, cy = centre(xs, width), centre(ys, height)
+            cx1, cy1 = centre(xs, width), centre(ys, height)
+            kind = int(rng.integers(0, 4))
+            if kind == 0:                  # vertical strip, e2 = 0
+                x0, x1 = sorted((cx, cx1))
+                e0, e1, sr = (1, nz(), -x0), (-1, nz(), x1), (nz(), nz(),
+                                                             x1 - x0)
+            elif kind == 1:                # horizontal strip, e2 = 0
+                y0, y1 = sorted((cy, cy1))
+                e0, e1, sr = (nz(), 1, -y0), (nz(), -1, y1), (nz(), nz(),
+                                                             y1 - y0)
+            elif kind == 2:                # a quadrant
+                sx, sy = rng.choice([-1.0, 1.0], 2)
+                e0, e1 = (sx, nz(), -sx * cx), (nz(), sy, -sy * cy)
+                sr = (nz(), nz(), 4096.0)
+            else:                          # e2 = cx1 + cy1 - px - py
+                e0, e1 = (1, nz(), -cx), (nz(), 1, -cy)
+                sr = (nz(), nz(), cx1 + cy1 - cx - cy)
+            z0 = (float(rng.choice(z_seen)) if z_seen and rng.random() < 0.2
+                  else float(rng.choice([0.0, -0.0])) if rng.random() < 0.1
+                  else float(rng.uniform(-0.9, 0.9)))
+            z_seen.append(z0)
+            zr = (float(rng.choice([0.0, -0.0, 2.0 ** -10])), nz(), z0)
+            wr, ok = (nz(), nz(), 1.0), 1.0
+            special = rng.random()
+            if special < 0.1:              # not ok, nearest, covering
+                ok, zr = 0.0, (0.0, 0.0, -0.99)
+            elif special < 0.2:            # behind the camera everywhere
+                zr = (0.0, 0.0, -0.99 * 1e-12)
+                wr = [(0.0, 0.0, 1e-12), (1e-15, nz(), 0.0),
+                      (nz(), nz(), -1.0)][int(rng.integers(0, 3))]
+            elif special < 0.3:            # W crosses 0 over the image
+                wr = (2.0 ** -7, nz(), -cx * 2.0 ** -7)
+                zr = (0.0, 0.0, z0 * 2.0 ** -2)
+            feats[b, r] = (*e0, *e1, *sr, *zr, *wr, ok)
+    nt = (height // tile_h) * (width // tile_w)
+    k = -(-n_rows // 8) * 8
+    ids = np.zeros((n_img, nt, k), np.int32)
+    count = np.full((n_img, nt), n_rows, np.int32)
+    for b in range(n_img):
+        for t in range(nt):
+            ids[b, t, :n_rows] = rng.permutation(n_rows)
+            if rng.random() < 0.3:
+                count[b, t] = rng.integers(1, n_rows + 1)
+    count[0, 0] = 0
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return (dev(feats), dev(ids), dev(count), height, width, tile_h, tile_w)
+
+
 def phase_k5(inputs, depth_only):
     """One K5 variant vs its plain version at the main path's shapes."""
     from fyrox_tpu_torch.render import tile_raster
@@ -1805,6 +1931,7 @@ def phase_k5(inputs, depth_only):
 
     got, again, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
+    parts, span = tile_raster.split_parts()
     got = (got,) if depth_only else got
     again = (again,) if depth_only else again
     ref = (ref,) if depth_only else ref
@@ -1818,18 +1945,37 @@ def phase_k5(inputs, depth_only):
     hit = float((z < 1e8).float().mean())
     if not (all_differ(z) and hit > 0.05):
         fail(f"{label}: images repeat, or {hit:.3f} of pixels hit")
+    edges = k5_knife_edges(device="cuda")
+    got_e = tile_raster._visibility_cuda(*edges, depth_only=depth_only)
+    ref_e = tile_raster.visibility_plain(*edges, depth_only=depth_only)
+    got_e = (got_e,) if depth_only else got_e
+    ref_e = (ref_e,) if depth_only else ref_e
+    if not all(torch.equal(a, b) for a, b in zip(got_e, ref_e)):
+        fail(f"{label}: kernel differs from its plain version on the "
+             f"knife-edge inputs (k5_knife_edges)")
     ms_k = cuda_ms(kernel, 20)
     dev_k = device_ms(kernel, 20)
     ms_p = cuda_ms(plain, 2)
     walked = int(count.sum())
-    b_ms, b_by = bound_ms(nbytes(feats, ids, count, *got),
-                          walked * th * tw * K5_OPS)
+    covered = k5_covered_pairs(*args)
+    moved = k5_bytes(feats, ids, count, got)
+    b_ms, b_by = bound_ms(moved, covered * K5_OPS)
+    old_ms, _ = bound_ms(0, walked * th * tw * K5_OPS)
+    cnt = count.flatten().float()
     log(f"[{label}] tile_raster {'depth-only' if depth_only else 'full'} "
         f"bit-equal to plain (z{'' if depth_only else ', idx, w0, w1'}) on "
         f"{feats.shape[0]} distinct images of {h}x{w}, K={ids.shape[2]}, "
-        f"{walked} walked slots, {hit:.3f} of pixels hit; two launches "
-        f"bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
-        f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"and on the knife-edge inputs; {walked} walked slots (per tile "
+        f"mean {float(cnt.mean()):.1f}, p99 "
+        f"{float(cnt.quantile(0.99)):.0f}, max {int(cnt.max())}), "
+        f"{covered} covered (pixel, slot) pairs of {walked * th * tw} "
+        f"walked, {int((count > span).sum())} tiles above {span} slots "
+        f"split into {parts} parts, "
+        f"{hit:.3f} of pixels hit; two launches bit-equal; kernel "
+        f"{ms_k:.4f} ms (device time {dev_k:.4f}), plain {ms_p:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {moved} bytes moved, covered pairs "
+        f"x {K5_OPS} ops; walked pairs x {K5_OPS} ops would read "
+        f"{old_ms:.4f})")
     return dict(name="tile_raster_depth" if depth_only else "tile_raster_full",
                 route="cuda", source="fyrox_tpu_torch/csrc/tile_raster.cu",
                 replaces="fyrox_tpu/render/pallas_raster.py:352",

@@ -30,13 +30,20 @@ from fyrox_tpu_torch.render.raster import GBuffer
 
 __all__ = ["tri_features_h", "bin_triangles", "visibility",
            "visibility_plain", "rasterize_tiled", "launches",
-           "reset_launches", "BIG", "NFEAT"]
+           "reset_launches", "split_parts", "BIG", "NFEAT"]
 
 BIG = 1e9
 NFEAT = 16          # feature row per triangle: E0, E1, S, Z, W forms, ok
 _CHUNK = 8          # the JAX kernel's chunk: K is padded to a multiple
+# K5 splits a tile that walks more than SPLIT_SPAN slots into parts that
+# other CTAs walk, SPLIT_CAP parts at most in a launch (the span doubles
+# until they fit); its scratch holds SPLIT_CAP slices of 1,024 int64 keys
+SPLIT_SPAN = 96
+SPLIT_CAP = 2048
 
 _LAUNCHES = {"full": 0, "depth": 0}
+_LAST_PLAN = []
+_SCRATCH = {}       # K5's plan and slices by (device, stream)
 
 
 def launches(variant: str) -> int:
@@ -48,6 +55,16 @@ def launches(variant: str) -> int:
 def reset_launches():
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+def split_parts():
+    """(parts, span) of the last K5 launch: how many parts of split tiles
+    its helper CTAs walked, and the span the tiles were cut at (2^31 - 1
+    where none was split). Reads the card."""
+    if not _LAST_PLAN:
+        return 0, 2 ** 31 - 1
+    parts, _, span = _LAST_PLAN[-1][:3].tolist()
+    return parts, span
 
 
 def _cross(a, b):
@@ -237,6 +254,21 @@ def _check_inputs(feats, ids, count, height, width, tile_h, tile_w):
                          "16-byte aligned")
 
 
+def _scratch(dev, stream, n_tiles):
+    """K5's scratch for this stream, kept from launch to launch: the plan,
+    SPLIT_CAP parts and a counter for each of n_tiles tiles (int32), and
+    a slice of 1,024 keys for each part (int64). The plan kernel writes
+    all of it that a launch reads."""
+    plan, slices = _SCRATCH.get((dev, stream), (None, None))
+    n_plan = 3 + 5 * SPLIT_CAP + n_tiles
+    if plan is None or plan.numel() < n_plan or len(slices) < SPLIT_CAP:
+        plan = torch.empty(n_plan, dtype=torch.int32, device=dev)
+        slices = torch.empty((SPLIT_CAP, 1024), dtype=torch.int64,
+                             device=dev)
+        _SCRATCH[(dev, stream)] = plan, slices
+    return plan, slices
+
+
 def _visibility_cuda(feats, ids, count, height, width, tile_h, tile_w,
                      depth_only=False):
     from fyrox_tpu_torch import kernels
@@ -256,12 +288,17 @@ def _visibility_cuda(feats, ids, count, height, width, tile_h, tile_w,
     if z.numel():
         lib = kernels.library()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fyrox_tile_raster(feats.data_ptr(), ids.data_ptr(),
-                                    count.data_ptr(), *ptrs, b, t, k, height,
-                                    width, tile_h, tile_w, int(depth_only),
-                                    stream)
+        plan = slices = None
+        if k > SPLIT_SPAN and SPLIT_CAP > 0:    # a tile may be split
+            plan, slices = _scratch(dev, stream, count.numel())
+        err = lib.fyrox_tile_raster(
+            feats.data_ptr(), ids.data_ptr(), count.data_ptr(), *ptrs, b, t,
+            k, height, width, tile_h, tile_w, int(depth_only), SPLIT_SPAN,
+            SPLIT_CAP, plan if plan is None else plan.data_ptr(),
+            slices if slices is None else slices.data_ptr(), stream)
         kernels.check(err, "fyrox_tile_raster")
         _LAUNCHES["depth" if depth_only else "full"] += 1
+        _LAST_PLAN[:] = [] if plan is None else [plan]
     return z if depth_only else (z, idx, w0, w1)
 
 

@@ -1,7 +1,7 @@
-"""Times the K1, K4b, K3 and K2 kernels of one tree of the PyTorch port on
-one card.
+"""Times the K1, K4b, K3, K2 and K5 kernels of one tree of the PyTorch port
+on one card.
 
-    python3 kernel_ab.py [--root DIR] [--kernels NAME,...]
+    python3 kernel_ab.py [--root DIR] [--kernels NAME,...] [--tail]
 
 Imports `fyrox_tpu_torch` and `chip_smoke.py` from DIR (default: the
 directory of this script), builds that tree's kernels, and times, on the
@@ -21,6 +21,12 @@ inputs that chip_smoke.py's phases give them:
                        bit-equal);
   narrow_compact     — K2 on those windows (held to its plain version
                        first: pid, partner body and activity equal);
+  tile_raster_full   — K5, full variant, on the camera pass of one frame
+                       of chip_smoke.render_scene (W=16, 256 x 256), as
+                       chip_smoke.capture_k5_inputs catches it;
+  tile_raster_depth  — K5, depth-only, on that frame's cascade pass (both
+                       held bit for bit to visibility_plain first; each
+                       prints its slots per tile: mean, p99, max);
 each by CUDA events around a run of calls (`ms`) and around the same
 calls queued behind a spin kernel, which the card runs back to back
 without the host's issue (`device_ms`), as chip_smoke.py's kernels line. K4b's output is held to its plain version bit for bit
@@ -29,6 +35,12 @@ first. Prints the card's name and power limit, then one JSON line.
 To compare a parent commit with this one on the same card, unpack the
 parent with `git archive` into a git-ignored directory and run both in one
 session, alternating: parent, change, change, parent.
+
+--tail asks, per K5 pass, whether its longest tiles set its time: the
+device time of the same launch with every tile's count set to 0 (`empty`),
+with only the longest tile's count kept (`longest`: that block's own walk),
+with only the longest 1 % kept (`top1`), and with the longest 1 % set to 0
+(`rest`: the kernel without its tail).
 """
 import argparse
 import json
@@ -83,9 +95,13 @@ def main():
         os.path.abspath(__file__)))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernels", default="solve_tgs,solve_tgs_jointed,"
-                    "plane_scatter,fused_bp,narrow_compact",
+                    "plane_scatter,fused_bp,narrow_compact,"
+                    "tile_raster_full,tile_raster_depth",
                     help="comma-separated names of the kernels to time "
                     "(plane_scatter brings scatter_add_)")
+    ap.add_argument("--tail", action="store_true",
+                    help="time each K5 pass with its tiles' counts cut "
+                    "(see the module's doc)")
     args = ap.parse_args()
     names = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
@@ -111,6 +127,51 @@ def main():
     def both(name, fn):
         out[name] = dict(ms=cuda_ms(torch, fn, args.reps),
                          device_ms=device_ms(torch, fn, args.reps))
+
+    k5 = {"tile_raster_full": False, "tile_raster_depth": True}
+    if names & set(k5):
+        from fyrox_tpu_torch.render import tile_raster
+        inputs = cs.capture_k5_inputs(*cs.render_scene(cs.RENDER_WORLDS,
+                                                       "cuda"))
+        for name, depth in k5.items():
+            if name not in names:
+                continue
+            a = next(a for a, d in inputs if d == depth)
+            got = tile_raster._visibility_cuda(*a, depth_only=depth)
+            ref = tile_raster.visibility_plain(*a, depth_only=depth)
+            got, ref = ((got,), (ref,)) if depth else (got, ref)
+            if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                sys.exit(f"{name} differs from its plain version")
+
+            def launch(count, a=a, depth=depth):
+                return tile_raster._visibility_cuda(
+                    *a[:2], count, *a[3:], depth_only=depth)
+
+            both(name, lambda: launch(a[2]))
+            cnt = a[2].flatten().float()
+            out[name]["slots_per_tile"] = dict(
+                mean=float(cnt.mean()), p99=float(cnt.quantile(0.99)),
+                max=int(cnt.max()), tiles=cnt.numel())
+            del got, ref
+            if args.tail:
+                order = torch.argsort(a[2].flatten(), descending=True)
+                top = order[:max(1, cnt.numel() // 100)]
+                cuts = dict(empty=torch.zeros_like(a[2]),
+                            longest=torch.zeros_like(a[2]),
+                            top1=torch.zeros_like(a[2]),
+                            rest=a[2].clone())
+                cuts["longest"].view(-1)[order[0]] = a[2].view(-1)[order[0]]
+                cuts["top1"].view(-1)[top] = a[2].view(-1)[top]
+                cuts["rest"].view(-1)[top] = 0
+                out[name]["tail_device_ms"] = {
+                    k: device_ms(torch, lambda c=c: launch(c), args.reps)
+                    for k, c in cuts.items()}
+        del inputs
+    if not names & {"solve_tgs", "solve_tgs_jointed", "plane_scatter",
+                    "fused_bp", "narrow_compact"}:
+        print(card)
+        print(json.dumps(out), flush=True)
+        return
 
     engine, _ = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000)
     state, accel, angvel, body, warm_lam, warm_pid = cs.settled_inputs(engine)

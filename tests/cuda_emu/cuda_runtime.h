@@ -12,6 +12,7 @@
 // and `extern __shared__ T name[];` becomes a pointer into emu::smem.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -91,7 +92,10 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   __syncwarp();
   return r;
 }
-// shared-memory integer atomics (the kernels use no float atomics)
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0;
+}
+// integer atomics (the kernels use no float atomics)
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -127,6 +131,16 @@ inline T __shfl_xor_sync(unsigned, T v, int mask) {   // width 32
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }

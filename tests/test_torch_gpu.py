@@ -477,6 +477,32 @@ def test_tile_raster_kernel_is_bit_exact(cuda, depth_only):
     assert _all_differ(got[0]) and (got[0] < 1e8).float().mean() > 0.05
 
 
+@pytest.mark.parametrize("tiles,span", [
+    ((16, 256, 8, 128), None), ((16, 256, 8, 128), 40),
+    ((16, 64, 8, 32), None), ((12, 320, 6, 160), 40)],
+    ids=["8x128", "8x128-span40", "8x32", "6x160-span40"])
+def test_tile_raster_kernel_on_knife_edges(cuda, monkeypatch, tiles, span):
+    """chip_smoke.k5_knife_edges on the card: edges through pixel centres
+    on the warps' rectangle borders and the tiles' outer rows and columns,
+    ok = 0 and W <= 1e-12 rows nearest the camera, negative zeros, z ties,
+    walks past one 64-row chunk, tiles above SPLIT_SPAN slots split into
+    parts; both variants bit-equal to plain, twice."""
+    import chip_smoke
+    from fyrox_tpu_torch.render import tile_raster
+    if span:
+        monkeypatch.setattr(tile_raster, "SPLIT_SPAN", span)
+    args = chip_smoke.k5_knife_edges(*tiles, seed=1, device=cuda)
+    got = tile_raster.visibility(*args)
+    assert tile_raster.split_parts()[0] > 0
+    again = tile_raster.visibility(*args)
+    ref = tile_raster.visibility_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert 0.2 < (ref[1] >= 0).float().mean() < 0.98
+    assert torch.equal(tile_raster.visibility(*args, depth_only=True),
+                       ref[0])
+
+
 def test_render_frame_on_the_card_matches_the_cpu(cuda):
     from fyrox_tpu_torch.render import CsmConfig, RenderConfig, render_frame
     t, rt, st = _raster_scene("cpu")

@@ -445,3 +445,88 @@ def test_tile_raster_depth_matches_plain(on_cpu):
     zp = tile_raster.visibility_plain(*args, depth_only=True)
     assert (zp < 1e8).float().mean() > 0.3
     assert (z - zp).abs().max() <= 1e-6
+
+
+# (height, width, tile_h, tile_w): the bench's 8 x 128 tiles of 8 x 16 warp
+# rectangles; a small image's 8 x 32 tile; a 6 x 160 tile, which no grid of
+# 8 rectangles covers (row-major runs of 128 pixels a warp)
+_KNIFE_TILES = {"8x128": (16, 256, 8, 128), "8x32": (16, 64, 8, 32),
+                "6x160": (12, 320, 6, 160)}
+
+
+def _split_plan(count, n_slots, span, cap):
+    """(parts, span) that csrc/tile_raster.cu's plan kernel chooses; none
+    runs where no tile can be split (K = n_slots)."""
+    if n_slots <= span or cap == 0:
+        return 0, 2 ** 31 - 1
+    n = count.flatten().tolist()
+    for k in range(16):
+        sp = span << k
+        parts = sum(-(-c // sp) for c in n if c > sp)
+        if parts <= cap:
+            return parts, sp
+    return 0, 2 ** 31 - 1
+
+
+# (tile, SPLIT_SPAN, SPLIT_CAP): K5's own span and cap (tiles above 96
+# slots split); no split (a cap of 0: no plan); every tile above 40 slots
+# split; a cap of 5 parts, which doubles the span until the parts fit; a
+# span above K (no plan)
+@pytest.mark.parametrize("tiles,span,cap", [
+    ("8x128", None, None), ("8x128", None, 0), ("8x128", 40, None),
+    ("8x128", 40, 5), ("8x32", None, None), ("6x160", 40, None),
+    ("8x128", 160, None)],
+    ids=["8x128", "8x128-nosplit", "8x128-span40", "8x128-cap5", "8x32",
+         "6x160-span40", "8x128-span-above-k"])
+def test_tile_raster_on_knife_edges(on_cpu, monkeypatch, tiles, span, cap):
+    """Edges through pixel centres on the warps' rectangle borders and the
+    tiles' outer rows and columns, rows with ok = 0 or W <= 1e-12 nearest
+    the camera, negative zeros, z ties, walks past one 64-row chunk
+    (chip_smoke.k5_knife_edges): K5's per-warp rejection may skip only
+    what the plain version finds outside, and tiles split into parts merge
+    to the plain walk's winners."""
+    from fyrox_tpu_torch.render import tile_raster
+    span = span or tile_raster.SPLIT_SPAN
+    cap = tile_raster.SPLIT_CAP if cap is None else cap
+    monkeypatch.setattr(tile_raster, "SPLIT_SPAN", span)
+    monkeypatch.setattr(tile_raster, "SPLIT_CAP", cap)
+    h, w, th, tw = _KNIFE_TILES[tiles]
+    args = chip_smoke.k5_knife_edges(h, w, th, tw, seed=len(tiles))
+    assert int(args[2].max()) > 128
+    z, idx, w0, w1 = tile_raster._visibility_cuda(*args)
+    assert tile_raster.split_parts() == _split_plan(
+        args[2], args[1].shape[2], span, cap)
+    zp, idxp, w0p, w1p = tile_raster.visibility_plain(*args)
+    hit = idxp >= 0
+    assert 0.2 < hit.float().mean() < 0.98
+    # pixels won on an edge (e0 = 0 or e1 = 0) count as inside
+    assert ((w0p == 0) & hit).any() and ((w1p == 0) & hit).any()
+    assert torch.equal(idx, idxp)
+    for a, b in ((z, zp), (w0, w0p), (w1, w1p)):
+        assert (a - b).abs().max() <= 1e-6
+    zd = tile_raster._visibility_cuda(*args, depth_only=True)
+    assert (zd - zp).abs().max() <= 1e-6
+
+
+def test_tile_raster_split_keeps_the_first_of_tied_zeros(on_cpu, monkeypatch):
+    """Rows covering a whole tile at z = +0 and z = -0, in different parts
+    of a split tile (fillers with ok = 0 between them): the plain walk
+    keeps the first of the tie, and its z's sign."""
+    from fyrox_tpu_torch.render import tile_raster
+    monkeypatch.setattr(tile_raster, "SPLIT_SPAN", 16)
+    full = [1, 0, 0.5, 0, 1, 0.5, 0, 0, 4096]       # e0 = px, e1 = py
+    feats = torch.tensor([full + [0, 0, 0.0, 0, 0, 1, 1],
+                          full + [-0.0, -0.0, -0.0, 0, 0, 1, 1],
+                          full + [0, 0, -0.5, 0, 0, 1, 0]])
+    n = 48                                          # three parts of 16
+    order = [[0] + [2] * (n - 2) + [1], [1] + [2] * (n - 2) + [0]]
+    ids = torch.tensor([order], dtype=torch.int32)
+    count = torch.full((1, 2), n, dtype=torch.int32)
+    args = (feats[None].contiguous(), ids, count, 8, 256, 8, 128)
+    z, idx, w0, w1 = tile_raster._visibility_cuda(*args)
+    assert tile_raster.split_parts() == (6, 16)
+    zp, idxp, _, _ = tile_raster.visibility_plain(*args)
+    assert torch.equal(idx, idxp) and (idxp == 0).all()
+    assert torch.equal(z.view(torch.int32), zp.view(torch.int32))
+    assert (z[0, :, :128].view(torch.int32) == 0).all()          # +0
+    assert (z[0, :, 128:].view(torch.int32) == -2 ** 31).all()   # -0
