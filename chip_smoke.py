@@ -40,7 +40,17 @@ last line:
   profile  — torch.profiler over PROFILED ticks of each route, from the
              slice's last state: device
              events (kernels, copies, fills) per tick and the device's busy
-             share.
+             share;
+  rollout  — Engine.rollout (one captured CUDA graph of the tick, replayed):
+             TICKS replayed ticks equal TICKS eager ticks bit for bit from
+             distinct worlds; K3, K2 and K1 once a tick in a replayed roll
+             (the profiler's kernel names: the wrappers' counters do not see
+             replays); env·steps/s with skinning of eager and of captured
+             rolls in turns, device events per replayed tick, its device time
+             and copy-back, the busy share, the capture's seconds and the
+             graph pool's size;
+  health   — world_health and restore_unhealthy on the rolled state with a
+             NaN injected into one world.
 Then the reuse flagship (the flagship at broadphase_period 4, windows
 16 / 8 / 12, walk 64), which takes the K2 route with the broadphase in
 PyTorch, count rank:
@@ -59,7 +69,9 @@ PyTorch, count rank:
   reuse    — the full-width reuse slice through Engine.step: CALLS rolls of
              TICKS ticks + skinning, timed; launches per tick (fused_bp 0,
              narrow_compact 1, solve_tgs 1, K4b and K4a one each per
-             rebuild); then the host's rebuild read, timed.
+             rebuild); then the host's rebuild read, timed;
+  rollout-reuse — Engine.rollout at period 4 steps eagerly (no capture) and
+             equals ROLL_REUSE Engine.step ticks bit for bit.
 Then the jointed flagship (the flagship + 16 hanging chains with COM
 offsets + 4 ragdoll spines: 76 joints), which takes the staged route:
   K1joint  — the TGS solve kernel with its joint tables and COM planes vs its
@@ -70,7 +82,9 @@ offsets + 4 ragdoll spines: 76 joints), which takes the staged route:
   jointed  — the full-width jointed slice through Engine.step: CALLS rolls of
              TICKS ticks + skinning, timed; launches per tick (K1 1 with joint
              tables, K4a one per gather, no fused kernel); every chain's tip
-             within reach of its anchor.
+             within reach of its anchor;
+  rollout-jointed — ROLL_JOINTED replayed ticks equal eager ticks bit for
+             bit; K1 once and K4a once per gather a tick in a replayed roll.
 Then the flagship with a 2,000-body pile (past one block's shared memory):
   K1big    — W distinct worlds, 30 settling ticks, then BIG_TICKS fused ticks
              with the launches counted (fused_bp, narrow_compact, solve_tgs
@@ -78,6 +92,12 @@ Then the flagship with a 2,000-body pile (past one block's shared memory):
              with K3bp's and K2nc's checks (2,000 grid colliders), and K1's
              global-memory variant vs its plain version, at K1's bounds,
              two launches bit-equal, timed against its bound.
+Then the chain forest (256 hanging chains, 1,024 joints, COM offsets):
+  K1joint-many — W distinct worlds, 30 settling ticks, MANY_TICKS staged
+             ticks with the launches counted; K1 with its joint tables in
+             global memory vs its plain version on the next step, at
+             K1joint's bounds, two launches bit-equal, timed against its
+             bound.
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
@@ -116,6 +136,9 @@ TICKS = 20      # engine ticks per roll, as bench.py scans
 CALLS = 3       # timed rolls after one warm-up roll
 STAGED = 5      # staged-route ticks, timed after one warm-up tick
 PROFILED = 3    # ticks under the profiler, per route
+ROLL_JOINTED = 10   # jointed-flagship ticks, eager vs replayed
+PROFILED_JOINTED = 2    # replayed jointed ticks under the profiler
+ROLL_REUSE = 5      # reuse-flagship ticks, eager vs rollout
 CARD = ""
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -335,6 +358,35 @@ def joint_zoo(lib):
         else:
             pb.add_collider(b, lib.CUBOID, [0.18, 0.18, 0.18], friction=0.5)
     return pb, pb.build(broadphase="slab")
+
+
+# The chain forest: CHAINS_MANY of the jointed flagship's hanging 4-link
+# chains (COM offsets) over a halfspace, 1,024 distinct joints: past the
+# 128 joints of the TPU kernel and, at B = 1,281, past what fits in one
+# block's shared memory beside the body planes, so K1 keeps its joint tables
+# in global memory. The chains hang 1.5 m apart in x (their swings cross)
+# and 0.35 m in z, within 6.6 m of the origin as the jointed flagship's
+# are: the joint bias turns a position's float32 rounding into velocity,
+# so farther bodies would part float32 solves by more. (Repeating a joint
+# table on the same bodies instead would apply each joint's Jacobi impulse
+# once per copy, and the solve diverges.)
+CHAINS_MANY = 256
+
+
+def chain_forest(lib, n_chains=CHAINS_MANY, cols=8):
+    """Hanging chains (add_chain) on a grid of `cols` columns over a
+    halfspace, at the jointed flagship's slab settings."""
+    pb = lib.PhysicsBuilder()
+    g = pb.add_body(body_type=lib.BodyType.STATIC)
+    pb.add_collider(g, lib.HALFSPACE, [], friction=0.6)
+    k = lib.JointKind
+    rows = -(-n_chains // cols)
+    for c in range(n_chains):
+        base = (1.5 * (c % cols - (cols - 1) / 2), 2.4,
+                0.35 * (c // cols - (rows - 1) / 2))
+        add_chain(lib, pb, base, [k.REVOLUTE, k.BALL, k.REVOLUTE, k.BALL])
+    return pb, pb.build(broadphase="slab", slab_window=(12, 8, 10),
+                        slab_active=16, slab_walk=48)
 
 
 def reset_all_launches():
@@ -1339,50 +1391,44 @@ def jointed_inputs(engine):
     return packed, cx.has_com, slab2.joint_tables(cx, "cuda")
 
 
-def phase_solver_jointed(engine):
-    """K1 with its joint tables and COM planes vs its plain version."""
+def k1_joint_against_plain(label, packed, params, joints):
+    """K1 with joint tables and COM planes vs its plain version on packed
+    inputs: two launches bit-equal, K1's position, quaternion and lambda
+    bounds, velocities within 3e-4 and no farther from a float64 solve than
+    the plain float32 one; then timed against its bound. Returns (the
+    errors and times as text, the kernels-line record without name)."""
     from fyrox_tpu_torch.physics import tgs_kernel
-    t = engine.physics
-    packed, has_com, joints = jointed_inputs(engine)
-    params = tgs_kernel.solver_params(t, engine.dt)
-    if not (has_com and joints is not None
-            and joints.body_a.shape[0] == t.joints.num_joints):
-        fail("the jointed flagship lost its joints or COM offsets")
-    if not (all_differ(packed[0]) and all_differ(packed[2])):
-        fail("the jointed solver's packed inputs repeat across worlds")
-    kw = dict(has_com=has_com, joints=joints)
+    kw = dict(has_com=True, joints=joints)
     got_b, got_l = tgs_kernel.solve_tgs(*packed, params, **kw)
     again_b, again_l = tgs_kernel.solve_tgs(*packed, params, **kw)
     ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(got_b, again_b) and torch.equal(got_l, again_l)):
-        fail("solve_tgs with joints: two launches on the same inputs differ")
+        fail(f"{label}: two launches on the same inputs differ")
     if not (torch.isfinite(got_b).all() and torch.isfinite(got_l).all()):
-        fail("solve_tgs with joints produced non-finite values")
+        fail(f"{label}: solve_tgs produced non-finite values")
     err_pos = (got_b[:, 6:9] - ref_b[:, 6:9]).abs().max().item()
     err_vel = (got_b[:, 0:6] - ref_b[:, 0:6]).abs().max().item()
     err_q = (got_b[:, 9:13] - ref_b[:, 9:13]).abs().max().item()
     err_lam = (got_l - ref_l).abs().max().item()
     lam_excess = ((got_l - ref_l).abs()
                   - (1e-3 * ref_l.abs() + 1e-5)).max().item()
-    n_act = int(packed[0][:, 9].sum().item())
-    # The same solve in float64: a float32 solve of this scene carries
+    # The same solve in float64: a float32 solve of a jointed scene carries
     # ~1.5e-4 m/s of rounding in its joint bodies' velocities, because the
     # joint bias turns one ulp of a position 6-8 m from the origin (4.8e-7
     # m) into 0.2/h = 48 /s x 4.8e-7 = 2.3e-5 m/s per joint and substep.
     # So the velocities are held to 3e-4 (twice that) and, on top, the
     # kernel must sit no farther from the float64 solve than the plain
     # float32 version does (+1e-5); pos, quat and lambda keep K1's bounds.
-    j64 = joints._replace(jtab=joints.jtab.double())
     ref64, _ = tgs_kernel.solve_tgs_plain(
         packed[0].double(), packed[1], packed[2].double(), packed[3], params,
-        has_com=has_com, joints=j64)
+        has_com=True, joints=joints._replace(jtab=joints.jtab.double()))
     k_vs_64 = (got_b[:, 0:6].double() - ref64[:, 0:6]).abs().max().item()
     p_vs_64 = (ref_b[:, 0:6].double() - ref64[:, 0:6]).abs().max().item()
     if (err_pos > 1e-5 or err_q > 1e-5 or err_vel > 3e-4 or lam_excess > 0
             or k_vs_64 > p_vs_64 + 1e-5):
-        fail(f"solve_tgs with joints vs plain: pos {err_pos:.3g} (1e-5), "
-             f"quat {err_q:.3g} (1e-5), vel {err_vel:.3g} (3e-4), lambda "
+        fail(f"{label} vs plain: pos {err_pos:.3g} (1e-5), quat "
+             f"{err_q:.3g} (1e-5), vel {err_vel:.3g} (3e-4), lambda "
              f"{err_lam:.3g} (1e-3 rel + 1e-5); vel vs float64 kernel "
              f"{k_vs_64:.3g}, plain {p_vs_64:.3g}")
     ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params, **kw), 10)
@@ -1395,19 +1441,37 @@ def phase_solver_jointed(engine):
     b_ms, b_by = bound_ms(
         nbytes(*packed, *joints, got_b, got_l),
         k1_ops(s, cg, w, params) + k1_joint_ops(nj, nb, w, params))
-    log(f"[K1joint] solve_tgs with {nj} joints and COM offsets matches plain "
-        f"on a settled jointed-flagship step (W={WORLDS} distinct worlds, "
-        f"{nb} bodies, {n_act} active contact points): pos {err_pos:.3g}, "
-        f"quat {err_q:.3g}, vel {err_vel:.3g}, lambda {err_lam:.3g}; vel "
-        f"vs float64 kernel {k_vs_64:.3g}, plain {p_vs_64:.3g}; two "
-        f"launches bit-equal; kernel {ms_k:.3f} ms (device time "
-        f"{dev_k:.3f}), plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(name="solve_tgs_jointed", route="cuda",
-                source="fyrox_tpu_torch/csrc/tgs_solve.cu",
-                replaces="fyrox_tpu/physics/pallas_solver.py:816",
-                max_abs_err=max(err_pos, err_vel, err_q, err_lam),
-                ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, device_ms=dev_k, library_device_ms=None)
+    text = (f"pos {err_pos:.3g}, quat {err_q:.3g}, vel {err_vel:.3g}, "
+            f"lambda {err_lam:.3g}; vel vs float64 kernel {k_vs_64:.3g}, "
+            f"plain {p_vs_64:.3g}; two launches bit-equal; kernel "
+            f"{ms_k:.3f} ms (device time {dev_k:.3f}), plain {ms_p:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    return text, dict(route="cuda", source="fyrox_tpu_torch/csrc/tgs_solve.cu",
+                      replaces="fyrox_tpu/physics/pallas_solver.py:816",
+                      max_abs_err=max(err_pos, err_vel, err_q, err_lam),
+                      ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=None, device_ms=dev_k,
+                      library_device_ms=None)
+
+
+def phase_solver_jointed(engine):
+    """K1 with its joint tables and COM planes vs its plain version."""
+    from fyrox_tpu_torch.physics import tgs_kernel
+    t = engine.physics
+    packed, has_com, joints = jointed_inputs(engine)
+    params = tgs_kernel.solver_params(t, engine.dt)
+    if not (has_com and joints is not None
+            and joints.body_a.shape[0] == t.joints.num_joints):
+        fail("the jointed flagship lost its joints or COM offsets")
+    if not (all_differ(packed[0]) and all_differ(packed[2])):
+        fail("the jointed solver's packed inputs repeat across worlds")
+    n_act = int(packed[0][:, 9].sum().item())
+    text, rec = k1_joint_against_plain("K1joint", packed, params, joints)
+    log(f"[K1joint] solve_tgs with {t.joints.num_joints} joints and COM "
+        f"offsets matches plain on a settled jointed-flagship step "
+        f"(W={WORLDS} distinct worlds, {packed[2].shape[2]} bodies, {n_act}"
+        f" active contact points): {text}")
+    return dict(name="solve_tgs_jointed", **rec)
 
 
 # ---------------------------------------------------------------- K1big
@@ -1489,6 +1553,64 @@ def phase_k1_big():
         f"{b_ms:.4f} ms ({b_by})")
     return k1_record("solve_tgs_big", err, ms_k, dev_k, ms_p, b_ms,
                      b_by), n
+
+
+MANY_TICKS = 5
+
+
+def phase_k1_many():
+    """The chain forest (1,024 joints, COM offsets) at W distinct worlds on
+    the staged route: 30 settling ticks, then MANY_TICKS ticks with the
+    launches counted; then K1 with its joint tables in global memory vs its
+    plain version on the next step, at K1joint's bounds, two launches
+    bit-equal, timed against its bound."""
+    from fyrox_tpu_torch.physics import slab2, tgs_kernel
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t0 = time.perf_counter()
+    pb, t = chain_forest(port_lib())
+    cx = slab2._ctx(t)
+    nb, cg, nj = t.num_bodies, cx.cg, t.joints.num_joints
+    big, jglobal, _ = tgs_kernel._layout(nb, cg, cx.s_active, cx.has_com, nj)
+    if nj < 1000 or big or not jglobal:
+        fail(f"K1joint-many: {nj} joints, layout big {big}, joint tables "
+             f"global {jglobal}: want >= 1,000 joints in global memory")
+    dt = 1.0 / 60.0
+    state = jitter(phys_mod.init_physics_state(pb.initial_pose(), t, WORLDS,
+                                               device="cuda"), t, "cuda", 17)
+    for _ in range(30):
+        state = phys_mod.step_physics(state, t, dt)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    for _ in range(MANY_TICKS):
+        state = phys_mod.step_physics(state, t, dt)
+    torch.cuda.synchronize()
+    n = all_launches()
+    want = dict(fused_bp=0, narrow_compact=0, solve_tgs=MANY_TICKS,
+                plane_gather=MANY_TICKS * staged_gathers(t), plane_scatter=0)
+    if n != want:
+        fail(f"K1joint-many: launches {n}, want {want}")
+    if not (torch.isfinite(state.position).all()
+            and torch.isfinite(state.linvel).all()):
+        fail("K1joint-many: non-finite body state")
+    accel, angvel = phys_mod.external_accelerations(state, t, dt)
+    packed, _ = slab2.solver_inputs(state, t, dt, accel, angvel)
+    joints = slab2.joint_tables(cx, "cuda")
+    params = tgs_kernel.solver_params(t, dt)
+    if not (all_differ(packed[0]) and all_differ(packed[2])):
+        fail("K1joint-many: the solver's packed inputs repeat across worlds")
+    n_act = int(packed[0][:, 9].sum().item())
+    if n_act == 0:
+        fail("K1joint-many: no active contact points")
+    text, rec = k1_joint_against_plain("K1joint-many", packed, params,
+                                       joints)
+    log(f"[K1joint-many] chain forest ({CHAINS_MANY} chains, {nj} joints, "
+        f"{nb} bodies, COM offsets; {tgs_kernel.smem_bytes(nb, cg, True, nj)}"
+        f" B > {tgs_kernel.SMEM_LIMIT} B: joint tables in global memory, "
+        f"body planes in shared memory), W={WORLDS} distinct worlds, set up "
+        f"in {time.perf_counter() - t0:.1f} s: {MANY_TICKS} staged ticks "
+        f"with launches {n}; K1 matches plain on the next step ({n_act} "
+        f"active contact points): {text}")
+    return dict(name="solve_tgs_joints_global", **rec), n
 
 
 def staged_gathers(t):
@@ -1717,6 +1839,262 @@ def phase_profile(engine, settled):
             f"{busy_ms:.3f} ms of device time per {tick_ms:.3f} ms "
             f"unprofiled tick (busy share {busy_ms / tick_ms:.3f}) on {CARD}")
     return out
+
+
+# ---------------------------------------------------------------- rollout
+# Engine.rollout replays one captured CUDA graph of a period-1 tick. The
+# wrappers' launch counters count the capture, not the replays, so these
+# phases count a replayed roll's kernels by name from the profiler.
+KERNEL_NAMES = dict(fused_bp="fused_bp_kernel",
+                    narrow_compact="narrow_compact_kernel",
+                    solve_tgs="tgs_solve_kernel",
+                    plane_gather="plane_gather_kernel",
+                    plane_scatter="plane_scatter_kernel")
+
+
+def same_state(label, got, want):
+    """Fail unless every tensor of two engine states is equal, bit for bit.
+    Returns the number of tensors."""
+    from fyrox_tpu_torch.engine import _leaves
+    a, b = _leaves(got), _leaves(want)
+    bad = [i for i, (x, y) in enumerate(zip(a, b))
+           if x.shape != y.shape or not torch.equal(x, y)]
+    if len(a) != len(b) or bad:
+        fail(f"{label}: {len(bad)} of {len(b)} state tensors differ from "
+             f"eager steps (tensors {bad[:8]})")
+    return len(b)
+
+
+def profiled(fn, ticks):
+    """fn (ticks engine ticks) under the profiler: the kernels of
+    KERNEL_NAMES by name, device events per tick and device ms per
+    tick."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, busy_us = device_events(prof)
+    if not kernels:
+        fail("the profiler recorded no device events of a roll")
+    n = {k: sum(1 for e in kernels if v in e.name)
+         for k, v in KERNEL_NAMES.items()}
+    return n, len(kernels) / ticks, busy_us / 1e3 / ticks
+
+
+def two_capture_tick(engine, state):
+    """The other form a captured roll could take, for measurement: graph A
+    ticks static buffers S0 into its own outputs O_A with no copy, graph B
+    ticks O_A and copies its outputs into S0. A capture cannot choose its
+    outputs' addresses, so the pair still needs that one copy to close the
+    cycle: one copy every two ticks where Engine.rollout's graph copies
+    every tick. Returns (replay of the pair, the buffers S0)."""
+    from fyrox_tpu_torch.engine import CapturedTick, _copy_all, _leaves
+    pair = CapturedTick(engine, state, None, True, "sort")
+    pair._step()                             # warm-up, result dropped
+    torch.cuda.synchronize()
+    graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph_a):
+        out_a = pair._step()
+    with torch.cuda.graph(graph_b):
+        src, dst = pair._copy_back(_leaves(engine.step(out_a)))
+        _copy_all(dst, src)
+    torch.cuda.synchronize()
+
+    def replay():
+        graph_a.replay()
+        graph_b.replay()
+
+    return replay, pair.static
+
+
+def phase_rollout(engine, skin):
+    """Engine.rollout on the flagship at W worlds (K3 route): TICKS
+    replayed ticks equal TICKS eager ticks bit for bit, from distinct
+    worlds; K3, K2 and K1 launch once a tick in a replayed roll (profiler);
+    env·steps/s of eager and of captured rolls with skinning, device events
+    per tick, the busy share, the capture's seconds and the graph pool."""
+    from fyrox_tpu_torch.animation import skinning
+    from fyrox_tpu_torch.engine import _copy_all, _leaves
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=11)
+    eager = state0
+    for _ in range(TICKS):
+        eager = engine.step(eager)
+    rolled = engine.rollout(state0, TICKS)
+    torch.cuda.synchronize()
+    tick = engine.captured_tick(state0)
+    n_leaves = same_state("rollout", rolled, eager)
+    same_state("rollout from the same state again",
+               engine.rollout(state0, TICKS), eager)
+    n, events, dev_ms = profiled(lambda: engine.rollout(rolled, TICKS),
+                                 TICKS)
+    want = dict(fused_bp=TICKS, narrow_compact=TICKS, solve_tgs=TICKS,
+                plane_gather=0, plane_scatter=0)
+    if n != want:
+        fail(f"rollout: kernels of a replayed roll {n}, want {want}")
+    # the captured tick's copy of its outputs into its input buffers: the
+    # same copies (of every state tensor, its most), queued alone
+    copy_ms = device_ms(lambda: _copy_all(_leaves(tick.static),
+                                          _leaves(rolled)), 20)
+    # against the two-capture form (one copy every two ticks): device ms a
+    # tick, in turns, each run of ~21 ticks from the same state (the pile's
+    # contacts, and so the kernels' work, change from tick to tick); both
+    # forms tick as eager steps do
+    pair, pair_state = two_capture_tick(engine, state0)
+    pair()
+    same_state("two-capture tick", pair_state,
+               engine.step(engine.step(state0)))
+    form_ms = {"copy-back": [], "two-capture": []}
+    for label in ("copy-back", "two-capture") * 2 + ("two-capture",
+                                                     "copy-back") * 2:
+        _copy_all(_leaves(tick.static), _leaves(rolled))
+        _copy_all(_leaves(pair_state), _leaves(rolled))
+        if label == "copy-back":
+            form_ms[label].append(device_ms(tick.graph.replay, 20))
+        else:
+            form_ms[label].append(device_ms(pair, 10) / 2)
+    del pair, pair_state
+
+    def eager_roll(state):
+        for _ in range(TICKS):
+            state = engine.step(state)
+        return state
+
+    def graph_roll(state):
+        return engine.rollout(state, TICKS)
+
+    rates, tick_ms = {}, {}
+    for label, roll in (("eager", eager_roll), ("rollout", graph_roll),
+                        ("eager", eager_roll), ("rollout", graph_roll)):
+        def skinned(state):
+            state = roll(state)
+            bm = skinning.bone_matrices(state.scene.globals_, skin)
+            return state, skinning.skin_positions_dense(bm, skin)
+
+        state, verts = skinned(rolled)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            state, verts = skinned(state)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        check_state(state, verts, skin)
+        rates.setdefault(label, []).append(WORLDS * TICKS * CALLS / elapsed)
+        t0 = time.perf_counter()
+        roll(state)
+        torch.cuda.synchronize()
+        tick_ms.setdefault(label, []).append(
+            (time.perf_counter() - t0) * 1e3 / TICKS)
+    busy = dev_ms / min(tick_ms["rollout"])
+    log(f"[rollout] Engine.rollout, flagship, fused route (K3), W={WORLDS}: "
+        f"{TICKS} replayed ticks equal {TICKS} eager ticks bit for bit "
+        f"({n_leaves} state tensors, distinct worlds); replayed roll's "
+        f"kernels {n}; env·steps/s with skinning ({CALLS} x {TICKS} ticks, "
+        f"eager, rollout, eager, rollout): eager "
+        f"{', '.join(f'{r:.1f}' for r in rates['eager'])}, rollout "
+        f"{', '.join(f'{r:.1f}' for r in rates['rollout'])}; ms a tick "
+        f"without skinning: eager "
+        f"{', '.join(f'{m:.3f}' for m in tick_ms['eager'])}, rollout "
+        f"{', '.join(f'{m:.3f}' for m in tick_ms['rollout'])}; replayed "
+        f"tick: {events:.1f} device events, {dev_ms:.3f} ms of device time "
+        f"(a copy of every state tensor, the copy-back's most: "
+        f"{copy_ms:.4f} ms), busy share {busy:.3f}; device ms a tick queued "
+        f"back to back, in turns from one state: copy-back "
+        f"{', '.join(f'{m:.4f}' for m in form_ms['copy-back'])} (median "
+        f"{np.median(form_ms['copy-back']):.4f}), two-capture "
+        f"{', '.join(f'{m:.4f}' for m in form_ms['two-capture'])} (median "
+        f"{np.median(form_ms['two-capture']):.4f}); capture "
+        f"{tick.capture_seconds:.3f} s, graph pool "
+        f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
+    return rolled
+
+
+def phase_rollout_jointed(engine):
+    """Engine.rollout on the jointed flagship (staged route, K1's joint
+    tables): ROLL_JOINTED replayed ticks equal eager ticks bit for bit; K1
+    once and K4a staged_gathers times a tick in a replayed roll."""
+    t = engine.physics
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=13)
+    eager = state0
+    t0 = time.perf_counter()
+    for _ in range(ROLL_JOINTED):
+        eager = engine.step(eager)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / ROLL_JOINTED
+    rolled = engine.rollout(state0, ROLL_JOINTED)
+    torch.cuda.synchronize()
+    n_leaves = same_state("jointed rollout", rolled, eager)
+    gathers = staged_gathers(t)
+    # ~5,000 device events a tick: a short roll, so that the profiler's
+    # buffers hold every event (a 10-tick roll lost one in a run)
+    n, events, dev_ms = profiled(
+        lambda: engine.rollout(rolled, PROFILED_JOINTED), PROFILED_JOINTED)
+    want = dict(fused_bp=0, narrow_compact=0, solve_tgs=PROFILED_JOINTED,
+                plane_gather=PROFILED_JOINTED * gathers, plane_scatter=0)
+    if n != want:
+        fail(f"jointed rollout: kernels of a replayed roll {n}, want {want}")
+    t0 = time.perf_counter()
+    engine.rollout(rolled, ROLL_JOINTED)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / ROLL_JOINTED
+    log(f"[rollout-jointed] Engine.rollout, jointed flagship "
+        f"({t.joints.num_joints} joints, staged route), W={WORLDS}: "
+        f"{ROLL_JOINTED} replayed ticks equal eager ticks bit for bit "
+        f"({n_leaves} state tensors); replayed roll's kernels {n} "
+        f"(solve_tgs 1 and plane_gather {gathers} a tick); {events:.1f} "
+        f"device events and {dev_ms:.3f} ms of device time a replayed tick;"
+        f" ms a tick: eager {eager_ms:.3f}, rollout {graph_ms:.3f} on {CARD}")
+
+
+def phase_rollout_reuse(engine):
+    """Engine.rollout on the reuse flagship (period 4) steps eagerly on the
+    card (no graph) and equals its eager steps bit for bit."""
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=19)
+    eager = state0
+    for _ in range(ROLL_REUSE):
+        eager = engine.step(eager, bp_rank="count")
+    rolled = engine.rollout(state0, ROLL_REUSE, bp_rank="count")
+    torch.cuda.synchronize()
+    if getattr(engine, "_captured", None):
+        fail("reuse rollout: a period-4 template was captured")
+    n_leaves = same_state("reuse rollout", rolled, eager)
+    log(f"[rollout-reuse] Engine.rollout, reuse flagship (period "
+        f"{PERIOD}, count rank), W={WORLDS}: {ROLL_REUSE} eager ticks inside"
+        f" rollout (no capture: one host read a tick) equal {ROLL_REUSE} "
+        f"Engine.step ticks bit for bit ({n_leaves} state tensors)")
+
+
+def phase_health(engine, state):
+    """world_health and restore_unhealthy on a card state with a NaN
+    injected into one world."""
+    from fyrox_tpu_torch.engine import _leaves, restore_unhealthy, world_health
+    if not bool(world_health(state).all()):
+        fail("health: a rolled flagship world is unhealthy")
+    sick_world = 5
+    pos = state.physics.position.clone()
+    pos[sick_world, 3, 1] = float("nan")
+    sick = state._replace(physics=state.physics._replace(position=pos))
+    ok = world_health(sick)
+    want = torch.ones(WORLDS, dtype=torch.bool, device="cuda")
+    want[sick_world] = False
+    if not torch.equal(ok, want):
+        fail(f"health: world_health {ok.nonzero().flatten().tolist()[:8]}..."
+             f" want every world but {sick_world}")
+    fallback = engine.init_state(WORLDS, device="cuda")
+    fixed = restore_unhealthy(sick, fallback)
+    for x, s, f in zip(_leaves(fixed), _leaves(sick), _leaves(fallback)):
+        if x.shape[:1] != (WORLDS,):
+            continue
+        keep = torch.arange(WORLDS, device="cuda") != sick_world
+        if not (torch.equal(x[keep], s[keep])
+                and torch.equal(x[sick_world], f[sick_world])):
+            fail("health: restore_unhealthy did not take the fallback's "
+                 "values in the sick world only")
+    if not bool(world_health(fixed).all()):
+        fail("health: a restored world is unhealthy")
+    log(f"[health] world_health marks world {sick_world} (one NaN body "
+        f"coordinate) of {WORLDS} unhealthy; restore_unhealthy gives it the"
+        f" fallback's state and keeps the others bit for bit")
 
 
 # ---------------------------------------------------------------- render
@@ -2122,7 +2500,9 @@ def main():
     n_fused, settled = phase_slice(engine, skin)
     n_staged = phase_staged(engine, skin, settled)
     phase_profile(engine, settled)
-    del engine, skin, settled
+    rolled = phase_rollout(engine, skin)
+    phase_health(engine, rolled)
+    del engine, skin, settled, rolled
     t0 = time.perf_counter()
     engine, skin = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000,
                                   broadphase_period=PERIOD)
@@ -2134,6 +2514,7 @@ def main():
     del reuse_state
     phase_reuse_small()
     n_reuse = phase_reuse(engine, skin)
+    phase_rollout_reuse(engine)
     del engine, skin
     t0 = time.perf_counter()
     engine, skin, anchors, _ = jointed_engine()
@@ -2142,8 +2523,10 @@ def main():
     k1j = phase_solver_jointed(engine)
     phase_jointed_small()
     n_jointed = phase_jointed(engine, skin, anchors)
+    phase_rollout_jointed(engine)
     del engine, skin
     k1b, n_big = phase_k1_big()
+    k1m, n_many = phase_k1_many()
     scene = render_scene(RENDER_WORLDS, "cuda")
     inputs = capture_k5_inputs(*scene)
     k5f = phase_k5(inputs, depth_only=False)
@@ -2161,7 +2544,8 @@ def main():
     k1j["launches"] = n_jointed["solve_tgs"]
     k4b["launches"] = n_reuse["plane_scatter"]
     k1b["launches"] = n_big["solve_tgs"]
-    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b]
+    k1m["launches"] = n_many["solve_tgs"]
+    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b, k1m]
     print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

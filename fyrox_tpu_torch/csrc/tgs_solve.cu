@@ -31,6 +31,8 @@
 //   live     [W]         i32  the live slots of each world
 //   gws      [W,*]       f32  scratch of the global-memory variant: body
 //                             planes, collider buffer, list offsets
+//   jws      [W,12,J]    f32  scratch of the global joint tables: each
+//                             world's per-joint deltas
 //
 // Design. Only a slot that is live (act != 0, or a nonzero warm impulse)
 // changes anything: every update of a dead slot is an exact zero (its act
@@ -81,14 +83,22 @@
 // KB at B = 2,000, read through L1/L2; __syncthreads orders the block's
 // global writes as it does its shared ones), and the slot buffer is held
 // to 4,096 slots so that the rest of the SM's 256 KB serves as L1. The
-// wrapper picks the variant from the shapes alone.
+// joint tables (template parameter JG) follow the same rule: where the
+// table, the per-joint deltas and the body pairs (34 floats a joint) do not
+// fit beside the world's planes and a slot buffer (above ~530 joints at the
+// flagship's B and Cg), the passes read the table and the pairs from the
+// caller's global arrays, which every world shares, and each world keeps
+// its deltas in its own slice of a global scratch. The wrapper picks the
+// variant from the shapes alone (tgs_kernel._layout): the joint tables
+// leave shared memory before the body planes do, since the contact passes
+// read the planes far more often.
 //
 // Bound: with one CTA per world, W=128 worlds occupy 128 of the H100's 132
 // SMs, one CTA each. Each pass streams the world's live slots (~15 floats
 // each) from L2 and spends a block-wide barrier per phase: the kernel is
 // bound by those loads and by the per-SM latency of the serial passes, not
 // by arithmetic. The joint passes add four barriers per substep and two per
-// position pass, with at most 128 busy threads.
+// position pass, with a thread per joint.
 #include <cuda_runtime.h>
 
 namespace {
@@ -385,8 +395,8 @@ __device__ __forceinline__ void solve3(const float* m, const float* b,
   x[2] = (c02 * b[0] + c12 * b[1] + c22 * b[2]) * inv_det;
 }
 
-// shared-memory views of the joint tables (the body planes `bp` may be in
-// shared or global memory)
+// views of the joint tables, in shared memory or (JG) global memory (the
+// body planes `bp` may be in shared or global memory)
 struct JointSmem {
   const float* tab;   // [20,J]
   float* buf;         // [12,J] per-joint deltas
@@ -612,7 +622,7 @@ __device__ void joint_position_pass(float* bp, const JointSmem& js, int B) {
 
 // Shared memory of one block, in floats: with !BIG the body planes, the
 // per-collider buffer, the list offsets and a copy of the body → collider
-// CSR lists, then (both variants) the joint tables and the slot buffer
+// CSR lists, then (with !JG) the joint tables, then the slot buffer
 // (tgs_kernel._layout computes the same).
 __host__ __device__ constexpr size_t world_floats(bool has_com, int B,
                                                   int Cg) {
@@ -626,7 +636,7 @@ __host__ __device__ constexpr size_t smem_floats(bool big, bool has_com,
        + (size_t)(kJRows + 12 + 2) * J + 6 * (size_t)tile;
 }
 
-template <bool HAS_COM, bool HAS_JOINTS, bool BIG>
+template <bool HAS_COM, bool HAS_JOINTS, bool BIG, bool JG>
 __global__ void __launch_bounds__(kThreads)
 tgs_solve_kernel(const float* __restrict__ con_all,
                  const int* __restrict__ bj_all,
@@ -637,7 +647,7 @@ tgs_solve_kernel(const float* __restrict__ con_all,
                  float* __restrict__ body_out_all,
                  float* __restrict__ lam_all,
                  float* ef_all, int* ei_all, unsigned* masks_all,
-                 int* live_all, float* gws_all,
+                 int* live_all, float* gws_all, float* jws_all,
                  const float* __restrict__ jtab,
                  const int* __restrict__ joint_a,
                  const int* __restrict__ joint_b,
@@ -665,8 +675,16 @@ tgs_solve_kernel(const float* __restrict__ con_all,
   float* jbuf = jt + kJRows * J;                            // [12, J]
   int* jab = reinterpret_cast<int*>(jbuf + 12 * J);         // [2, J]
   float* sbuf = reinterpret_cast<float*>(jab + 2 * J);      // [6, tile]
-  const JointSmem js{jt, jbuf, jab, jab + J, jptr_a, jcol_a, jptr_b, jcol_b,
-                     J};
+  if constexpr (JG) {
+    // the tables stay in global memory, the deltas in the world's slice
+    jbuf = jws_all + (size_t)w * 12 * J;
+    sbuf = jt;
+  }
+  const JointSmem js = JG
+      ? JointSmem{jtab, jbuf, joint_a, joint_b, jptr_a, jcol_a, jptr_b,
+                  jcol_b, J}
+      : JointSmem{jt, jbuf, jab, jab + J, jptr_a, jcol_a, jptr_b, jcol_b,
+                  J};
   const float erp_h = 0.2f / p.h;
   const float* con = con_all + (size_t)w * 15 * SC;
   const int* bj = bj_all + (size_t)w * SC;
@@ -701,7 +719,7 @@ tgs_solve_kernel(const float* __restrict__ con_all,
     for (int i = tid; i <= B; i += T) cptr_s[i] = csr_ptr[i];
     for (int i = tid; i < Cg; i += T) ccol_s[i] = csr_col[i];
   }
-  if constexpr (HAS_JOINTS) {
+  if constexpr (HAS_JOINTS && !JG) {
     for (int i = tid; i < kJRows * J; i += T) jt[i] = jtab[i];
     for (int j = tid; j < J; j += T) {
       jab[j] = joint_a[j];
@@ -1063,18 +1081,18 @@ tgs_solve_kernel(const float* __restrict__ con_all,
   }
 }
 
-template <bool HAS_COM, bool HAS_JOINTS, bool BIG>
+template <bool HAS_COM, bool HAS_JOINTS, bool BIG, bool JG>
 int launch(const void* con, const void* body_j, const void* body,
            const void* col_body, const void* csr_ptr, const void* csr_col,
            void* body_out, void* lam_out, void* ent_f, void* ent_i,
-           void* masks, void* live, void* gws, const void* jtab,
+           void* masks, void* live, void* gws, void* jws, const void* jtab,
            const void* joint_a,
            const void* joint_b, const void* jptr_a, const void* jcol_a,
            const void* jptr_b, const void* jcol_b, int W, const Params& p,
            void* stream) {
   const size_t smem = sizeof(float) * smem_floats(
-      BIG, HAS_COM, p.B, p.Cg, HAS_JOINTS ? p.J : 0, p.tile);
-  auto kern = tgs_solve_kernel<HAS_COM, HAS_JOINTS, BIG>;
+      BIG, HAS_COM, p.B, p.Cg, HAS_JOINTS && !JG ? p.J : 0, p.tile);
+  auto kern = tgs_solve_kernel<HAS_COM, HAS_JOINTS, BIG, JG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1082,65 +1100,71 @@ int launch(const void* con, const void* body_j, const void* body,
       (const float*)con, (const int*)body_j, (const float*)body,
       (const int*)col_body, (const int*)csr_ptr, (const int*)csr_col,
       (float*)body_out, (float*)lam_out, (float*)ent_f, (int*)ent_i,
-      (unsigned*)masks, (int*)live, (float*)gws, (const float*)jtab,
-      (const int*)joint_a,
+      (unsigned*)masks, (int*)live, (float*)gws, (float*)jws,
+      (const float*)jtab, (const int*)joint_a,
       (const int*)joint_b, (const int*)jptr_a, (const int*)jcol_a,
       (const int*)jptr_b, (const int*)jcol_b, p);
   return (int)cudaGetLastError();
 }
 
 template <bool BIG>
-int dispatch(bool has_com, bool joints, const void* con, const void* body_j,
-             const void* body, const void* col_body, const void* csr_ptr,
-             const void* csr_col, void* body_out, void* lam_out, void* ent_f,
-             void* ent_i, void* masks, void* live, void* gws,
-             const void* jtab,
+int dispatch(bool has_com, bool joints, bool jg, const void* con,
+             const void* body_j, const void* body, const void* col_body,
+             const void* csr_ptr, const void* csr_col, void* body_out,
+             void* lam_out, void* ent_f, void* ent_i, void* masks,
+             void* live, void* gws, void* jws, const void* jtab,
              const void* joint_a, const void* joint_b, const void* jptr_a,
              const void* jcol_a, const void* jptr_b, const void* jcol_b,
              int W, const Params& p, void* stream) {
 #define FYROX_TGS_ARGS                                                      \
   con, body_j, body, col_body, csr_ptr, csr_col, body_out, lam_out, ent_f, \
-      ent_i, masks, live, gws, jtab, joint_a, joint_b, jptr_a, jcol_a,    \
-      jptr_b, jcol_b, W, p, stream
-  if (has_com && joints) return launch<true, true, BIG>(FYROX_TGS_ARGS);
-  if (has_com) return launch<true, false, BIG>(FYROX_TGS_ARGS);
-  if (joints) return launch<false, true, BIG>(FYROX_TGS_ARGS);
-  return launch<false, false, BIG>(FYROX_TGS_ARGS);
+      ent_i, masks, live, gws, jws, jtab, joint_a, joint_b, jptr_a,       \
+      jcol_a, jptr_b, jcol_b, W, p, stream
+  if (has_com && joints && jg)
+    return launch<true, true, BIG, true>(FYROX_TGS_ARGS);
+  if (has_com && joints) return launch<true, true, BIG, false>(FYROX_TGS_ARGS);
+  if (has_com) return launch<true, false, BIG, false>(FYROX_TGS_ARGS);
+  if (joints && jg) return launch<false, true, BIG, true>(FYROX_TGS_ARGS);
+  if (joints) return launch<false, true, BIG, false>(FYROX_TGS_ARGS);
+  return launch<false, false, BIG, false>(FYROX_TGS_ARGS);
 #undef FYROX_TGS_ARGS
 }
 
 }  // namespace
 
-// joint pointers may be null when J == 0; gws only with big != 0. `tile`
-// is the slot buffer's length in live slots (at least S and 128).
+// joint pointers may be null when J == 0; gws only with big != 0, jws only
+// with jg != 0 (the joint tables in global memory). `tile` is the slot
+// buffer's length in live slots (at least S and 128).
 extern "C" int fyrox_tgs_solve(const void* con, const void* body_j,
                                const void* body, const void* col_body,
                                const void* csr_ptr, const void* csr_col,
                                void* body_out, void* lam_out, void* ent_f,
                                void* ent_i, void* masks, void* live,
-                               void* gws,
+                               void* gws, void* jws,
                                const void* jtab, const void* joint_a,
                                const void* joint_b, const void* jptr_a,
                                const void* jcol_a, const void* jptr_b,
                                const void* jcol_b, int W, int S, int Cg,
-                               int B, int J, int has_com, int big, int tile,
-                               int n_sub, int n_pgs, int n_stab, float h,
-                               float allowed, float max_corr, float rest_thr,
-                               float wc, float erp, float bias_rate,
-                               float mscale_soft, float iscale_soft,
-                               float msp, void* stream) {
+                               int B, int J, int has_com, int big, int jg,
+                               int tile, int n_sub, int n_pgs, int n_stab,
+                               float h, float allowed, float max_corr,
+                               float rest_thr, float wc, float erp,
+                               float bias_rate, float mscale_soft,
+                               float iscale_soft, float msp, void* stream) {
   Params p{h, allowed, max_corr, rest_thr, wc, erp, bias_rate, mscale_soft,
            iscale_soft, msp, S, Cg, B, J, n_sub, n_pgs, n_stab, tile};
   if (W == 0) return 0;
   if (tile < S || tile * 6 < kThreads) return (int)cudaErrorInvalidValue;
   const bool joints = J > 0;
   if (big)
-    return dispatch<true>(has_com, joints, con, body_j, body, col_body,
-                          csr_ptr, csr_col, body_out, lam_out, ent_f, ent_i,
-                          masks, live, gws, jtab, joint_a, joint_b, jptr_a,
-                          jcol_a, jptr_b, jcol_b, W, p, stream);
-  return dispatch<false>(has_com, joints, con, body_j, body, col_body,
-                         csr_ptr, csr_col, body_out, lam_out, ent_f, ent_i,
-                         masks, live, gws, jtab, joint_a, joint_b, jptr_a,
-                         jcol_a, jptr_b, jcol_b, W, p, stream);
+    return dispatch<true>(has_com, joints, jg != 0, con, body_j, body,
+                          col_body, csr_ptr, csr_col, body_out, lam_out,
+                          ent_f, ent_i, masks, live, gws, jws, jtab, joint_a,
+                          joint_b, jptr_a, jcol_a, jptr_b, jcol_b, W, p,
+                          stream);
+  return dispatch<false>(has_com, joints, jg != 0, con, body_j, body,
+                         col_body, csr_ptr, csr_col, body_out, lam_out,
+                         ent_f, ent_i, masks, live, gws, jws, jtab, joint_a,
+                         joint_b, jptr_a, jcol_a, jptr_b, jcol_b, W, p,
+                         stream);
 }

@@ -8,10 +8,14 @@
     4. body poses written back into their nodes' local transforms
     5. hierarchy refresh so consumers see post-physics globals
 
+``Engine.rollout`` runs N ticks; on the card it replays one captured CUDA
+graph of a tick (the JAX package's one ``lax.scan`` dispatch).
+``world_health`` / ``restore_unhealthy`` find and reset diverged worlds.
 Root motion, particles and audio are not ported and raise.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -29,7 +33,8 @@ from fyrox_tpu_torch.scene import graph as graph_mod
 from fyrox_tpu_torch.scene.state import WorldState, init_state
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
-__all__ = ["Engine", "EngineState", "AnimState", "DEFAULT_DT"]
+__all__ = ["Engine", "EngineState", "AnimState", "DEFAULT_DT",
+           "world_health", "restore_unhealthy"]
 
 DEFAULT_DT = 1.0 / 60.0  # executor.rs:87
 
@@ -137,6 +142,59 @@ class Engine:
             scene = graph_mod.update_hierarchical_data(scene, self.template)
         return EngineState(scene=scene, physics=phys, animation=anim)
 
+    def rollout(self, state: EngineState, num_steps: int,
+                machine_params=None, fused=True,
+                bp_rank="sort") -> EngineState:
+        """num_steps engine ticks: what num_steps calls of ``step`` with
+        the same arguments compute, bit for bit (fyrox_tpu's
+        ``Engine.rollout``, one ``lax.scan``).
+
+        CPU tensors take the plain loop. On the card, a template whose
+        broadphase rebuilds every tick (period 1: the K3, K2, staged and
+        jointed routes) replays one captured CUDA graph of a tick
+        num_steps times; the graph is captured on first use and kept on
+        the engine per (device, W, machine-params shape, dt, fused,
+        bp_rank). A template with temporal broadphase reuse (period > 1)
+        steps eagerly on the card: its rebuild-or-reuse decision is a host
+        read of one scalar a tick, which a captured graph cannot hold.
+        The caller's state is never written: a roll on the card returns
+        fresh tensors."""
+        if num_steps < 0:
+            raise ValueError(f"rollout: num_steps {num_steps} < 0")
+        if not state.scene.position.is_cuda or not self._capturable():
+            for _ in range(num_steps):
+                state = self.step(state, machine_params, fused=fused,
+                                  bp_rank=bp_rank)
+            return state
+        if num_steps == 0:
+            return state
+        tick = self.captured_tick(state, machine_params, fused, bp_rank)
+        return tick.run(state, machine_params, num_steps)
+
+    def captured_tick(self, state: EngineState, machine_params=None,
+                      fused=True, bp_rank="sort") -> "CapturedTick":
+        """The cached captured tick that ``rollout`` replays for this state's
+        device and shapes (captured here on first use)."""
+        dev = state.scene.position.device
+        key = (str(dev), state.scene.num_worlds,
+               None if machine_params is None
+               else (tuple(machine_params.shape), machine_params.dtype),
+               self.dt, bool(fused), bp_rank)
+        if getattr(self, "_captured", None) is None:
+            self._captured = {}
+        tick = self._captured.get(key)
+        if tick is None:
+            tick = CapturedTick(self, state, machine_params, fused, bp_rank)
+            tick.capture()
+            self._captured[key] = tick
+        return tick
+
+    def _capturable(self) -> bool:
+        """Whether a tick holds no host read: every template but one with
+        temporal broadphase reuse (slab2.reuse_candidates)."""
+        return self.physics is None or int(
+            getattr(self.physics, "broadphase_period", 1) or 1) == 1
+
     def _bodies_at_root(self) -> bool:
         if getattr(self, "_bodies_at_root_cache", None) is None:
             bn = self.physics.body_node
@@ -178,3 +236,173 @@ class Engine:
         rotation[:, node_idx] = brot
         return scene._replace(position=position, rotation=rotation)
 
+
+# --------------------------------------------------------------------------
+# rollout: one tick captured as a CUDA graph
+# --------------------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    """The tensors of a state, depth first in field order (the order of
+    jax.tree_util.tree_leaves over the same NamedTuples; None has none)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for field in tree for leaf in _leaves(field)]
+    return []
+
+
+def _map(fn, tree, *others):
+    """A state of the same structure with fn(leaf, *the others' leaves) at
+    every tensor; anything else is kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *others)
+    if isinstance(tree, tuple):
+        fields = [_map(fn, f, *(o[i] for o in others))
+                  for i, f in enumerate(tree)]
+        return type(tree)(*fields) if hasattr(tree, "_fields") \
+            else tuple(fields)
+    return tree
+
+
+def _copy_all(dst, src):
+    """dst[i].copy_(src[i]) for every i: one multi-tensor copy per dtype
+    (a list of mixed dtypes would take one copy kernel a tensor)."""
+    groups = {}
+    for d, s in zip(dst, src):
+        pair = groups.setdefault(d.dtype, ([], []))
+        pair[0].append(d)
+        pair[1].append(s)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+def _static_copy(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format
+                            ).copy_(x)
+
+
+class CapturedTick:
+    """One engine tick captured as a CUDA graph on static state buffers.
+
+    The captured tick reads the state from its static buffers and ends by
+    copying its outputs back into them, so a replay advances them by one
+    tick; ``run`` copies the caller's state in, replays, and clones the
+    result out once a roll. Before the capture, one eager tick on the
+    static buffers (its result dropped) builds what the step caches on
+    first use with host copies, which a capture must not see: the device
+    constants (``_util.const``), K1's CSR lists (``tgs_kernel._csr``), the
+    body → node sync indices and the fused route's static tables. The
+    wrappers' launch counters count the warm-up and the capture, not the
+    replays (a profiler's kernel names count those)."""
+
+    def __init__(self, engine: Engine, state: EngineState, machine_params,
+                 fused, bp_rank):
+        self.static = _map(_static_copy, state)
+        self.params = (None if machine_params is None
+                       else _static_copy(machine_params))
+        self._step = lambda: engine.step(self.static, self.params,
+                                         fused=fused, bp_rank=bp_rank)
+        self.graph = None
+        self.capture_seconds = self.pool_bytes = None
+
+    def advance(self):
+        """One tick on the static buffers, its outputs copied back into
+        them: the work the graph holds."""
+        src, dst = self._copy_back(_leaves(self._step()))
+        _copy_all(dst, src)
+
+    def capture(self):
+        """The warm-up tick (its result dropped), then the capture of
+        ``advance``; records the capture's seconds and the bytes its
+        private memory pool took."""
+        dev = self.static.scene.position.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                # read inside: entering a capture empties the allocator's
+                # cache
+                reserved = torch.cuda.memory_reserved(dev)
+                self.advance()
+            torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph
+
+    def _copy_back(self, out):
+        """(sources, destinations) of the tick's copy into the static
+        buffers: an output that is its own static buffer needs no copy; one
+        that shares memory with another static buffer is cloned first, so
+        that no copy reads a buffer an earlier copy wrote."""
+        static = _leaves(self.static)
+        if len(out) != len(static):
+            raise RuntimeError("rollout: a tick changed the state's "
+                               "structure")
+        ptrs = {x.untyped_storage().data_ptr() for x in static}
+        src, dst = [], []
+        for o, x in zip(out, static):
+            if o.data_ptr() == x.data_ptr() and o.stride() == x.stride():
+                continue
+            if o.untyped_storage().data_ptr() in ptrs:
+                o = o.clone()
+            src.append(o)
+            dst.append(x)
+        return src, dst
+
+    def run(self, state: EngineState, machine_params,
+            num_steps: int) -> EngineState:
+        """num_steps replays from `state`; fresh tensors out."""
+        static, given = _leaves(self.static), _leaves(state)
+        if [x.shape for x in static] != [x.shape for x in given]:
+            raise ValueError("rollout: the state's tensors do not match the "
+                             "captured tick's")
+        _copy_all(static, given)
+        if machine_params is not None:
+            self.params.copy_(machine_params)
+        with torch.cuda.device(static[0].device):
+            for _ in range(num_steps):
+                self.graph.replay()
+        return _map(torch.clone, self.static)
+
+
+# --------------------------------------------------------------------------
+# world health
+# --------------------------------------------------------------------------
+
+def world_health(state: EngineState) -> torch.Tensor:
+    """Per-world validity mask [W] bool: True where no floating tensor of
+    the state holds a NaN (fyrox_tpu's ``world_health``). Every floating
+    leaf whose leading axis is W counts, W being the first floating
+    leaf's. NaN only: +inf is a legitimate sentinel (node lifetimes, empty
+    depth buffers), and a diverged world reaches NaN through the first
+    inf - inf or 0 * inf it touches."""
+    leaves = [x for x in _leaves(state) if x.is_floating_point()]
+    w = leaves[0].shape[0]
+    ok = torch.ones((w,), dtype=torch.bool, device=leaves[0].device)
+    for x in leaves:
+        if x.ndim == 0 or x.shape[0] != w or x.numel() == 0:
+            continue
+        ok = ok & ~torch.isnan(x).reshape(w, -1).any(1)
+    return ok
+
+
+def restore_unhealthy(state: EngineState,
+                      fallback: EngineState) -> EngineState:
+    """Every world that world_health marks false takes `fallback`'s values
+    (of every tensor whose leading axis is W); healthy worlds keep theirs
+    (fyrox_tpu's ``restore_unhealthy``)."""
+    ok = world_health(state)
+
+    def fix(cur, fb):
+        if cur.ndim == 0 or cur.shape[0] != ok.shape[0]:
+            return cur
+        return torch.where(ok.reshape((-1,) + (1,) * (cur.ndim - 1)), cur,
+                           fb)
+
+    return _map(fix, state, fallback)

@@ -7,9 +7,11 @@ off-axis directions) and PRISMATIC (full angular lock + the point
 constraint projected off the slide axis).
 
 Host numpy only. The joint passes run inside the TGS solve (K1,
-physics/tgs_kernel.py) for up to ``MAX_KERNEL_JOINTS`` joints, once per
-substep for velocities and ``n_stabilization`` times for positions.
-Larger sets take the JAX package's XLA joint passes, which are not ported.
+physics/tgs_kernel.py) for any number of joints, once per substep for
+velocities and ``n_stabilization`` times for positions: the JAX package's
+in-kernel passes and, above its kernel's 128 joints, its XLA joint passes
+(``joints.solve_joints_velocity``, ``joint_position_pass``) are the same
+Jacobi passes.
 """
 from __future__ import annotations
 
@@ -17,12 +19,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["JointKind", "JointSet", "JointBuilder", "MAX_KERNEL_JOINTS",
-           "JTAB_ROWS", "joint_table"]
+__all__ = ["JointKind", "JointSet", "JointBuilder", "JTAB_ROWS",
+           "joint_table"]
 
 BALL, FIXED, REVOLUTE, PRISMATIC = 0, 1, 2, 3
-# the solver kernel's joint tables hold at most this many joints
-MAX_KERNEL_JOINTS = 128
 # rows of the solver's joint table: kind, anchor_a3, anchor_b3, axis_a3,
 # ref_rot4, com_a3, com_b3
 JTAB_ROWS = 20

@@ -1,12 +1,14 @@
 """TGS-soft contact solve (K1) on the packed per-world layout.
 
 Replaces ``fyrox_tpu/physics/pallas_solver.py:816 solve_tgs_pallas``,
-joints (up to 128) and centre-of-mass offsets included. On the card it is
+joints and centre-of-mass offsets included. On the card it is
 ``csrc/tgs_solve.cu`` (one CTA per world, walking only each world's live
 slots); a CPU tensor takes ``solve_tgs_plain``, which is the same
 computation in PyTorch (the semantics of ``pallas_solver.solve_planes`` and
-its joint passes). Any body count runs on the card: a world whose body
-planes do not fit a block's shared memory keeps them in global memory.
+its joint passes; above the TPU kernel's 128 joints the JAX package runs
+the same passes in XLA). Any body and joint count runs on the card: a
+world whose joint tables, or body planes, do not fit a block's shared
+memory keeps them in global memory (``_layout``).
 
 Layout (see csrc/tgs_solve.cu):
   con [W,15,S,Cg] f32 — n3, pt3, depth, fric, rest, act, own, sigma, lam3
@@ -25,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fyrox_tpu_torch.physics.joints import JTAB_ROWS, MAX_KERNEL_JOINTS
+from fyrox_tpu_torch.physics.joints import JTAB_ROWS
 from fyrox_tpu_torch.physics.planes import cross3 as _cross
 from fyrox_tpu_torch.physics.planes import dot3 as _dot
 from fyrox_tpu_torch.physics.planes import qmul as _qmul
@@ -138,31 +140,40 @@ def smem_bytes(n_bodies: int, n_grid_colliders: int, has_com=False,
     """Least shared memory of one K1 block that holds its world: the body
     planes, the per-collider buffer, the list offsets and the CSR lists,
     with joints the joint table, its per-joint impulse buffer and the two
-    body lists, and the shortest slot buffer. Above SMEM_LIMIT the world's
-    planes go to global memory instead."""
+    body lists, and the shortest slot buffer. Above SMEM_LIMIT the joint
+    tables, and then the world's planes, go to global memory instead."""
     return 4 * (_world_smem_floats(n_bodies, n_grid_colliders, has_com)
                 + (JTAB_ROWS + 12 + 2) * n_joints
                 + 6 * max(n_slots, _MIN_TILE))
 
 
 def _layout(n_bodies, n_grid_colliders, n_slots, has_com, n_joints):
-    """(big, tile): whether the world's planes live in global memory, and
-    the slot buffer's length in live slots, from the shapes alone; the
-    slot buffer takes the shared memory that is left, up to every slot."""
-    big = smem_bytes(n_bodies, n_grid_colliders, has_com, n_joints,
-                     n_slots) > SMEM_LIMIT
-    room = (SMEM_LIMIT // 4 - (JTAB_ROWS + 12 + 2) * n_joints
-            - (0 if big else _world_smem_floats(n_bodies, n_grid_colliders,
-                                                has_com)))
+    """(big, joints_global, tile) from the shapes alone: whether the
+    world's planes live in global memory, whether the joint tables do, and
+    the slot buffer's length in live slots. The first layout whose shared
+    part fits with the shortest slot buffer wins: everything in shared
+    memory, then the joint tables out (the contact passes read the body
+    planes far more often than the joint passes read the tables), then the
+    planes out, then both. The slot buffer takes the shared memory that is
+    left, up to every slot."""
+    world = _world_smem_floats(n_bodies, n_grid_colliders, has_com)
+    tables = (JTAB_ROWS + 12 + 2) * n_joints
     least = max(n_slots, _MIN_TILE)
+    for big, jglobal in ((False, False), (False, True), (True, False),
+                         (True, True)):
+        used = (0 if big else world) + (0 if jglobal else tables)
+        if used + 6 * least <= SMEM_LIMIT // 4:
+            break
+    else:
+        raise ValueError(
+            f"solve_tgs: one collider's {n_slots} slots do not fit the slot "
+            f"buffer in {SMEM_LIMIT} B of shared memory, even with the "
+            "world's planes and joint tables in global memory")
+    room = SMEM_LIMIT // 4 - used
     if big:
         room = min(room, 6 * max(_BIG_TILE, least))
-    if room // 6 < least:
-        raise ValueError(
-            f"solve_tgs: {n_slots} slots per collider and {n_joints} joints "
-            f"leave no room for the slot buffer in {SMEM_LIMIT} B of shared "
-            "memory")
-    return big, min(room // 6, max(n_slots * n_grid_colliders, least))
+    return big, jglobal, min(room // 6, max(n_slots * n_grid_colliders,
+                                            least))
 
 
 # --------------------------------------------------------------------------
@@ -542,7 +553,12 @@ _CSR_CACHE: dict = {}
 
 def _csr(col_body: torch.Tensor, n_bodies: int):
     """Body → rows CSR lists (ascending row order) of an index vector:
-    each body's grid colliders, or each body's joints on one side."""
+    each body's grid colliders, or each body's joints on one side. Cached
+    by the vector's address and held by identity: the entry keeps the
+    vector alive, so no other tensor takes its address, and another tensor
+    object at the same key (a view) rebuilds the entry. Its first call for
+    a vector reads it on the host, which a captured graph must not see
+    (Engine.rollout's warm-up tick makes that call)."""
     key = (col_body.data_ptr(), n_bodies, str(col_body.device))
     hit = _CSR_CACHE.get(key)
     if hit is not None and hit[0] is col_body:
@@ -604,7 +620,7 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
         jptrs = [x.data_ptr() for x in (joints.jtab, joints.body_a,
                                         joints.body_b, ptr_a, col_a, ptr_b,
                                         col_b)]
-    big, tile = _layout(nb, cg, s, has_com, nj)
+    big, jglobal, tile = _layout(nb, cg, s, has_com, nj)
     ptr, col = _csr(col_body, nb)
     body_out = torch.empty((w, 13, nb), dtype=torch.float32, device=dev)
     lam = torch.empty((w, 3, s, cg), dtype=torch.float32, device=dev)
@@ -615,6 +631,8 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
     visited = torch.empty((w,), dtype=torch.int32, device=dev)
     gws = (torch.empty((w, _world_floats(nb, cg, has_com)),
                        dtype=torch.float32, device=dev) if big else None)
+    jws = (torch.empty((w, 12, nj), dtype=torch.float32, device=dev)
+           if jglobal else None)
     lib = kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.fyrox_tgs_solve(
@@ -622,8 +640,10 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
         col_body.data_ptr(), ptr.data_ptr(), col.data_ptr(),
         body_out.data_ptr(), lam.data_ptr(), ent_f.data_ptr(),
         ent_i.data_ptr(), masks.data_ptr(), visited.data_ptr(),
-        None if gws is None else gws.data_ptr(), *jptrs,
-        w, s, cg, nb, nj, int(bool(has_com)), int(big), tile, p.n_sub,
+        None if gws is None else gws.data_ptr(),
+        None if jws is None else jws.data_ptr(), *jptrs,
+        w, s, cg, nb, nj, int(bool(has_com)), int(big), int(jglobal), tile,
+        p.n_sub,
         p.n_pgs, p.n_stab, p.h, p.allowed, p.max_corr, p.rest_thr, p.wc,
         p.erp, p.bias_rate, p.mscale_soft, p.iscale_soft, p.msp, stream)
     kernels.check(err, "fyrox_tgs_solve")
@@ -634,15 +654,7 @@ def _solve_tgs_cuda(con, body_j, body, col_body, p: SolverParams, has_com,
 
 def solve_tgs(con, body_j, body, col_body, p: SolverParams, *,
               has_com=False, joints: JointTables = None):
-    """Dispatch: CPU tensors → plain version; CUDA tensors → the kernel.
-    Joint sets above the kernel's 128 joints raise on both (the JAX
-    package's XLA joint passes for them are not ported)."""
-    if joints is not None and joints.body_a.shape[0] > MAX_KERNEL_JOINTS:
-        raise NotImplementedError(
-            f"{joints.body_a.shape[0]} joints: the TGS kernel holds at most "
-            f"{MAX_KERNEL_JOINTS}; larger sets take the JAX package's XLA "
-            "joint passes (joints.solve_joints_velocity / "
-            "joint_position_pass), which are not ported yet")
+    """Dispatch: CPU tensors → plain version; CUDA tensors → the kernel."""
     if con.is_cuda:
         return _solve_tgs_cuda(con, body_j, body, col_body, p, has_com,
                                joints)

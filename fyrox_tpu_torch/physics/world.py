@@ -4,7 +4,7 @@
 The port runs the slab pipeline only (``slab2.step_slab2``): hash-grid
 broadphase → plane narrowphase → per-collider compaction → TGS-soft
 solve, on the fused route (physics/fused_step.py) where the scene allows
-it, else on the staged path. Joints (up to 128, solved inside the TGS
+it, else on the staged path. Joints (any number, solved inside the TGS
 kernel) and centre-of-mass offsets take the staged path, as in the JAX
 package. Temporal broadphase reuse (``broadphase_period`` > 1) caches the
 candidate windows between rebuilds (``slab2.reuse_candidates``). Convex

@@ -145,6 +145,33 @@ def test_big_flagship_steps_on_the_fused_route(big_flagships):
     assert (pos - p0)[0, dyn].norm(dim=-1).min() > 0
 
 
+@pytest.mark.parametrize("nb,nj,s,want", [
+    (1001, 0, 16, (False, False)),       # the flagship
+    (1097, 76, 16, (False, False)),      # the jointed flagship
+    (2001, 0, 16, (True, False)),        # 2,000 bodies
+    (1281, 1024, 16, (False, True)),     # the chain forest
+    (2001, 1024, 16, (True, False)),     # both: the tables fit alone
+    (2001, 2000, 16, (True, True)),
+    (1001, 0, 10_000, None)])            # one collider's slots do not fit
+def test_k1_layout_moves_joint_tables_out_before_body_planes(nb, nj, s, want):
+    """K1's layout from the shapes alone (Cg = nb - 1, COM offsets where
+    there are joints): everything in shared memory where it fits, else the
+    joint tables out first, then the body planes, then both; a slot buffer
+    too short for one collider raises."""
+    cg, com = nb - 1, nj > 0
+    if want is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            tgs_kernel._layout(nb, cg, s, com, nj)
+        return
+    big, jglobal, tile = tgs_kernel._layout(nb, cg, s, com, nj)
+    assert (big, jglobal) == want and tile >= max(s, 128)
+    used = (0 if big else tgs_kernel._world_smem_floats(nb, cg, com)) + (
+        0 if jglobal else (tgs_kernel.JTAB_ROWS + 14) * nj)
+    assert 4 * (used + 6 * tile) <= tgs_kernel.SMEM_LIMIT
+    assert (big or jglobal) == (tgs_kernel.smem_bytes(nb, cg, com, nj, s)
+                                > tgs_kernel.SMEM_LIMIT)
+
+
 def test_flagship_skin_equal(flagships):
     (_, jskin), (_, tskin) = flagships
     for f in ("bones", "vertices", "bone_indices", "bone_weights"):
@@ -170,6 +197,9 @@ def test_port_imports_and_builds_without_jax():
         assert fused_step.supports_fused_bp(e.physics)
         st = e.step(st)
         st = e.step(st, fused=False)
+        st = e.rollout(st, 2)
+        assert engine.world_health(st).all()
+        import bench_torch, chip_smoke      # the card's scripts
         from fyrox_tpu_torch.physics import plane_ops, slab2
         r, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192,
                               broadphase_period=4)
@@ -243,9 +273,9 @@ def test_cpu_staged_route_takes_the_plain_versions():
 @pytest.mark.parametrize("case", ["joint", "dense", "com", "shape"])
 def test_out_of_scope_features_raise(case):
     """What the port does not run raises. Joints and centre-of-mass
-    offsets run on the staged route; still out of scope are more joints
-    than the TGS kernel holds (the JAX package's XLA joint passes) and
-    COM offsets on the fused kernels' own entry point."""
+    offsets run on the staged route, any number of joints (the "joint"
+    case: 129 joints, past the TPU kernel's 128, step); still out of scope
+    are COM offsets on the fused kernels' own entry point."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=1)
     pb.add_collider(g, HALFSPACE, [])
@@ -253,14 +283,17 @@ def test_out_of_scope_features_raise(case):
         b = pb.add_body(position=(i, 1.0, 0.0))
         pb.add_collider(b, BALL if i % 2 else CUBOID, [0.2, 0.2, 0.2],
                         offset=(0.1, 0, 0) if case == "com" else (0, 0, 0))
+    if case == "joint":
+        for _ in range(129):
+            pb.add_joint(0, 1, 2)
+        t = pb.build()
+        st = step_physics(init_physics_state(pb.initial_pose(), t, 1,
+                                             device="cpu"), t, 1 / 60)
+        assert t.joints.num_joints == 129
+        assert torch.isfinite(st.position).all()
+        return
     with pytest.raises(NotImplementedError):
-        if case == "joint":
-            for _ in range(tgs_kernel.MAX_KERNEL_JOINTS + 1):
-                pb.add_joint(0, 1, 2)
-            t = pb.build()
-            step_physics(init_physics_state(pb.initial_pose(), t, 1,
-                                            device="cpu"), t, 1 / 60)
-        elif case == "com":
+        if case == "com":
             t = pb.build()
             st = init_physics_state(pb.initial_pose(), t, 1, device="cpu")
             zero = torch.zeros_like(st.linvel)

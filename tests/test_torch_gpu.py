@@ -217,14 +217,35 @@ def test_tgs_kernel_with_joints_repeats_bit_for_bit(jointed):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def test_tgs_kernel_refuses_more_than_128_joints(jointed):
-    packed, params, kw = jointed
-    j = kw["joints"]
-    many = tgs_kernel.JointTables(body_a=j.body_a.repeat(20),
-                                  body_b=j.body_b.repeat(20),
-                                  jtab=j.jtab.repeat(1, 20).contiguous())
-    with pytest.raises(NotImplementedError, match="128"):
-        tgs_kernel.solve_tgs(*packed, params, has_com=True, joints=many)
+def test_tgs_kernel_refuses_more_than_128_joints(cuda):
+    """More than 128 joints run on the card: the chain forest (1,024
+    joints, COM offsets) after 20 ticks in 8 jittered worlds, whose joint
+    tables K1 keeps in global memory, matches plain at chip_smoke.py
+    K1joint's bounds."""
+    import chip_smoke
+    pb, t = chip_smoke.chain_forest(chip_smoke.port_lib())
+    st = chip_smoke.jitter(phys_mod.init_physics_state(
+        pb.initial_pose(), t, 8, device=cuda), t, cuda, 3)
+    for _ in range(20):
+        st = phys_mod.step_physics(st, t, 1 / 60)
+    accel, angvel = phys_mod.external_accelerations(st, t, 1 / 60)
+    packed, _ = slab2.solver_inputs(st, t, 1 / 60, accel, angvel)
+    cx = slab2._ctx(t)
+    nj = t.joints.num_joints
+    assert nj >= 1000 and _all_differ(packed[2])
+    assert tgs_kernel._layout(t.num_bodies, cx.cg, cx.s_active, True,
+                              nj)[:2] == (False, True)
+    params = tgs_kernel.solver_params(t, 1 / 60)
+    kw = dict(has_com=True, joints=slab2.joint_tables(cx, cuda))
+    before = tgs_kernel.launches()
+    body, lam = tgs_kernel.solve_tgs(*packed, params, **kw)
+    assert tgs_kernel.launches() == before + 1
+    again = tgs_kernel.solve_tgs(*packed, params, **kw)
+    assert torch.equal(body, again[0]) and torch.equal(lam, again[1])
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params, **kw)
+    assert (body[:, 6:13] - ref_b[:, 6:13]).abs().max() < 1e-5
+    assert (body[:, 0:6] - ref_b[:, 0:6]).abs().max() < 3e-4
+    assert ((lam - ref_l).abs() <= 1e-3 * ref_l.abs() + 1e-5).all()
 
 
 def _pad_bodies(body, n):
@@ -414,6 +435,52 @@ def test_fused_route_takes_worlds_beyond_one_k1_block(cuda):
     assert tgs_kernel.launches() == before + 3
     assert torch.isfinite(st.position).all()
     assert (st.position[0, 1:, 1] < 0.5).all()      # falling
+
+
+@pytest.mark.parametrize("case", ["flagship", "staged", "jointed",
+                                  "platform", "platform-count"])
+def test_rollout_replays_equal_eager_steps(cuda, case):
+    """Engine.rollout replays a captured CUDA graph of the tick: 12 replays
+    equal 12 Engine.step ticks bit for bit, from 4 jittered worlds, on every
+    period-1 route: the small flagship (K3; and staged, fused=False), a
+    small jointed flagship (staged, K1's joint tables) and a pile on a
+    finite platform (K2 route; and with the count rank, K4b); the caller's
+    state is not written, and a second roll from it reuses the capture."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import Engine, _leaves
+    from fyrox_tpu_torch.scene import SceneBuilder
+    kw = {}
+    if case in ("flagship", "staged"):
+        engine, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+        kw = dict(fused=case == "flagship")
+    elif case == "jointed":
+        engine, _, _, _ = chip_smoke.jointed_engine(
+            n_bones=10, n_verts=300, n_bodies=24, chains=2, spines=1)
+    else:
+        _, t = chip_smoke.pile_scene(big_cuboid=True)
+        assert fused_step.supports_fused(t)
+        assert not fused_step.supports_fused_bp(t)
+        sb = SceneBuilder()
+        sb.add_pivot("root")
+        engine = Engine(template=sb.build(), physics=t)
+        kw = dict(bp_rank="count" if case.endswith("count") else "sort")
+    state = chip_smoke.distinct_worlds(engine, 4, cuda, seed=2)
+    before = [x.clone() for x in _leaves(state)]
+    eager = state
+    for _ in range(12):
+        eager = engine.step(eager, **kw)
+    rolled = engine.rollout(state, 12, **kw)
+    assert len(engine._captured) == 1
+    tick = next(iter(engine._captured.values()))
+    assert tick.graph is not None and tick.pool_bytes > 0
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+    for x, y in zip(_leaves(state), before):
+        assert torch.equal(x, y)
+    again = engine.rollout(state, 12, **kw)
+    assert len(engine._captured) == 1
+    for got, want in zip(_leaves(again), _leaves(eager)):
+        assert torch.equal(got, want)
 
 
 def _raster_scene(device, n_worlds=3):

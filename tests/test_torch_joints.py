@@ -190,21 +190,82 @@ def test_jointed_template_takes_the_staged_route(monkeypatch):
     assert seen[0][1].body_a.shape[0] == t.joints.num_joints
 
 
-def test_more_than_128_joints_raise():
-    pb = PORT.PhysicsBuilder()
-    g = pb.add_body(body_type=PORT.BodyType.STATIC)
-    pb.add_collider(g, PORT.HALFSPACE, [])
+def _long_chain(lib):
+    """A 130-link ball chain (129 joints, each joining the links' centres
+    0.3 m apart, so the chain pulls itself together) over a halfspace."""
+    pb = lib.PhysicsBuilder()
+    g = pb.add_body(body_type=lib.BodyType.STATIC)
+    pb.add_collider(g, lib.HALFSPACE, [])
     prev = None
     for i in range(130):
         b = pb.add_body(position=(0.3 * i, 1.0, 0.0))
-        pb.add_collider(b, PORT.BALL, [0.1])
+        pb.add_collider(b, lib.BALL, [0.1])
         if prev is not None:
-            pb.add_joint(PORT.JointKind.BALL, prev, b)
+            pb.add_joint(lib.JointKind.BALL, prev, b)
         prev = b
-    t = pb.build(broadphase="slab")
+    return pb, pb.build(broadphase="slab")
+
+
+def test_more_than_128_joints_raise():
+    """More than 128 joints step: 10 ticks of the 129-joint chain on the
+    port's staged route (the plain K1 solve with its joint passes) against
+    the JAX package's step_physics, which sends more than its kernel's 128
+    joints to its XLA joint passes (joints.solve_joints_velocity,
+    joint_position_pass). Bounds: 3e-4 m in position, 2e-2 m/s in velocity
+    (test_rollout_within_jax_bounds'); the collapsing chain makes contacts
+    from the first ticks and parts the two packages' float32 rounding
+    faster than a settled scene does, so it is held over 10 ticks."""
+    from fyrox_tpu.physics import pallas_ops as jops
+    from fyrox_tpu.physics import pallas_solver as jps
+    jpb, jt = _long_chain(JAX)
+    _, tt = _long_chain(PORT)
+    _same_physics(jt, tt)
+    assert tt.joints.num_joints == 129 and not jps.supports_kernel(jt, False)
+    js = jworld.init_physics_state(jpb, jt, 2)
+    ts = convert.physics_state(jax.tree_util.tree_map(np.asarray, js),
+                               device="cpu")
+    step = jax.jit(lambda s: jworld.step_physics(s, jt, DT))
+    # pallas_ops._perm_idx caches by id() of a template's matrices: no
+    # entry of this test's templates may outlive them and serve a later
+    # template whose matrix takes the same id
+    jops._PERM_CACHE.clear()
+    try:
+        for _ in range(10):
+            js = step(js)
+            ts = tworld.step_physics(ts, tt, DT)
+    finally:
+        jops._PERM_CACHE.clear()
+    assert int((ts.warm_pair >= 0).sum()) > 0
+    tp = ts.position.numpy()
+    assert np.isfinite(tp).all()
+    assert np.abs(np.asarray(js.position) - tp).max() < 3e-4
+    assert np.abs(np.asarray(js.linvel) - ts.linvel.numpy()).max() < 2e-2
+
+
+def test_chain_forest_steps_with_global_joint_tables():
+    """chip_smoke.py's chain forest (1,024 joints, COM offsets), whose
+    joint tables K1 keeps in global memory on the card, steps on the CPU
+    through the plain solve: one staged tick at W = 1, finite, the chains
+    hanging from their anchors."""
+    pb, t = chip_smoke.chain_forest(PORT)
+    cx = slab2._ctx(t)
+    assert t.joints.num_joints == 1024 and cx.has_com
+    assert tgs_kernel._layout(t.num_bodies, cx.cg, cx.s_active, True,
+                              1024)[:2] == (False, True)
     st = tworld.init_physics_state(pb.initial_pose(), t, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="XLA joint passes"):
-        tworld.step_physics(st, t, DT)
+    p0 = st.position.clone()
+    st = tworld.step_physics(st, t, DT)
+    assert torch.isfinite(st.position).all()
+    assert torch.isfinite(st.linvel).all()
+    # every link moved, and every chain's tip stays within reach of its
+    # anchor (test_rollout_within_jax_bounds' 2.6 m)
+    anchors = chip_smoke.chain_anchor_bodies(t)
+    assert len(anchors) == 256
+    links = torch.as_tensor(t.body_type == 0)
+    assert (st.position - p0)[0, links].norm(dim=-1).min() > 0
+    tips = torch.as_tensor(anchors) + 4
+    assert (st.position[0, tips] - st.position[0, anchors]).norm(
+        dim=-1).max() < 2.6
 
 
 # ---- rollouts -------------------------------------------------------------

@@ -305,33 +305,67 @@ def _punch_hole(con, body_j):
     return con, body_j
 
 
+def _many_joints(packed, joints, copies):
+    """The scene's bodies and joints `copies` times over: copy c's joints
+    join copy c's bodies, and the contacts stay on copy 0, so that a small
+    scene has more than 128 joints, each solved once a pass. (Repeating
+    the tables on the same bodies would apply each joint's Jacobi impulse
+    `copies` times, and the solve diverges.)"""
+    con, body_j, body, col_body = packed
+    nb = body.shape[2]
+    shift = torch.arange(copies, dtype=torch.int32).repeat_interleave(
+        joints.body_a.shape[0]) * nb
+    return ((con, body_j, body.repeat(1, 1, copies).contiguous(), col_body),
+            tgs_kernel.JointTables(
+                body_a=joints.body_a.repeat(copies) + shift,
+                body_b=joints.body_b.repeat(copies) + shift,
+                jtab=joints.jtab.repeat(1, copies).contiguous()))
+
+
 @pytest.mark.parametrize("case", ["flagship", "zoo", "hole", "big-flagship",
-                                  "big-zoo"])
+                                  "big-zoo", "many-zoo",
+                                  "joints-global-many-zoo",
+                                  "joints-global-big-many-zoo"])
 def test_tgs_solve_matches_plain(on_cpu, monkeypatch, case):
     """K1 on a settled step's packed inputs, 2 worlds jittered apart, at the
     kernel's card bounds: the flagship (no joints, no COM) and the joint
     zoo (all four joint kinds, COM offsets); the flagship with a hole in
-    one collider's live slots; and both scenes through the global-memory
+    one collider's live slots; both scenes through the global-memory
     variant (SMEM_LIMIT cut to the least a block with that variant needs,
-    so its slot buffer holds 128 slots and every pass runs in tiles)."""
+    so its slot buffer holds 128 slots and every pass runs in tiles); and
+    the zoo with its joint tables repeated past 128 joints, in shared
+    memory, in global memory beside the body planes in shared memory, and
+    in global memory with the global-memory variant."""
     scene = "zoo" if case.endswith("zoo") else "flagship"
     packed, p, has_com, joints = _k1_inputs(scene)
     assert (joints is not None) == has_com == (scene == "zoo")
     if case == "hole":
         packed = _punch_hole(packed[0], packed[1]) + tuple(packed[2:])
+    if "many" in case:
+        packed, joints = _many_joints(
+            packed, joints, 130 // int(joints.body_a.shape[0]) + 1)
     con, nb, cg = packed[0], packed[2].shape[2], packed[0].shape[3]
+    s = con.shape[2]
     nj = 0 if joints is None else int(joints.body_a.shape[0])
     if case.startswith("big"):
-        least = tgs_kernel.smem_bytes(0, 0, n_joints=nj,
-                                      n_slots=con.shape[2])
+        least = tgs_kernel.smem_bytes(0, 0, n_joints=nj, n_slots=s)
         assert least < tgs_kernel.smem_bytes(nb, cg, has_com, nj)
         monkeypatch.setattr(tgs_kernel, "SMEM_LIMIT", least)
-        assert tgs_kernel._layout(nb, cg, con.shape[2], has_com, nj) == (
-            True, 128)
+        assert tgs_kernel._layout(nb, cg, s, has_com, nj) == (
+            True, False, 128)
         if scene == "flagship":         # several tiles of 128 live slots
             assert int(tgs_kernel.live_slots(con).min()) > 3 * 128
+    elif case.startswith("joints-global"):
+        # room for the body planes and 128 slots, not for the joint tables
+        big = "big" in case
+        least = tgs_kernel.smem_bytes(0 if big else nb, 0 if big else cg,
+                                      has_com, 0, s)
+        monkeypatch.setattr(tgs_kernel, "SMEM_LIMIT", least)
+        assert tgs_kernel._layout(nb, cg, s, has_com, nj) == (big, True, 128)
     else:
-        assert not tgs_kernel._layout(nb, cg, con.shape[2], has_com, nj)[0]
+        assert tgs_kernel._layout(nb, cg, s, has_com, nj)[:2] == (False,
+                                                                  False)
+    assert nj > 128 or "many" not in case
     assert con[:, 9].sum() > 0
     body, lam = tgs_kernel._solve_tgs_cuda(*packed, p, has_com, joints)
     assert torch.equal(tgs_kernel.visited_slots(),
