@@ -16,7 +16,7 @@ is their median: single-process readings of this host-bound program spread
 widely. ``--scaling`` sweeps W over 32..512, prints the table and reports
 the best W, as bench.py's FYROX_BENCH_SCALING does (this script writes no
 file). Prints one JSON line last: metric, value, unit, the physics route
-that ran (K3, K2 or staged) and the card's name and power limit
+that ran (K3, K2, staged or dense) and the card's name and power limit
 (nvidia-smi). Needs one CUDA card; there is no CPU mode.
 """
 import argparse
@@ -41,6 +41,8 @@ def card():
 def route(t):
     """The physics route Engine.step takes for template t (fused=True)."""
     from fyrox_tpu_torch.physics import fused_step
+    if t.grid is None:
+        return "dense"
     if fused_step.supports_fused_bp(t):
         return "K3"
     return "K2" if fused_step.supports_fused(t) else "staged"

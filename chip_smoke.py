@@ -98,6 +98,25 @@ Then the chain forest (256 hanging chains, 1,024 joints, COM offsets):
              global memory vs its plain version on the next step, at
              K1joint's bounds, two launches bit-equal, timed against its
              bound.
+Then the dense broadphase path (every scene under 192 colliders):
+  dense-small — tests/test_oracle.py's mixed cluster and a 4-limb ragdoll
+             (3 ball joints), card vs CPU over 20 ticks (W=4), dp < 5e-4,
+             dv < 5e-3; K4a and K4b launched dense_launches(t) times a
+             tick;
+  dense    — build_flagship() with its defaults (100 bones, 50,000
+             vertices, 64 bodies: 2,080 pairs, 3,664 contact slots), W
+             distinct worlds: TICKS eager Engine.step ticks with the
+             launches counted (K4a 13 and K4b 14 a tick, nothing else);
+             TICKS replayed ticks equal them bit for bit; a replayed roll's
+             kernels, device events and device ms (profiler); env·steps/s
+             with skinning of eager and captured rolls in turns;
+  dense-K4 — K4a and K4b on one settled dense tick's calls (idx [W,
+             7,328], 65 body rows): bit-equal to their plain versions (the
+             scatter's on CPU copies, whose sums run in ascending k as the
+             kernel's do), two launches bit-equal, the tick's set timed
+             against its bound, its plain version and torch.gather /
+             scatter_add_;
+  health   — world_health and restore_unhealthy on the rolled dense state.
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
@@ -834,7 +853,10 @@ def card_vs_cpu(label, t, state_cpu, ticks, step, bounds=(5e-4, 5e-3)):
         cpu = step(cpu)
     dp = (gpu.position.cpu() - cpu.position).abs().max().item()
     dv = (gpu.linvel.cpu() - cpu.linvel).abs().max().item()
-    live = int((cpu.warm_pair >= 0).sum())
+    # the dense layout keeps every pair in its slots: its live ones hold
+    # a normal impulse
+    live = int((cpu.warm_pair >= 0).sum() if t.grid is not None
+               else (cpu.warm_n > 0).sum())
     if not (dp < bounds[0] and dv < bounds[1] and live > 0):
         fail(f"{label}: card vs CPU dp {dp:.3g}, dv {dv:.3g}, live contact "
              f"points {live}")
@@ -1252,7 +1274,10 @@ def phase_reuse_small():
                 fail(f"reuse-small: cached class {c} candidates differ")
     dp = (gpu.position.cpu() - cpu.position).abs().max().item()
     dv = (gpu.linvel.cpu() - cpu.linvel).abs().max().item()
-    live = int((cpu.warm_pair >= 0).sum())
+    # the dense layout keeps every pair in its slots: its live ones hold
+    # a normal impulse
+    live = int((cpu.warm_pair >= 0).sum() if t.grid is not None
+               else (cpu.warm_n > 0).sum())
     if not (dp < 5e-4 and dv < 5e-3 and live > 0
             and all_differ(cpu.position)):
         fail(f"reuse-small: card vs CPU dp {dp:.3g}, dv {dv:.3g}, live "
@@ -2097,6 +2122,351 @@ def phase_health(engine, state):
         f" fallback's state and keeps the others bit for bit")
 
 
+# ---------------------------------------------------------------- dense
+# The dense broadphase path: every scene under 192 colliders, the default
+# build_flagship() (64 bodies: 2,080 pairs, 3,664 contact slots) among
+# them. Its solver's gathers are K4a launches and its scatters (contacts
+# and joints) K4b launches; nothing on it uses float atomics.
+DENSE_SMALL_TICKS = 20
+DENSE_PROFILED = 3     # replayed dense ticks under the profiler (~3,000
+                       # device events a tick)
+
+
+def dense_launches(t):
+    """(K4a, K4b) launches a dense tick makes (physics/solver.py): the
+    prep's count scatter and gather; per substep the warm start's scatter,
+    per PGS pass a gather and a scatter, the end-of-substep gather; the
+    restitution's gather and scatter; per stabilisation pass a scatter and
+    a gather (not after the last). Joints add two gathers and two scatters
+    per substep and one of each per position pass."""
+    sub, pgs, stab = t.n_substeps, t.n_pgs, t.n_stabilization
+    gathers = 1 + sub * (pgs + 1) + 1 + max(stab - 1, 0)
+    scatters = 1 + sub * (1 + pgs) + 1 + stab
+    if t.joints is not None and t.joints.num_joints:
+        gathers += 2 * sub + stab
+        scatters += 2 * sub + stab
+    return gathers, scatters
+
+
+def dense_small_scene():
+    """tests/test_oracle.py's mixed cluster (balls, cuboids, capsules) and,
+    beside it, tests/test_ragdoll.py's 4-limb chain (capsules, ball joints)
+    on one halfspace; 14 colliders, dense broadphase."""
+    from fyrox_tpu_torch.physics import (BALL, CAPSULE, CUBOID, HALFSPACE,
+                                         BodyType, PhysicsBuilder)
+    from fyrox_tpu_torch.scene import RagdollBuilder, SceneBuilder
+    rng = np.random.default_rng(3)
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [], friction=0.5, restitution=0.2)
+    shapes = [(BALL, [0.25]), (CUBOID, [0.2, 0.25, 0.2]),
+              (CAPSULE, [0.2, 0.15])]
+    for i in range(9):
+        kind, params = shapes[i % 3]
+        p = (rng.uniform(-0.8, 0.8), 0.5 + 0.5 * (i // 3),
+             rng.uniform(-0.8, 0.8))
+        b = pb.add_body(position=p)
+        pb.add_collider(b, kind, params, friction=0.4, restitution=0.1)
+    sb = SceneBuilder()
+    rb = RagdollBuilder(pb)
+    limbs = []
+    for i in range(4):
+        head, tail = (2.5, 0.3 + i * 0.4, 0.0), (2.5, 0.7 + i * 0.4, 0.0)
+        bone = sb.add_pivot(f"bone{i}", position=head)
+        limbs.append(rb.add_limb(bone, head, tail, radius=0.08,
+                                 parent=limbs[-1] if limbs else None))
+    rb.build()
+    return pb, pb.build(broadphase="dense")
+
+
+def phase_dense_small():
+    """The small dense scene, card vs CPU over DENSE_SMALL_TICKS ticks at
+    W=4 distinct worlds, within card_vs_cpu's bounds; K4a and K4b launched
+    dense_launches(t) times a tick on the card."""
+    from fyrox_tpu_torch.physics import world as phys_mod
+    pb, t = dense_small_scene()
+    if t.grid is not None or t.joints is None or t.joints.num_joints != 3:
+        fail("dense-small: the scene is not a jointed dense scene")
+    cpu = phys_mod.init_physics_state(pb, t, 4, device="cpu")
+    cpu = jitter(cpu, t, "cpu", seed=3)
+    reset_all_launches()
+    dp, dv, live, _ = card_vs_cpu(
+        "dense-small", t, cpu, DENSE_SMALL_TICKS,
+        lambda s: phys_mod.step_physics(s, t, 1.0 / 60.0))
+    n = all_launches()
+    gathers, scatters = dense_launches(t)
+    want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                plane_gather=gathers * DENSE_SMALL_TICKS,
+                plane_scatter=scatters * DENSE_SMALL_TICKS)
+    if n != want:
+        fail(f"dense-small: launches {n}, want {want}")
+    log(f"[dense-small] mixed cluster + 4-limb ragdoll ({t.num_pairs} "
+        f"pairs, {t.flat_layout()[1]} contact slots, "
+        f"{t.joints.num_joints} joints), card == CPU over "
+        f"{DENSE_SMALL_TICKS} ticks (W=4 distinct worlds, {live} live "
+        f"contact slots): dp {dp:.3g} (bound 5e-4), dv {dv:.3g} (bound "
+        f"5e-3); K4a {gathers} and K4b {scatters} launches a tick")
+
+
+def capture_dense_calls(engine, state):
+    """The K4a and K4b calls of one eager dense tick from `state`, as the
+    main path makes them: ([(planes, idx)], [(vals, idx, n)])."""
+    from fyrox_tpu_torch.physics import plane_ops
+    gathers, scatters = [], []
+    pg, ps = plane_ops.plane_gather, plane_ops.plane_scatter
+
+    def spy_gather(planes, idx):
+        gathers.append((planes, idx))
+        return pg(planes, idx)
+
+    def spy_scatter(vals, idx, n):
+        scatters.append((vals, idx, n))
+        return ps(vals, idx, n)
+
+    plane_ops.plane_gather, plane_ops.plane_scatter = spy_gather, spy_scatter
+    try:
+        engine.step(state)
+    finally:
+        plane_ops.plane_gather, plane_ops.plane_scatter = pg, ps
+    torch.cuda.synchronize()
+    return gathers, scatters
+
+
+def phase_dense_k4(engine, calls):
+    """K4a and K4b on one dense flagship tick's calls (a settled state, W
+    distinct worlds): each bit-equal to its plain version (the gather's on
+    the card; the scatter's on CPU copies, which sums in ascending k as
+    the kernel does, and the card's ascending-k float32 sums), two launches
+    bit-equal; the tick's set of calls timed against its bound, its plain
+    version and one PyTorch call a launch (torch.gather, scatter_add_)."""
+    from fyrox_tpu_torch.physics import plane_ops
+    gathers, scatters = calls
+    t = engine.physics
+    k2, b = 2 * t.flat_layout()[1], t.num_bodies
+    ng, ns = dense_launches(t)
+    if (len(gathers), len(scatters)) != (ng, ns):
+        fail(f"dense K4: {len(gathers)} gathers and {len(scatters)} "
+             f"scatters in a tick, want {ng} and {ns}")
+    for planes, idx in gathers:
+        if (planes.shape[0], planes.shape[2], tuple(idx.shape)) != (
+                WORLDS, b, (WORLDS, k2)):
+            fail(f"dense K4a: shapes {tuple(planes.shape)} x "
+                 f"{tuple(idx.shape)}")
+    for vals, idx, n in scatters:
+        if (vals.shape[0], vals.shape[2], n, tuple(idx.shape)) != (
+                WORLDS, k2, b, (WORLDS, k2)):
+            fail(f"dense K4b: shapes {tuple(vals.shape)} → {n} rows")
+    if not all_differ(scatters[-1][0]):
+        fail("dense K4b: the captured worlds repeat")
+    # K4a: a gather moves values, bit-equal to torch.gather's
+    for planes, idx in gathers:
+        got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
+        if not (torch.equal(got, again) and torch.equal(
+                got, plane_ops.plane_gather_plain(planes, idx))):
+            fail("dense K4a: kernel differs from its plain version or "
+                 "from itself")
+    # K4b: sums of ~50-400 values a body in ascending k
+    worst_rel = 0.0
+    for vals, idx, n in scatters:
+        got, again = (plane_ops.plane_scatter(vals, idx, n) for _ in range(2))
+        ref = plane_ops.plane_scatter_plain(vals.cpu(), idx.cpu(), n)
+        if not (torch.equal(got, again) and torch.equal(got.cpu(), ref)):
+            fail(f"dense K4b: kernel differs from its plain version on CPU "
+                 f"copies at {int((got.cpu() != ref).sum())} entries, or "
+                 f"from itself")
+        rel = (plane_ops.plane_scatter_plain(vals, idx, n).double() - got
+               ).abs().div(2 * scatter_sum_bound(vals, idx, n)
+                           ).nan_to_num().max().item()
+        worst_rel = max(worst_rel, rel)
+    vals, idx, n = max(scatters, key=lambda c: c[0].shape[1])
+    if not torch.equal(plane_ops.plane_scatter(vals, idx, n),
+                       scatter_in_order(vals, idx, n)):
+        fail("dense K4b: kernel differs from the card's ascending-k sums")
+    if not worst_rel <= 1.0:
+        fail(f"dense K4b: kernel vs the card's plain version (atomics) at "
+             f"{worst_rel:.3g} of twice the float32 summation bound")
+
+    def run(fn, cs):
+        return lambda: [fn(*c) for c in cs]
+
+    lib_g = [(planes, idx.long()[:, None, :].expand(
+        planes.shape[0], planes.shape[1], idx.shape[1]))
+        for planes, idx in gathers]
+    lib_s = [(vals, idx.long()[:, None, :].expand(vals.shape), n)
+             for vals, idx, n in scatters]
+    for (planes, li), (planes2, idx) in zip(lib_g, gathers):
+        if not torch.equal(torch.gather(planes, 2, li),
+                           plane_ops.plane_gather(planes2, idx)):
+            fail("dense K4a: the torch.gather yardstick disagrees")
+
+    def lib_scatter(vals, li, n):
+        return torch.zeros((vals.shape[0], vals.shape[1], n),
+                           device="cuda").scatter_add_(2, li, vals)
+
+    recs = []
+    for name, kern, plain, lib, lib_fn, cs, ops in (
+            ("plane_gather_dense", plane_ops.plane_gather,
+             plane_ops.plane_gather_plain, lib_g,
+             lambda p, li: torch.gather(p, 2, li), gathers, 0),
+            ("plane_scatter_dense", plane_ops.plane_scatter,
+             plane_ops.plane_scatter_plain, lib_s, lib_scatter, scatters,
+             sum(v.numel() for v, _, _ in scatters))):
+        ms_k, ms_p = cuda_ms(run(kern, cs), 20), cuda_ms(run(plain, cs), 10)
+        ms_lib = cuda_ms(run(lib_fn, lib), 20)
+        dev_k, dev_lib = device_ms(run(kern, cs), 20), device_ms(
+            run(lib_fn, lib), 20)
+        outs = [kern(*c) for c in cs]
+        moved = sum(nbytes(c[0], c[1], o) for c, o in zip(cs, outs))
+        b_ms, b_by = bound_ms(moved, ops)
+        src = "gather" if "gather" in name else "scatter"
+        recs.append(dict(name=name, route="cuda",
+                         source=f"fyrox_tpu_torch/csrc/plane_{src}.cu",
+                         replaces=("fyrox_tpu/physics/pallas_ops.py:171"
+                                   if src == "gather" else
+                                   "fyrox_tpu/physics/pallas_ops.py:219"),
+                         max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
+                         device_ms=dev_k, library_device_ms=dev_lib))
+        log(f"[dense-K4] {name}: a dense flagship tick's {len(cs)} calls "
+            f"(W={WORLDS} distinct worlds, idx [{WORLDS},{k2}], {b} body "
+            f"rows, attribute rows {sorted({c[0].shape[1] for c in cs})}) "
+            f"bit-equal to plain, two launches bit-equal; CUDA events over "
+            f"the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+            f"{'torch.gather' if src == 'gather' else 'scatter_add_'} "
+            f"{ms_lib:.4f} ms; device time: kernel {dev_k:.4f} ms, library "
+            f"{dev_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}) on {CARD}")
+    log(f"[dense-K4] plane_scatter vs the card's plain version (atomics): "
+        f"{worst_rel:.3g} of twice the float32 summation bound; bit-equal "
+        f"to the ascending-k float32 sums on the widest call")
+    return recs
+
+
+def dense_stages(engine, state, reps=3):
+    """Device ms and device events (profiler: the union of the kernels'
+    intervals, so the gaps between launches do not count) of the dense tick's
+    stages from `state`, per call over `reps` calls after a warm-up: the
+    whole eager tick, its physics step, and the physics step's broadphase
+    + narrowphase (world.dense_contacts); the solve (with the external
+    accelerations, warm start, locks and damping) and the rest of the
+    tick (ABSM, hierarchy, body sync, refresh) are the differences."""
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t, dt = engine.physics, engine.dt
+    fns = dict(tick=lambda: engine.step(state),
+               physics=lambda: phys_mod.step_physics(state.physics, t, dt),
+               contacts=lambda: phys_mod.dense_contacts(state.physics, t,
+                                                        dt))
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        _, events, dev = profiled(lambda: [fn() for _ in range(reps)], reps)
+        out[name] = (dev, events)
+    out["solve"] = tuple(a - b for a, b in zip(out["physics"],
+                                               out["contacts"]))
+    out["rest"] = tuple(a - b for a, b in zip(out["tick"], out["physics"]))
+    return out
+
+
+def phase_dense(engine, skin):
+    """The default build_flagship() (dense broadphase) at W distinct
+    worlds, through the entry points: TICKS eager Engine.step ticks with
+    the launches counted (K4a and K4b dense_launches(t) a tick, no other
+    kernel); TICKS replayed ticks equal them bit for bit; a replayed
+    roll's kernels, device events and device ms by the profiler;
+    env·steps/s with skinning of eager and captured rolls in turns."""
+    from fyrox_tpu_torch.animation import skinning
+    t = engine.physics
+    if t.grid is not None or t.num_bodies != 65:
+        fail("dense: build_flagship() did not take the dense broadphase")
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=23)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eager = state0
+    t0 = time.perf_counter()
+    for _ in range(TICKS):
+        eager = engine.step(eager)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / TICKS
+    n = all_launches()
+    gathers, scatters = dense_launches(t)
+    want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                plane_gather=gathers * TICKS, plane_scatter=scatters * TICKS)
+    if n != want:
+        fail(f"dense: launches of {TICKS} eager ticks {n}, want {want}")
+    rolled = engine.rollout(state0, TICKS)
+    torch.cuda.synchronize()
+    tick = engine.captured_tick(state0)
+    n_leaves = same_state("dense rollout", rolled, eager)
+    same_state("dense rollout from the same state again",
+               engine.rollout(state0, TICKS), eager)
+    n_prof, events, dev_ms = profiled(
+        lambda: engine.rollout(rolled, DENSE_PROFILED), DENSE_PROFILED)
+    want_prof = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                     plane_gather=gathers * DENSE_PROFILED,
+                     plane_scatter=scatters * DENSE_PROFILED)
+    if n_prof != want_prof:
+        fail(f"dense: kernels of a replayed roll {n_prof}, want {want_prof}")
+
+    def eager_roll(state):
+        for _ in range(TICKS):
+            state = engine.step(state)
+        return state
+
+    def graph_roll(state):
+        return engine.rollout(state, TICKS)
+
+    rates, tick_ms = {}, {}
+    for label, roll in (("eager", eager_roll), ("rollout", graph_roll),
+                        ("eager", eager_roll), ("rollout", graph_roll)):
+        def skinned(state):
+            state = roll(state)
+            bm = skinning.bone_matrices(state.scene.globals_, skin)
+            return state, skinning.skin_positions_dense(bm, skin)
+
+        state, verts = skinned(rolled)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            state, verts = skinned(state)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        check_state(state, verts, skin)
+        live = int((state.physics.warm_n > 0).sum())
+        if live == 0:
+            fail("dense: no contact slot holds an impulse")
+        rates.setdefault(label, []).append(WORLDS * TICKS * CALLS / elapsed)
+        t0 = time.perf_counter()
+        roll(state)
+        torch.cuda.synchronize()
+        tick_ms.setdefault(label, []).append(
+            (time.perf_counter() - t0) * 1e3 / TICKS)
+    busy = dev_ms / min(tick_ms["rollout"])
+    stages = dense_stages(engine, state)
+    log(f"[dense] stages of an eager tick from the last roll's state, "
+        f"device ms (profiler) / device events per call: " + ", ".join(
+            f"{k} {v[0]:.3f} / {v[1]:.0f}" for k, v in stages.items())
+        + f" on {CARD}")
+    log(f"[dense] build_flagship() (dense broadphase: {t.num_bodies} "
+        f"bodies, {t.num_pairs} pairs, {t.flat_layout()[1]} contact slots), "
+        f"W={WORLDS}: {TICKS} eager ticks launch K4a {gathers} and K4b "
+        f"{scatters} times a tick and no other kernel ({eager_ms:.3f} ms a "
+        f"tick); {TICKS} replayed ticks equal them bit for bit ({n_leaves} "
+        f"state tensors); replayed roll's kernels {n_prof} over "
+        f"{DENSE_PROFILED} ticks; env·steps/s with skinning ({CALLS} x "
+        f"{TICKS} ticks, eager, rollout, eager, rollout): eager "
+        f"{', '.join(f'{r:.1f}' for r in rates['eager'])}, rollout "
+        f"{', '.join(f'{r:.1f}' for r in rates['rollout'])}; ms a tick "
+        f"without skinning: eager "
+        f"{', '.join(f'{m:.3f}' for m in tick_ms['eager'])}, rollout "
+        f"{', '.join(f'{m:.3f}' for m in tick_ms['rollout'])}; replayed "
+        f"tick: {events:.1f} device events, {dev_ms:.3f} ms of device time,"
+        f" busy share {busy:.3f}; {live} contact slots holding an impulse; "
+        f"capture "
+        f"{tick.capture_seconds:.3f} s, graph pool "
+        f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
+    return n, rolled
+
+
 # ---------------------------------------------------------------- render
 # bench_render.py's configuration, not cut: 16 worlds at 256 x 256, a 40 m
 # ground + 32 cubes + 32 spheres, one directional light with 3-cascade CSM
@@ -2503,6 +2873,16 @@ def main():
     rolled = phase_rollout(engine, skin)
     phase_health(engine, rolled)
     del engine, skin, settled, rolled
+    phase_dense_small()
+    t0 = time.perf_counter()
+    engine, skin = build_flagship()
+    log(f"[setup] dense flagship (build_flagship() defaults) templates "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    n_dense, rolled = phase_dense(engine, skin)
+    kg_dense, ks_dense = phase_dense_k4(engine,
+                                        capture_dense_calls(engine, rolled))
+    phase_health(engine, rolled)
+    del engine, skin, rolled
     t0 = time.perf_counter()
     engine, skin = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000,
                                   broadphase_period=PERIOD)
@@ -2545,7 +2925,10 @@ def main():
     k4b["launches"] = n_reuse["plane_scatter"]
     k1b["launches"] = n_big["solve_tgs"]
     k1m["launches"] = n_many["solve_tgs"]
-    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b, k1m]
+    kg_dense["launches"] = n_dense["plane_gather"]
+    ks_dense["launches"] = n_dense["plane_scatter"]
+    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b, k1m, kg_dense,
+               ks_dense]
     print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

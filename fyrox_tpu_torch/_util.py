@@ -45,3 +45,17 @@ def tile(a: np.ndarray, w: int, device, dtype=None) -> torch.Tensor:
     if dtype is not None:
         t = t.to(dtype)
     return t.unsqueeze(0).expand((w,) + tuple(t.shape)).contiguous()
+
+
+def const_rows(arr, device, w, dtype=None) -> torch.Tensor:
+    """Contiguous [W, N] device copy of a host constant [N] repeated for
+    W worlds, cached per (array, device, dtype, W) as ``const`` caches: a
+    per-world index table built once, so that a step (and a CUDA graph
+    capture of it) copies nothing from the host."""
+    key = ("rows", id(arr), str(torch.device(device)), dtype, w)
+    hit = _CONST_CACHE.get(key)
+    if hit is not None and hit[0] is arr:
+        return hit[1]
+    t = const(arr, device, dtype).unsqueeze(0).expand(w, -1).contiguous()
+    _CONST_CACHE[key] = (arr, t)
+    return t

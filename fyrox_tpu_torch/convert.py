@@ -98,15 +98,14 @@ def joint_set(j) -> JointSet:
 
 
 def physics_template(t) -> PhysicsTemplate:
-    """A JAX-package PhysicsTemplate → the port's; joints and
-    centre-of-mass offsets come along, the parts the port has no
-    counterpart for raise."""
+    """A JAX-package PhysicsTemplate → the port's: a slab template with its
+    SlabConfig, a dense one with its pair list, kind ranges and compaction
+    width; joints and centre-of-mass offsets come along, the parts the port
+    has no counterpart for (hulls, scenery, the grid broadphase) raise."""
     if getattr(t, "hulls", None) is not None:
         raise NotImplementedError("convex hulls (incl. cylinder/cone)")
     if any(getattr(t, k, None) is not None for k in ("col_hf", "col_tm")):
         raise NotImplementedError("heightfield/trimesh scenery")
-    if t.grid is None:
-        raise NotImplementedError("the dense broadphase")
     names = ("body_node", "body_type", "inv_mass", "inv_inertia_local",
              "com_local", "lin_damping", "ang_damping", "gravity_scale",
              "col_body", "col_shape", "col_params", "col_pos", "col_rot",
@@ -115,9 +114,10 @@ def physics_template(t) -> PhysicsTemplate:
              "allowed_linear_error", "max_corrective_velocity",
              "restitution_threshold", "n_substeps", "n_pgs",
              "n_stabilization", "warmstart_coefficient", "mass_split_pow",
-             "gravity", "broadphase_period")
+             "gravity", "broadphase_period", "pair_a", "pair_b",
+             "pair_kind_ranges", "max_active_pairs")
     out = _copy(t, PhysicsTemplate, names)
-    out.grid = slab_config(t.grid)
+    out.grid = None if t.grid is None else slab_config(t.grid)
     if getattr(t, "joints", None) is not None:
         out.joints = joint_set(t.joints)
     return out

@@ -151,7 +151,7 @@ class Engine:
 
         CPU tensors take the plain loop. On the card, a template whose
         broadphase rebuilds every tick (period 1: the K3, K2, staged and
-        jointed routes) replays one captured CUDA graph of a tick
+        jointed routes; the dense broadphase) replays one captured CUDA graph of a tick
         num_steps times; the graph is captured on first use and kept on
         the engine per (device, W, machine-params shape, dt, fused,
         bp_rank). A template with temporal broadphase reuse (period > 1)
@@ -190,10 +190,12 @@ class Engine:
         return tick
 
     def _capturable(self) -> bool:
-        """Whether a tick holds no host read: every template but one with
-        temporal broadphase reuse (slab2.reuse_candidates)."""
-        return self.physics is None or int(
-            getattr(self.physics, "broadphase_period", 1) or 1) == 1
+        """Whether a tick holds no host read: every template but a slab
+        one with temporal broadphase reuse (slab2.reuse_candidates). The
+        dense broadphase has no reuse and always captures."""
+        return (self.physics is None or self.physics.grid is None
+                or int(getattr(self.physics, "broadphase_period", 1)
+                       or 1) == 1)
 
     def _bodies_at_root(self) -> bool:
         if getattr(self, "_bodies_at_root_cache", None) is None:
@@ -290,8 +292,10 @@ class CapturedTick:
     result out once a roll. Before the capture, one eager tick on the
     static buffers (its result dropped) builds what the step caches on
     first use with host copies, which a capture must not see: the device
-    constants (``_util.const``), K1's CSR lists (``tgs_kernel._csr``), the
-    body → node sync indices and the fused route's static tables. The
+    constants (``_util.const``, and ``_util.const_rows``: the dense
+    solver's per-world index tables), K1's CSR lists
+    (``tgs_kernel._csr``), the body → node sync indices and the fused
+    route's static tables. The
     wrappers' launch counters count the warm-up and the capture, not the
     replays (a profiler's kernel names count those)."""
 

@@ -1,10 +1,11 @@
-"""Flagship scene: animated skinned character + rigid-body pile + camera
-(the bench configuration: 100 bones / 50k vertices / 1000 bodies).
+"""Flagship scene: animated skinned character + rigid-body pile + camera.
 
 Host-side builders, the port's copies of ``fyrox_tpu.models.character``;
 the same numpy seeds give the same templates (a CPU test holds them
-equal). The port runs the slab broadphase only, so the pile needs at
-least 192 bodies.
+equal). By default the pile has 64 bodies and takes the dense broadphase,
+as the JAX package's default does; ``n_bodies=1000`` is the bench
+configuration (100 bones / 50k vertices / 1000 bodies) on the slab
+broadphase, which every pile of 192 bodies or more takes.
 """
 from __future__ import annotations
 
@@ -121,26 +122,30 @@ def build_pile_scene(sb: SceneBuilder, n_bodies=64, seed=1):
     return pb, body_nodes
 
 
-def build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000, seed=0,
-                   broadphase_period=1):
+def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
+                   max_active_pairs=None, seed=0, broadphase_period=1):
     """Character + pile + camera. Returns (Engine, SkinTemplate).
-    broadphase_period > 1 turns on temporal broadphase reuse (the JAX
-    package's FYROX_SLAB_BP_PERIOD), with its wider windows."""
-    if n_bodies < 192:
-        raise NotImplementedError(
-            "piles under 192 bodies use the dense broadphase, which the "
-            "torch port does not have")
+
+    A pile of 192 bodies or more takes the slab broadphase;
+    broadphase_period > 1 turns on its temporal reuse (the JAX package's
+    FYROX_SLAB_BP_PERIOD), with its wider windows. A smaller pile takes
+    the dense broadphase, all P pairs in the compact contact layout, or
+    compacted into max_active_pairs slots a step where that is given."""
     sb, aset, mt, bones, (verts, idx4, w4) = build_character_scene(
         n_bones=n_bones, n_verts=n_verts, seed=seed)
     pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
     sb.add_camera("main_camera", position=(0, 3.0, -10.0))
     template = sb.build()
-    reuse = broadphase_period > 1
-    pt = pb.build(broadphase="slab",
-                  slab_window=REUSE_WINDOW if reuse else SLAB_WINDOW,
-                  slab_active=SLAB_ACTIVE,
-                  slab_walk=REUSE_WALK if reuse else SLAB_WALK,
-                  broadphase_period=broadphase_period)
+    if n_bodies >= 192:
+        reuse = broadphase_period > 1
+        pt = pb.build(broadphase="slab",
+                      slab_window=REUSE_WINDOW if reuse else SLAB_WINDOW,
+                      slab_active=SLAB_ACTIVE,
+                      slab_walk=REUSE_WALK if reuse else SLAB_WALK,
+                      broadphase_period=broadphase_period)
+    else:
+        pt = pb.build(max_active_pairs=max_active_pairs or 0,
+                      broadphase="dense")
     # inverse bind poses from the initial hierarchy
     st = graph_mod.update_hierarchical_data(
         init_state(template, 1, device="cpu"), template)

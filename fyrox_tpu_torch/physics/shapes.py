@@ -4,15 +4,16 @@ Param layout (params[6], unused slots zero):
   BALL [radius]; CUBOID [hx, hy, hz]; CAPSULE [half_height, radius]
   (axis = local +Y); HALFSPACE [] (normal = local +Y through the origin).
 The tags of the other shapes are kept so templates stay comparable; the
-port's slab step raises NotImplementedError on them.
+port's steps raise NotImplementedError on them.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["BALL", "CUBOID", "CAPSULE", "CYLINDER", "CONE", "HALFSPACE",
            "CONVEX", "HEIGHTFIELD", "TRIMESH", "SEGMENT", "TRIANGLE",
-           "NUM_KINDS", "mass_properties"]
+           "NUM_KINDS", "shape_aabb_half_extents", "mass_properties"]
 
 BALL, CUBOID, CAPSULE, CYLINDER, CONE, HALFSPACE = 0, 1, 2, 3, 4, 5
 CONVEX, HEIGHTFIELD, TRIMESH = 6, 7, 8
@@ -20,6 +21,25 @@ NUM_KINDS = 9
 SEGMENT, TRIANGLE = 9, 10
 
 _HUGE = 1.0e9
+
+
+def shape_aabb_half_extents(shape_type, params, rot_mat):
+    """Conservative world-axis half-extents [..., 3] of shapes rotated by
+    rot_mat [..., 3, 3] (fyrox_tpu.physics.shapes.shape_aabb_half_extents,
+    for the ported shapes): the ball's radius, the abs-matrix bound of a
+    box or of a capsule's [r, hh + r, r] box; a halfspace gets a huge box
+    (its bounds are set by the caller)."""
+    r = params[..., 0]
+    rad = params[..., 1]
+    absm = torch.abs(rot_mat)
+    ball = torch.stack([r, r, r], -1)
+    box = torch.sum(absm * params[..., None, :3], -1)
+    cap = torch.sum(absm * torch.stack([rad, r + rad, rad], -1)[..., None, :],
+                    -1)
+    st = shape_type[..., None]
+    return torch.where(st == BALL, ball,
+           torch.where(st == CUBOID, box,
+           torch.where(st == CAPSULE, cap, torch.full_like(box, _HUGE))))
 
 
 def mass_properties(shape_type: int, params: np.ndarray, density: float):

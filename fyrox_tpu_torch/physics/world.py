@@ -1,14 +1,23 @@
 """Batched rigid-body world: template, state, builder and the step head
 (PhysicsWorld::update, fyrox-impl scene/graph/physics/mod.rs:1151).
 
-The port runs the slab pipeline only (``slab2.step_slab2``): hash-grid
-broadphase → plane narrowphase → per-collider compaction → TGS-soft
-solve, on the fused route (physics/fused_step.py) where the scene allows
-it, else on the staged path. Joints (any number, solved inside the TGS
-kernel) and centre-of-mass offsets take the staged path, as in the JAX
-package. Temporal broadphase reuse (``broadphase_period`` > 1) caches the
-candidate windows between rebuilds (``slab2.reuse_candidates``). Convex
-hulls, scenery and the dense/grid broadphases raise NotImplementedError.
+Two broadphases, chosen at build time as the JAX package chooses them
+(``broadphase="auto"``: slab at 192 colliders or more, dense below):
+
+- slab (``slab2.step_slab2``): hash-grid broadphase → plane narrowphase →
+  per-collider compaction → TGS-soft solve, on the fused route
+  (physics/fused_step.py) where the scene allows it, else on the staged
+  path. Joints (solved inside the TGS kernel) and centre-of-mass offsets
+  take the staged path; temporal broadphase reuse (``broadphase_period`` >
+  1) caches the candidate windows between rebuilds;
+- dense (``step_physics``'s own branch): a static all-pairs candidate list
+  sorted by shape kind, fat-AABB overlap, the kind-grouped narrowphase
+  (physics/narrowphase.py) into the compact contact layout, or with
+  ``max_active_pairs`` > 0 a top-k compaction of the overlapping pairs,
+  then the Jacobi TGS solver with its joint passes (physics/solver.py),
+  whose gathers and scatters run on K4a / K4b.
+
+Convex hulls, scenery and the grid broadphase raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const, resolve_device
+from fyrox_tpu_torch._util import const, const_rows, resolve_device
 from fyrox_tpu_torch.core import quat
 from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics.joints import JointBuilder
@@ -59,9 +68,15 @@ class PhysicsTemplate:
     col_friction: np.ndarray       # [C]
     col_restitution: np.ndarray    # [C]
     col_node: np.ndarray           # [C]
+    # dense broadphase: the static candidate pairs, canonical (smaller
+    # effective shape kind first) and sorted by kind; empty under slab
+    pair_a: np.ndarray = None      # [P] collider index
+    pair_b: np.ndarray = None      # [P]
+    pair_kind_ranges: list = None  # [((kind_a, kind_b), start, end)]
     lin_lock: np.ndarray = None    # [B,3] 1 = free, 0 = locked
     ang_lock: np.ndarray = None    # [B,3]
-    grid: object = None            # broadphase.SlabConfig
+    max_active_pairs: int = 0      # dense compaction width (0 = all P)
+    grid: object = None            # broadphase.SlabConfig (None: dense)
     joints: object = None          # joints.JointSet (joint.rs:775)
     init_body_pos: np.ndarray = None
     init_body_rot: np.ndarray = None
@@ -86,6 +101,43 @@ class PhysicsTemplate:
     def num_colliders(self):
         return int(self.col_body.shape[0])
 
+    @property
+    def num_pairs(self):
+        return 0 if self.pair_a is None else int(self.pair_a.shape[0])
+
+    def flat_layout(self):
+        """(pair_idx [K], K): the compact per-kind contact-slot layout
+        (narrowphase.KIND_POINTS slots a pair) of dense mode."""
+        if getattr(self, "_flat_layout", None) is None:
+            from fyrox_tpu_torch.physics.narrowphase import \
+                flat_contact_layout
+            self._flat_layout = flat_contact_layout(
+                self.pair_kind_ranges or [])
+        return self._flat_layout
+
+    def contact_tables(self):
+        """Static host tables of the compact dense layout, built once:
+        pair_idx [K]; index [2K], the body of each slot's A side, then of
+        each slot's B side; per-slot friction and restitution; own_pts,
+        the manifold size of each slot's pair. They take the place of the
+        JAX package's one-hot incidence()."""
+        if getattr(self, "_contact_tables", None) is None:
+            pair_idx, _ = self.flat_layout()
+            pa = self.pair_a[pair_idx]
+            pb = self.pair_b[pair_idx]
+            fric_p = np.sqrt(self.col_friction[self.pair_a]
+                             * self.col_friction[self.pair_b])
+            rest_p = np.maximum(self.col_restitution[self.pair_a],
+                                self.col_restitution[self.pair_b])
+            self._contact_tables = dict(
+                pair_idx=pair_idx.astype(np.int64),
+                index=np.concatenate([self.col_body[pa], self.col_body[pb]]
+                                     ).astype(np.int32),
+                friction=fric_p[pair_idx].astype(np.float32),
+                restitution=rest_p[pair_idx].astype(np.float32),
+                own_pts=np.bincount(pair_idx)[pair_idx].astype(np.float32))
+        return self._contact_tables
+
 
 class PhysicsState(NamedTuple):
     """[W,B,...] rigid-body state plus the per-contact-slot warm-start
@@ -97,10 +149,14 @@ class PhysicsState(NamedTuple):
     angvel: torch.Tensor       # [W,B,3]
     force: torch.Tensor        # [W,B,3]
     torque: torch.Tensor       # [W,B,3]
-    warm_n: Optional[torch.Tensor] = None     # [W,Cg*s_active]
+    # slab: [W,Cg*s_active] point slots; dense: [W,K] compact-layout
+    # slots (or [W,cap*4] compacted)
+    warm_n: Optional[torch.Tensor] = None
     warm_t1: Optional[torch.Tensor] = None
     warm_t2: Optional[torch.Tensor] = None
-    warm_pair: Optional[torch.Tensor] = None  # [W,Cg*s_active] int32
+    # slab: [W,Cg*s_active] point identity; dense: [W,P] pair id of each
+    # pair slot (or [W,cap]); int32
+    warm_pair: Optional[torch.Tensor] = None
     # temporal broadphase reuse (broadphase_period > 1): (per-class
     # SlabCandidates, positions at the rebuild [W,B,3], coverage budgets
     # [W,B,3]) and the steps since the rebuild [W] int32
@@ -180,15 +236,23 @@ class PhysicsBuilder:
             offset_rot=np.asarray(offset_rot, np.float32), node=node))
         return len(self._colliders) - 1
 
-    def build(self, broadphase="slab", slab_window=(12, 8, 10),
-              slab_active=16, slab_walk=48, broadphase_period=1,
-              **solver_kw) -> PhysicsTemplate:
-        if broadphase != "slab":
-            raise NotImplementedError(
-                f"broadphase={broadphase!r}: the torch port has the slab "
-                "broadphase only")
+    def build(self, max_active_pairs=0, broadphase="auto",
+              slab_window=(12, 8, 10), slab_active=16, slab_walk=48,
+              broadphase_period=1, **solver_kw) -> PhysicsTemplate:
+        """broadphase: "dense" = the static all-pairs candidate list
+        (small scenes; max_active_pairs > 0 compacts the overlapping pairs
+        into that many slots a step), "slab" = hash-grid into static
+        per-collider candidate windows (large collider counts), "auto"
+        picks slab at >= 192 colliders, as the JAX package does. The JAX
+        package's "grid" broadphase is not ported."""
         nb = len(self._bodies)
         nc = len(self._colliders)
+        if broadphase == "auto":
+            broadphase = "slab" if nc >= 192 else "dense"
+        if broadphase not in ("slab", "dense"):
+            raise NotImplementedError(
+                f"broadphase={broadphase!r}: the torch port has the slab "
+                "and dense broadphases")
         inv_mass = np.zeros(nb, np.float32)
         inv_inertia = np.zeros((nb, 3, 3), np.float32)
         com = np.zeros((nb, 3), np.float32)
@@ -225,7 +289,12 @@ class PhysicsBuilder:
         col_params = (np.stack([c["params"] for c in self._colliders])
                       if nc else np.zeros((0, 6), np.float32))
         grid_cfg = None
-        if nc:
+        pa = pb = np.zeros(0, np.int32)
+        kind_ranges = None
+        if broadphase == "dense":
+            pa, pb, kind_ranges = _dense_pairs(col_shape, col_body,
+                                               body_type)
+        elif nc:
             from fyrox_tpu_torch.physics.broadphase import build_slab_config
             margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
             extent = 0.0
@@ -236,9 +305,9 @@ class PhysicsBuilder:
                 col_shape, col_params, col_body, body_type, margin=margin,
                 window=slab_window, active_window=slab_active,
                 walk=slab_walk, extent_hint=extent * 2.0)
-        if grid_cfg is None:
-            raise NotImplementedError("a scene with no grid colliders "
-                                      "(the dense broadphase)")
+        if broadphase == "slab" and grid_cfg is None:
+            raise NotImplementedError("a slab scene with no grid colliders "
+                                      "(build it with the dense broadphase)")
 
         def stack(key, width, default):
             return (np.stack([r[key] for r in self._colliders]) if nc
@@ -271,6 +340,10 @@ class PhysicsBuilder:
                 [c["restitution"] for c in self._colliders], np.float32),
             col_node=np.asarray([c["node"] for c in self._colliders],
                                 np.int32),
+            pair_a=np.asarray(pa, np.int32),
+            pair_b=np.asarray(pb, np.int32),
+            pair_kind_ranges=kind_ranges,
+            max_active_pairs=max_active_pairs,
             init_body_pos=(np.stack([b["position"] for b in self._bodies])
                            if nb else np.zeros((0, 3), np.float32)),
             init_body_rot=(np.stack([b["rotation"] for b in self._bodies])
@@ -288,12 +361,44 @@ class PhysicsBuilder:
                 np.stack([b["rotation"] for b in self._bodies]))
 
 
+def _dense_pairs(col_shape, col_body, body_type):
+    """The dense broadphase's static candidate list: every collider pair
+    on two different bodies of which one is dynamic, canonical (smaller
+    effective shape kind first) and sorted by (kind_a, kind_b), as
+    ``fyrox_tpu.physics.world.PhysicsBuilder.build`` lays it out. Returns
+    (pair_a [P], pair_b [P], [((kind_a, kind_b), start, end)])."""
+    from fyrox_tpu_torch.physics.narrowphase import effective_kind
+    nc = len(col_shape)
+    kinds = np.asarray([effective_kind(int(k)) for k in col_shape], np.int32)
+    ii, jj = np.triu_indices(nc, k=1)
+    keep = (col_body[ii] != col_body[jj]) & (
+        (body_type[col_body[ii]] == DYNAMIC)
+        | (body_type[col_body[jj]] == DYNAMIC))
+    ii, jj = ii[keep], jj[keep]
+    swap = kinds[ii] > kinds[jj]
+    pa = np.where(swap, jj, ii).astype(np.int64)
+    pb = np.where(swap, ii, jj).astype(np.int64)
+    order = np.lexsort((kinds[pb], kinds[pa]))
+    pa, pb = pa[order], pb[order]
+    ka, kb = kinds[pa], kinds[pb]
+    kind_ranges = []
+    if len(pa):
+        combo = ka.astype(np.int64) * 1000 + kb
+        bounds = np.flatnonzero(np.diff(combo)) + 1
+        starts = np.concatenate([[0], bounds])
+        ends = np.concatenate([bounds, [len(combo)]])
+        kind_ranges = [((int(ka[s0]), int(kb[s0])), int(s0), int(e0))
+                       for s0, e0 in zip(starts, ends)]
+    return pa, pb, kind_ranges
+
+
 def init_physics_state(builder_or_pose, template: PhysicsTemplate,
                        num_worlds: int, device="cuda") -> PhysicsState:
-    """Bodies at rest at the given poses; empty warm-start carries and,
-    at broadphase_period > 1, an empty candidate cache whose age 0 and
-    zero coverage make the first step rebuild. On the card unless
-    `device` says otherwise."""
+    """Bodies at rest at the given poses; empty warm-start carries (sized
+    for the slab's point slots, the dense compact layout or its compacted
+    slots) and, on the slab at broadphase_period > 1, an empty candidate
+    cache whose age 0 and zero coverage make the first step rebuild. On
+    the card unless `device` says otherwise."""
     device = resolve_device(device)
     if isinstance(builder_or_pose, PhysicsBuilder):
         pos, rot = builder_or_pose.initial_pose()
@@ -301,13 +406,24 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         pos, rot = builder_or_pose
     w, b = num_worlds, template.num_bodies
     f32 = torch.float32
-    kk = int(template.grid.grid_cols.size) * int(template.grid.s_active)
+    if template.grid is not None:
+        kk = cap = int(template.grid.grid_cols.size) * int(
+            template.grid.s_active)
+    else:
+        # dense: the compact layout's slots, or 4 a compacted pair slot
+        p = template.num_pairs
+        cap = min(template.max_active_pairs or p, p)
+        if cap >= p and template.pair_kind_ranges is not None:
+            _, kk = template.flat_layout()
+        else:
+            kk = cap * 4
 
     def z(*shape, dtype=f32, fill=0):
         return torch.full(shape, fill, dtype=dtype, device=device)
 
     bp = {}
-    if int(getattr(template, "broadphase_period", 1) or 1) > 1:
+    if (template.grid is not None
+            and int(getattr(template, "broadphase_period", 1) or 1) > 1):
         from fyrox_tpu_torch.physics.broadphase import SlabCandidates
         sc = template.grid
         cands = []
@@ -329,20 +445,187 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         linvel=z(w, b, 3), angvel=z(w, b, 3), force=z(w, b, 3),
         torque=z(w, b, 3),
         warm_n=z(w, kk), warm_t1=z(w, kk), warm_t2=z(w, kk),
-        warm_pair=z(w, kk, dtype=torch.int32, fill=-1), **bp)
+        warm_pair=z(w, cap, dtype=torch.int32, fill=-1), **bp)
 
 
 def step_physics(state: PhysicsState, t: PhysicsTemplate, dt,
                  fused=True, bp_rank="sort") -> PhysicsState:
-    """One physics step: external accelerations, then the slab pipeline
-    (the fused route where the scene allows it; fused=False keeps the
-    staged path). bp_rank: "sort" or "count", how the slab broadphase
-    orders its keys where it runs in PyTorch (the JAX package's
-    FYROX_BP_RANK; "count" runs K4b plane_scatter)."""
-    from fyrox_tpu_torch.physics import slab2
+    """One physics step: external accelerations, then the template's
+    broadphase: the slab pipeline (the fused route where the scene allows
+    it; fused=False keeps the staged path; bp_rank "sort" or "count" is
+    how the slab broadphase orders its keys where it runs in PyTorch, the
+    JAX package's FYROX_BP_RANK) or the dense path, which takes neither
+    option."""
     accel, angvel = external_accelerations(state, t, dt)
+    if t.grid is None:
+        return _step_dense(state, t, dt, accel, angvel)
+    from fyrox_tpu_torch.physics import slab2
     return slab2.step_slab2(state, t, dt, accel, angvel, fused=fused,
                             bp_rank=bp_rank)
+
+
+def _collider_world(state: PhysicsState, t: PhysicsTemplate):
+    """World pose of every collider, body pose ∘ local offset: (pos
+    [W,C,3], rot_mat [W,C,3,3])."""
+    dev = state.position.device
+    cb = const(t.col_body, dev, torch.int64)
+    bq = state.rotation[:, cb]
+    bp = state.position[:, cb]
+    wq = quat.mul(bq, const(t.col_rot, dev)[None].expand(bq.shape))
+    wp = bp + quat.rotate(bq, const(t.col_pos, dev)[None].expand(bp.shape))
+    return wp, quat.to_mat3(wq)
+
+
+def dense_contacts(state: PhysicsState, t: PhysicsTemplate, dt):
+    """The dense step's broadphase and narrowphase
+    (fyrox_tpu/physics/world.py:680-804): fat AABBs swept along the step's
+    motion (CCD), the all-pairs overlap test, then the kind-grouped
+    narrowphase into the compact layout or, with max_active_pairs below
+    P, the top-k compaction of the overlapping pairs and the
+    select-by-kind narrowphase. Returns (solver.ContactBatch, the pair id
+    of each pair slot [W,cap], the slots still holding last step's pair
+    [W,K]), or three Nones without pairs."""
+    from fyrox_tpu_torch.physics import narrowphase as np_mod
+    from fyrox_tpu_torch.physics import solver as solver_mod
+    w = state.position.shape[0]
+    dev = state.position.device
+    contacts = sel = same_k = None
+    p = t.num_pairs
+    if p > 0:
+        cpos, crot = _collider_world(state, t)
+        ctype = const(t.col_shape, dev)
+        cparams = const(t.col_params, dev)
+        # fat AABBs; the margin is also the speculative activation distance
+        margin = t.allowed_linear_error + SPECULATIVE_MARGIN
+        he = sh.shape_aabb_half_extents(ctype[None], cparams[None],
+                                        crot) + margin
+        amin, amax = cpos - he, cpos + he
+        # CCD: sweep the fat AABB along the body's motion this step
+        cb = const(t.col_body, dev, torch.int64)
+        v_sweep = state.linvel[:, cb] * dt
+        amin = amin + torch.clamp(v_sweep, max=0.0)
+        amax = amax + torch.clamp(v_sweep, min=0.0)
+        # a halfspace's box is its half-volume
+        is_hs = (ctype == sh.HALFSPACE)[None, :, None]
+        n_hs = crot[..., :, 1]
+        amax = torch.where(is_hs, cpos + sh._HUGE * (1.0 - n_hs) + margin,
+                           amax)
+        amin = torch.where(is_hs, cpos - sh._HUGE * (1.0 + n_hs) - margin,
+                           amin)
+        pa = const(t.pair_a, dev, torch.int64)
+        pb = const(t.pair_b, dev, torch.int64)
+        overlap = torch.all((amin[:, pa] <= amax[:, pb])
+                            & (amax[:, pa] >= amin[:, pb]), -1)    # [W,P]
+        cap = min(t.max_active_pairs or p, p)
+        dense_mode = cap >= p and t.pair_kind_ranges is not None
+        if cap < p:
+            # distinct scores, so that the selection and its order are
+            # XLA top_k's (ties lowest index first) on any device: the
+            # overlapping pairs by descending index, then the others by
+            # ascending index
+            ar = const(_arange(t), dev)
+            score = torch.where(overlap, ar, -1 - ar)
+            top, sel = torch.topk(score, cap, dim=1)
+            sel_valid = top >= 0
+            sel = sel.to(torch.int32)
+        else:
+            sel = const(_arange(t), dev)[None].expand(w, p)
+            sel_valid = overlap
+        if dense_mode:
+            tab = t.contact_tables()
+            pred_p = margin + torch.sqrt(torch.sum(
+                (v_sweep[:, pa] - v_sweep[:, pb]) ** 2, -1))
+            flat = np_mod.generate_contacts_flat(
+                t.pair_kind_ranges, cparams[pa][None], cpos[:, pa],
+                crot[:, pa], cparams[pb][None], cpos[:, pb], crot[:, pb],
+                pred=pred_p)
+            pair_idx = const(tab["pair_idx"], dev)
+            contacts = solver_mod.ContactBatch(
+                index=const_rows(tab["index"], dev, w),
+                normal=flat["normal"], point=flat["point"],
+                depth=flat["depth"],
+                friction=const(tab["friction"], dev),
+                restitution=const(tab["restitution"], dev),
+                active=flat["active"] & sel_valid[:, pair_idx],
+                own_pts=tab["own_pts"])
+            same_k = (state.warm_pair == sel)[:, pair_idx]
+        else:
+            rows = torch.arange(w, device=dev)[:, None]
+            ia_c, ib_c = pa[sel.long()], pb[sel.long()]
+            pred_p = margin + torch.sqrt(torch.sum(
+                (v_sweep[rows, ia_c] - v_sweep[rows, ib_c]) ** 2, -1))
+            man = np_mod.generate_contacts(
+                ctype[ia_c], cparams[ia_c], cpos[rows, ia_c],
+                crot[rows, ia_c], ctype[ib_c], cparams[ib_c],
+                cpos[rows, ib_c], crot[rows, ib_c], pred=pred_p)
+            kk = cap * 4
+            fric = const(t.col_friction, dev)
+            rest = const(t.col_restitution, dev)
+
+            def rep(x):
+                return np_mod.repeat_slots(x, 4)
+
+            contacts = solver_mod.ContactBatch(
+                index=torch.cat([rep(cb[ia_c]), rep(cb[ib_c])], 1).to(
+                    torch.int32),
+                normal=rep(man.normal), point=man.points.reshape(w, kk, 3),
+                depth=man.depth.reshape(w, kk),
+                friction=rep(torch.sqrt(fric[ia_c] * fric[ib_c])),
+                restitution=rep(torch.maximum(rest[ia_c], rest[ib_c])),
+                active=man.active.reshape(w, kk) & rep(sel_valid))
+            same_k = rep(state.warm_pair == sel)
+    return contacts, sel, same_k
+
+
+def _step_dense(state: PhysicsState, t: PhysicsTemplate, dt, accel,
+                angvel) -> PhysicsState:
+    """The dense broadphase step (fyrox_tpu/physics/world.py:680-860):
+    dense_contacts, slot-matched warm start, the TGS solve, axis locks and
+    damping. Holds no host read, so a CUDA graph captures it."""
+    from fyrox_tpu_torch.physics import solver as solver_mod
+    w, b = state.position.shape[:2]
+    dev = state.position.device
+    inv_mass = const(t.inv_mass, dev)[None].expand(w, b)
+    contacts, sel, same_k = dense_contacts(state, t, dt)
+    sp = solver_mod.SolverParams(
+        dt=dt, erp=t.erp, allowed_linear_error=t.allowed_linear_error,
+        max_corrective_velocity=t.max_corrective_velocity,
+        restitution_threshold=t.restitution_threshold,
+        n_substeps=t.n_substeps, n_pgs=t.n_pgs,
+        n_stabilization=t.n_stabilization,
+        warmstart_coefficient=t.warmstart_coefficient,
+        mass_split_pow=t.mass_split_pow)
+    warm = None
+    if contacts is not None:
+        # slot-matched warm start: only slots still holding the same pair
+        warm = (state.warm_n * same_k, state.warm_t1 * same_k,
+                state.warm_t2 * same_k)
+    position, rotation, linvel, angvel, lam_out = solver_mod.solve_tgs(
+        state.position, state.rotation, state.linvel, angvel, t.com_local,
+        inv_mass, t.inv_inertia_local, accel, contacts, sp, warm=warm,
+        joints=t.joints)
+    position, rotation, linvel, angvel = _apply_locks_damping(
+        state, t, dt, position, rotation, linvel, angvel)
+    if lam_out is not None:
+        warm_n, warm_t1, warm_t2 = lam_out
+        warm_pair = sel
+    else:
+        warm_n, warm_t1, warm_t2 = state.warm_n, state.warm_t1, state.warm_t2
+        warm_pair = state.warm_pair
+    return PhysicsState(position=position, rotation=rotation,
+                        linvel=linvel, angvel=angvel,
+                        force=torch.zeros_like(state.force),
+                        torque=torch.zeros_like(state.torque),
+                        warm_n=warm_n, warm_t1=warm_t1, warm_t2=warm_t2,
+                        warm_pair=warm_pair)
+
+
+def _arange(t: PhysicsTemplate) -> np.ndarray:
+    """[P] int32 0..P-1, one host array per template (so ``const`` copies
+    it to a device once)."""
+    if getattr(t, "_pair_ids", None) is None:
+        t._pair_ids = np.arange(t.num_pairs, dtype=np.int32)
+    return t._pair_ids
 
 
 def external_accelerations(state: PhysicsState, t: PhysicsTemplate, dt):

@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from fyrox_tpu.models import build_flagship as jax_build_flagship
+from fyrox_tpu.physics import PhysicsBuilder as JPhysicsBuilder
 from fyrox_tpu_torch import kernels
 from fyrox_tpu_torch.models import build_flagship as torch_build_flagship
 from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, PhysicsBuilder,
                                      init_physics_state, step_physics)
 from fyrox_tpu_torch.physics import fused_step, plane_ops, tgs_kernel
+from fyrox_tpu_torch.physics import shapes as sh
 
 torch.set_num_threads(2)
 
@@ -270,12 +272,14 @@ def test_cpu_staged_route_takes_the_plain_versions():
     assert _plain_tick_launches(fused=False) == (0, 0, 0, 0)
 
 
-@pytest.mark.parametrize("case", ["joint", "dense", "com", "shape"])
+@pytest.mark.parametrize("case", ["joint", "grid", "com", "shape"])
 def test_out_of_scope_features_raise(case):
     """What the port does not run raises. Joints and centre-of-mass
     offsets run on the staged route, any number of joints (the "joint"
     case: 129 joints, past the TPU kernel's 128, step); still out of scope
-    are COM offsets on the fused kernels' own entry point."""
+    are COM offsets on the fused kernels' own entry point and the JAX
+    package's grid broadphase. The slab cases ask for the slab broadphase:
+    this four-collider scene would take the dense one by default."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=1)
     pb.add_collider(g, HALFSPACE, [])
@@ -286,7 +290,7 @@ def test_out_of_scope_features_raise(case):
     if case == "joint":
         for _ in range(129):
             pb.add_joint(0, 1, 2)
-        t = pb.build()
+        t = pb.build(broadphase="slab")
         st = step_physics(init_physics_state(pb.initial_pose(), t, 1,
                                              device="cpu"), t, 1 / 60)
         assert t.joints.num_joints == 129
@@ -294,13 +298,38 @@ def test_out_of_scope_features_raise(case):
         return
     with pytest.raises(NotImplementedError):
         if case == "com":
-            t = pb.build()
+            t = pb.build(broadphase="slab")
             st = init_physics_state(pb.initial_pose(), t, 1, device="cpu")
             zero = torch.zeros_like(st.linvel)
             fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
-        elif case == "dense":
-            pb.build(broadphase="dense")
+        elif case == "grid":
+            pb.build(broadphase="grid")
         elif case == "shape":
             pb.add_collider(g, 6, [])       # CONVEX
         else:
-            pb.build()
+            pb.build(broadphase="slab")
+
+
+def test_default_arguments_pick_the_same_broadphase():
+    """PhysicsBuilder.build() and build_flagship() with default arguments
+    choose what the JAX package's choose: dense under 192 colliders (with
+    the same pair list), slab from 192 on; the flagship's default pile is
+    64 bodies."""
+    for n, want in ((9, None), (191, None), (192, "slab")):
+        tb, jb = PhysicsBuilder(), JPhysicsBuilder()
+        for pb in (tb, jb):
+            g = pb.add_body(body_type=1)
+            pb.add_collider(g, sh.HALFSPACE, [])
+            for i in range(n - 1):
+                b = pb.add_body(position=(i % 7, 1.0 + i // 7, 0.0))
+                pb.add_collider(b, sh.BALL, [0.2])
+        tt, jt = tb.build(), jb.build()
+        assert (tt.grid is None) == (jt.grid is None) == (want is None)
+        np.testing.assert_array_equal(tt.pair_a, jt.pair_a)
+        np.testing.assert_array_equal(tt.pair_b, jt.pair_b)
+    je, _ = jax_build_flagship(n_bones=4, n_verts=40)
+    te, _ = torch_build_flagship(n_bones=4, n_verts=40)
+    assert je.physics.grid is None and te.physics.grid is None
+    assert te.physics.num_bodies == je.physics.num_bodies == 65
+    np.testing.assert_array_equal(te.physics.pair_a, je.physics.pair_a)
+    np.testing.assert_array_equal(te.physics.pair_b, je.physics.pair_b)

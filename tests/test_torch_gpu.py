@@ -483,6 +483,76 @@ def test_rollout_replays_equal_eager_steps(cuda, case):
         assert torch.equal(got, want)
 
 
+# ---- the dense broadphase path ---------------------------------------------
+
+@pytest.mark.parametrize("case", ["flagship", "compacted"])
+def test_dense_rollout_replays_equal_eager_steps(cuda, case):
+    """Engine.rollout on a dense template (a small build_flagship(), all
+    pairs in the compact layout; or compacted into 24 slots, top-k on the
+    card): 30 replays equal 30 Engine.step ticks bit for bit, from 4
+    jittered worlds, the pile landed (contacts hold impulses). Nothing on
+    the path uses float atomics."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import _leaves
+    kw = dict(max_active_pairs=24) if case == "compacted" else {}
+    engine, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=16, **kw)
+    assert engine.physics.grid is None
+    state = chip_smoke.distinct_worlds(engine, 4, cuda, seed=2)
+    eager = state
+    for _ in range(30):
+        eager = engine.step(eager)
+    rolled = engine.rollout(state, 30)
+    assert len(engine._captured) == 1
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+    assert int((eager.physics.warm_n > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["full", "compacted"])
+def test_dense_step_on_the_card_matches_the_cpu(cuda, case):
+    """chip_smoke's dense-small scene (mixed cluster + jointed ragdoll),
+    card vs CPU over 20 ticks at W=4, within dense-small's bounds (dp 5e-4,
+    dv 5e-3); compacted mode too (max_active_pairs=16)."""
+    import chip_smoke
+    pb, t = chip_smoke.dense_small_scene()
+    if case == "compacted":
+        t = pb.build(broadphase="dense", max_active_pairs=16)
+    cpu = chip_smoke.jitter(phys_mod.init_physics_state(pb, t, 4,
+                                                        device="cpu"),
+                            t, "cpu", seed=3)
+    gpu = convert.physics_state(convert.to_numpy(cpu), device=cuda)
+    for _ in range(20):
+        cpu = phys_mod.step_physics(cpu, t, 1 / 60)
+        gpu = phys_mod.step_physics(gpu, t, 1 / 60)
+    assert (gpu.position.cpu() - cpu.position).abs().max() < 5e-4
+    assert (gpu.linvel.cpu() - cpu.linvel).abs().max() < 5e-3
+    assert int((cpu.warm_n > 0).sum()) > 0
+
+
+def test_dense_k4_kernels_equal_plain(cuda):
+    """K4a and K4b on one dense flagship tick's calls (the default 64-body
+    pile, settled 25 ticks, 8 distinct worlds): bit-equal to their plain
+    versions (the scatter's on CPU copies, which sums in ascending k as
+    the kernel does)."""
+    import chip_smoke
+    engine, _ = build_flagship(n_bones=10, n_verts=300)
+    state = chip_smoke.distinct_worlds(engine, 8, cuda, seed=5)
+    for _ in range(25):
+        state = engine.step(state)
+    gathers, scatters = chip_smoke.capture_dense_calls(engine, state)
+    assert (len(gathers), len(scatters)) == chip_smoke.dense_launches(
+        engine.physics) == (13, 14)
+    for planes, idx in gathers:
+        assert idx.shape == (8, 2 * 3664)
+        assert torch.equal(plane_ops.plane_gather(planes, idx),
+                           plane_ops.plane_gather_plain(planes, idx))
+    for vals, idx, n in scatters:
+        assert n == 65
+        assert torch.equal(plane_ops.plane_scatter(vals, idx, n).cpu(),
+                           plane_ops.plane_scatter_plain(vals.cpu(),
+                                                         idx.cpu(), n))
+
+
 def _raster_scene(device, n_worlds=3):
     """A small lit scene (ground, cubes, spheres, directional light) in
     worlds whose objects are jittered apart (seeded)."""
