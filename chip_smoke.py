@@ -117,6 +117,37 @@ Then the dense broadphase path (every scene under 192 colliders):
              against its bound, its plain version and torch.gather /
              scatter_add_;
   health   — world_health and restore_unhealthy on the rolled dense state.
+Then hulls, scenery and queries (chip_smoke.terrain_pile):
+  terrain-small — a 16-body pile of cylinders, hull clouds, cones, balls
+             and cuboids over a 9 x 9 heightfield and a 4-triangle trimesh
+             ramp, on the dense and on the slab broadphase: each of 30 card
+             ticks against the same tick on the CPU (W=4), at card_vs_cpu's
+             bounds (the scene's trajectories part at the rounding level,
+             so whole trajectories are not compared); launches a tick;
+  terrain  — the terrain flagship (the flagship's character and 1,000-body
+             pile over a 129 x 129 heightfield, 64 m square, every 8th body
+             a 12-point hull cloud, every 8th + 4 a cylinder; slab windows
+             32 / 20 / 20, walk 128, 48 active points, as build()
+             arguments), W distinct
+             worlds, staged route: TICKS eager ticks with the launches
+             counted (K1 once a tick, K4a by kind: heights, hull rows,
+             per-world planes); one tick under sync debug mode "error";
+             the tick's peak memory; TICKS replayed ticks equal the eager
+             ones bit for bit; a replayed roll's kernels, device events,
+             device ms and busy share; env·steps/s with skinning of eager
+             and captured rolls; K1 (COM planes) on the settled step's
+             packed inputs vs its plain version; K4a at the heights and
+             hull-row shapes (one table every world reads) bit-equal to
+             plain, timed against torch.gather; the broadphase audit,
+             equal card vs CPU on 2 worlds;
+  queries  — cast_ray (16 x 16 fan a world) and sphere_cast (8 x 8,
+             radius 0.1) on the settled terrain flagship: ms a call; hits,
+             colliders and bodies equal card vs CPU on 8 worlds;
+  terrain-dense — the terrain pile (build_flagship()'s 64-body pile over a
+             33 x 33 heightfield and the ramp, cylinders, hull clouds and
+             cones; dense) through the dense phase's checks, one tick under
+             sync debug mode, the tick's peak memory, and K4a / K4b on one
+             settled tick's calls against their plain versions.
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
@@ -524,17 +555,19 @@ def k1_ops(s, cg, w, p):
     return per_slot * s * cg * w
 
 
-def k1_against_plain(label, packed, params):
-    """K1 (no joints, no COM) vs its plain version on packed inputs: K1's
-    bounds, two launches bit-equal, the kernel's visited slots equal to
-    the inputs' live slots; then kernel and plain timed against the bound.
-    Returns (max error, the errors as text, kernel ms, kernel device ms,
-    plain ms, bound ms, bound by, visited slots per world)."""
+def k1_against_plain(label, packed, params, has_com=False):
+    """K1 (no joints; COM planes where `has_com`) vs its plain version on
+    packed inputs: K1's bounds, two launches bit-equal, the kernel's
+    visited slots equal to the inputs' live slots; then kernel and plain
+    timed against the bound. Returns (max error, the errors as text,
+    kernel ms, kernel device ms, plain ms, bound ms, bound by, visited
+    slots per world)."""
     from fyrox_tpu_torch.physics import tgs_kernel
-    got_b, got_l = tgs_kernel.solve_tgs(*packed, params)
+    kw = dict(has_com=has_com)
+    got_b, got_l = tgs_kernel.solve_tgs(*packed, params, **kw)
     visited = tgs_kernel.visited_slots().clone()
-    again_b, again_l = tgs_kernel.solve_tgs(*packed, params)
-    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params)
+    again_b, again_l = tgs_kernel.solve_tgs(*packed, params, **kw)
+    ref_b, ref_l = tgs_kernel.solve_tgs_plain(*packed, params, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(got_b, again_b) and torch.equal(got_l, again_l)):
         fail(f"{label}: two launches on the same inputs differ")
@@ -555,13 +588,15 @@ def k1_against_plain(label, packed, params):
         fail(f"{label}: solve_tgs kernel vs plain: pos {err_pos:.3g} (1e-5), "
              f"quat {err_q:.3g} (1e-5), vel {err_vel:.3g} (1e-4), lambda "
              f"{err_lam:.3g} (1e-3 rel + 1e-5)")
-    ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params), 10)
-    dev_k = device_ms(lambda: tgs_kernel.solve_tgs(*packed, params), 10)
+    ms_k = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, params, **kw), 10)
+    dev_k = device_ms(lambda: tgs_kernel.solve_tgs(*packed, params, **kw),
+                      10)
     # the same launch without substeps and stabilisation passes: the prep
     # (list build, effective masses), the restitution pass and the output
     lean = params._replace(n_sub=0, n_stab=0)
-    ms_prep = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, lean), 10)
-    ms_p = cuda_ms(lambda: tgs_kernel.solve_tgs_plain(*packed, params), 3)
+    ms_prep = cuda_ms(lambda: tgs_kernel.solve_tgs(*packed, lean, **kw), 10)
+    ms_p = cuda_ms(lambda: tgs_kernel.solve_tgs_plain(*packed, params, **kw),
+                   3)
     w, _, s, cg = packed[0].shape
     b_ms, b_by = bound_ms(nbytes(*packed, got_b, got_l),
                           k1_ops(s, cg, w, params))
@@ -2232,7 +2267,7 @@ def capture_dense_calls(engine, state):
     return gathers, scatters
 
 
-def phase_dense_k4(engine, calls):
+def phase_dense_k4(engine, calls, tag="dense"):
     """K4a and K4b on one dense flagship tick's calls (a settled state, W
     distinct worlds): each bit-equal to its plain version (the gather's on
     the card; the scatter's on CPU copies, which sums in ascending k as
@@ -2245,19 +2280,19 @@ def phase_dense_k4(engine, calls):
     k2, b = 2 * t.flat_layout()[1], t.num_bodies
     ng, ns = dense_launches(t)
     if (len(gathers), len(scatters)) != (ng, ns):
-        fail(f"dense K4: {len(gathers)} gathers and {len(scatters)} "
+        fail(f"{tag} K4: {len(gathers)} gathers and {len(scatters)} "
              f"scatters in a tick, want {ng} and {ns}")
     for planes, idx in gathers:
         if (planes.shape[0], planes.shape[2], tuple(idx.shape)) != (
                 WORLDS, b, (WORLDS, k2)):
-            fail(f"dense K4a: shapes {tuple(planes.shape)} x "
+            fail(f"{tag} K4a: shapes {tuple(planes.shape)} x "
                  f"{tuple(idx.shape)}")
     for vals, idx, n in scatters:
         if (vals.shape[0], vals.shape[2], n, tuple(idx.shape)) != (
                 WORLDS, k2, b, (WORLDS, k2)):
-            fail(f"dense K4b: shapes {tuple(vals.shape)} → {n} rows")
+            fail(f"{tag} K4b: shapes {tuple(vals.shape)} → {n} rows")
     if not all_differ(scatters[-1][0]):
-        fail("dense K4b: the captured worlds repeat")
+        fail(f"{tag} K4b: the captured worlds repeat")
     # K4a: a gather moves values, bit-equal to torch.gather's
     for planes, idx in gathers:
         got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
@@ -2305,10 +2340,10 @@ def phase_dense_k4(engine, calls):
 
     recs = []
     for name, kern, plain, lib, lib_fn, cs, ops in (
-            ("plane_gather_dense", plane_ops.plane_gather,
+            (f"plane_gather_{tag}", plane_ops.plane_gather,
              plane_ops.plane_gather_plain, lib_g,
              lambda p, li: torch.gather(p, 2, li), gathers, 0),
-            ("plane_scatter_dense", plane_ops.plane_scatter,
+            (f"plane_scatter_{tag}", plane_ops.plane_scatter,
              plane_ops.plane_scatter_plain, lib_s, lib_scatter, scatters,
              sum(v.numel() for v, _, _ in scatters))):
         ms_k, ms_p = cuda_ms(run(kern, cs), 20), cuda_ms(run(plain, cs), 10)
@@ -2327,7 +2362,7 @@ def phase_dense_k4(engine, calls):
                          max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                          bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
                          device_ms=dev_k, library_device_ms=dev_lib))
-        log(f"[dense-K4] {name}: a dense flagship tick's {len(cs)} calls "
+        log(f"[{tag}-K4] {name}: a {tag} tick's {len(cs)} calls "
             f"(W={WORLDS} distinct worlds, idx [{WORLDS},{k2}], {b} body "
             f"rows, attribute rows {sorted({c[0].shape[1] for c in cs})}) "
             f"bit-equal to plain, two launches bit-equal; CUDA events over "
@@ -2335,7 +2370,7 @@ def phase_dense_k4(engine, calls):
             f"{'torch.gather' if src == 'gather' else 'scatter_add_'} "
             f"{ms_lib:.4f} ms; device time: kernel {dev_k:.4f} ms, library "
             f"{dev_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}) on {CARD}")
-    log(f"[dense-K4] plane_scatter vs the card's plain version (atomics): "
+    log(f"[{tag}-K4] plane_scatter vs the card's plain version (atomics): "
         f"{worst_rel:.3g} of twice the float32 summation bound; bit-equal "
         f"to the ascending-k float32 sums on the widest call")
     return recs
@@ -2367,7 +2402,7 @@ def dense_stages(engine, state, reps=3):
     return out
 
 
-def phase_dense(engine, skin):
+def phase_dense(engine, skin, label="dense", bodies=65):
     """The default build_flagship() (dense broadphase) at W distinct
     worlds, through the entry points: TICKS eager Engine.step ticks with
     the launches counted (K4a and K4b dense_launches(t) a tick, no other
@@ -2376,8 +2411,8 @@ def phase_dense(engine, skin):
     env·steps/s with skinning of eager and captured rolls in turns."""
     from fyrox_tpu_torch.animation import skinning
     t = engine.physics
-    if t.grid is not None or t.num_bodies != 65:
-        fail("dense: build_flagship() did not take the dense broadphase")
+    if t.grid is not None or t.num_bodies != bodies:
+        fail(f"{label}: the scene did not take the dense broadphase")
     state0 = distinct_worlds(engine, WORLDS, "cuda", seed=23)
     torch.cuda.synchronize()
     reset_all_launches()
@@ -2392,12 +2427,12 @@ def phase_dense(engine, skin):
     want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
                 plane_gather=gathers * TICKS, plane_scatter=scatters * TICKS)
     if n != want:
-        fail(f"dense: launches of {TICKS} eager ticks {n}, want {want}")
+        fail(f"{label}: launches of {TICKS} eager ticks {n}, want {want}")
     rolled = engine.rollout(state0, TICKS)
     torch.cuda.synchronize()
     tick = engine.captured_tick(state0)
-    n_leaves = same_state("dense rollout", rolled, eager)
-    same_state("dense rollout from the same state again",
+    n_leaves = same_state(f"{label} rollout", rolled, eager)
+    same_state(f"{label} rollout from the same state again",
                engine.rollout(state0, TICKS), eager)
     n_prof, events, dev_ms = profiled(
         lambda: engine.rollout(rolled, DENSE_PROFILED), DENSE_PROFILED)
@@ -2405,7 +2440,7 @@ def phase_dense(engine, skin):
                      plane_gather=gathers * DENSE_PROFILED,
                      plane_scatter=scatters * DENSE_PROFILED)
     if n_prof != want_prof:
-        fail(f"dense: kernels of a replayed roll {n_prof}, want {want_prof}")
+        fail(f"{label}: kernels of a replayed roll {n_prof}, want {want_prof}")
 
     def eager_roll(state):
         for _ in range(TICKS):
@@ -2416,8 +2451,8 @@ def phase_dense(engine, skin):
         return engine.rollout(state, TICKS)
 
     rates, tick_ms = {}, {}
-    for label, roll in (("eager", eager_roll), ("rollout", graph_roll),
-                        ("eager", eager_roll), ("rollout", graph_roll)):
+    for kind, roll in (("eager", eager_roll), ("rollout", graph_roll),
+                       ("eager", eager_roll), ("rollout", graph_roll)):
         def skinned(state):
             state = roll(state)
             bm = skinning.bone_matrices(state.scene.globals_, skin)
@@ -2433,20 +2468,20 @@ def phase_dense(engine, skin):
         check_state(state, verts, skin)
         live = int((state.physics.warm_n > 0).sum())
         if live == 0:
-            fail("dense: no contact slot holds an impulse")
-        rates.setdefault(label, []).append(WORLDS * TICKS * CALLS / elapsed)
+            fail(f"{label}: no contact slot holds an impulse")
+        rates.setdefault(kind, []).append(WORLDS * TICKS * CALLS / elapsed)
         t0 = time.perf_counter()
         roll(state)
         torch.cuda.synchronize()
-        tick_ms.setdefault(label, []).append(
+        tick_ms.setdefault(kind, []).append(
             (time.perf_counter() - t0) * 1e3 / TICKS)
     busy = dev_ms / min(tick_ms["rollout"])
     stages = dense_stages(engine, state)
-    log(f"[dense] stages of an eager tick from the last roll's state, "
+    log(f"[{label}] stages of an eager tick from the last roll's state, "
         f"device ms (profiler) / device events per call: " + ", ".join(
             f"{k} {v[0]:.3f} / {v[1]:.0f}" for k, v in stages.items())
         + f" on {CARD}")
-    log(f"[dense] build_flagship() (dense broadphase: {t.num_bodies} "
+    log(f"[{label}] {label} scene (dense broadphase: {t.num_bodies} "
         f"bodies, {t.num_pairs} pairs, {t.flat_layout()[1]} contact slots), "
         f"W={WORLDS}: {TICKS} eager ticks launch K4a {gathers} and K4b "
         f"{scatters} times a tick and no other kernel ({eager_ms:.3f} ms a "
@@ -2465,6 +2500,589 @@ def phase_dense(engine, skin):
         f"{tick.capture_seconds:.3f} s, graph pool "
         f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
     return n, rolled
+
+
+# ---------------------------------------------------------------- terrain
+# Hulls, scenery and rays on the card. The terrain flagship: the flagship's
+# character and its 1,000-body pile over a 129 x 129 heightfield (64 m
+# square, gentle hills) in place of the halfspace, every 8th body a CONVEX
+# 12-point cloud and every 8th + 4 a cylinder (slab, staged route). The
+# terrain pile: build_flagship()'s 64-body pile over a 33 x 33 heightfield
+# (16 m square) and a static 4-triangle trimesh ramp, every 8th body a
+# cylinder, every 8th + 2 a CONVEX cloud and every 8th + 4 a cone (dense).
+TERRAIN_FLAGSHIP = dict(n_bodies=1000, res=129, size=64.0, ramp=False,
+                        kinds={0: 6, 4: 3})            # CONVEX, CYLINDER
+TERRAIN_PILE = dict(n_bodies=64, res=33, size=16.0, ramp=True,
+                    kinds={0: 3, 2: 6, 4: 4})          # CYLINDER, CONVEX, CONE
+# replayed terrain ticks under the profiler: one (~25,000 device events;
+# a 3-tick window lost a K1 event from the profiler's record in one run)
+TERRAIN_PROFILED = 1
+QUERY_WORLDS = 8       # worlds of the query phase held card vs CPU
+
+
+def hills(res, size, amp=0.3):
+    """Heights [res,res] of gentle hills over a size x size square: two
+    crossed sines of wavelength size/4 and size/3, amplitude `amp`."""
+    x = np.linspace(-0.5 * size, 0.5 * size, res)
+    xx, zz = np.meshgrid(x, x)
+    return (0.5 * amp * (np.sin(xx * 8 * np.pi / size + 0.3)
+                         + np.cos(zz * 6 * np.pi / size - 0.7))
+            ).astype(np.float32)
+
+
+# a shallow ramp, four triangles fanned round its centre: from y = 0.1 at
+# x = -0.5 down to y = -0.3 at x = 1.5, 3 m wide in z, turned 30 degrees
+# about +y. An unturned ramp's normals have z = 0 exactly, where the
+# solver's tangent basis switches branch (n_z >= 0), and the last bits of a
+# normal (XLA fuses multiply-adds, PyTorch does not) then pick the branch.
+def _ramp():
+    quad = np.asarray([[(-0.5, 0.1, -1.5), (-0.5, 0.1, 1.5), (0.5, -0.1, 0.0)],
+                       [(-0.5, 0.1, 1.5), (1.5, -0.3, 1.5), (0.5, -0.1, 0.0)],
+                       [(1.5, -0.3, 1.5), (1.5, -0.3, -1.5), (0.5, -0.1, 0.0)],
+                       [(1.5, -0.3, -1.5), (-0.5, 0.1, -1.5),
+                        (0.5, -0.1, 0.0)]], np.float64)
+    c, s = np.cos(np.pi / 6), np.sin(np.pi / 6)
+    rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    return (quad @ rot.T).astype(np.float32)
+
+
+RAMP = _ramp()
+
+
+def terrain_pile(pb, sb=None, node_type=None, n_bodies=64, res=33,
+                 size=16.0, ramp=True, kinds=None, seed=1):
+    """The pile of build_pile_scene (same positions and seed) over a
+    heightfield at y = -0.4 and, with `ramp`, the trimesh ramp: body i takes
+    kinds[i % 8] (6 CONVEX: a 12-point cloud of radius 0.25; 3 CYLINDER
+    [0.22, 0.2]; 4 CONE [0.25, 0.22]), else a ball (odd i) or a cuboid.
+    pb: either package's PhysicsBuilder; sb / node_type: a SceneBuilder and
+    its NodeType to give each body a node (None: standalone bodies).
+    Returns pb."""
+    rng = np.random.default_rng(seed)
+    cloud_rng = np.random.default_rng(seed + 100)
+    g = pb.add_body(body_type=1, position=(0.0, -0.4, 0.0))
+    pb.add_collider(g, 7, heights=hills(res, size), size=(size, size),
+                    friction=0.6)
+    if ramp:
+        r = pb.add_body(body_type=1)
+        pb.add_collider(r, 8, triangles=RAMP, friction=0.5)
+    grid = max(int(np.ceil(n_bodies ** (1.0 / 3.0))), 1)
+    for i in range(n_bodies):
+        gx, gy, gz = i % grid, (i // grid) % grid, i // (grid * grid)
+        pos = ((gx - grid / 2) * 0.7 + rng.uniform(-0.05, 0.05),
+               0.6 + gy * 0.7,
+               (gz - grid / 2) * 0.7 + rng.uniform(-0.05, 0.05))
+        node = -1
+        if sb is not None:
+            node = sb.add_node(f"body{i}", node_type=node_type.RIGID_BODY,
+                               position=pos,
+                               bbox=(np.full(3, -0.3), np.full(3, 0.3)))
+        b = pb.add_body(node=node, position=pos)
+        kind = (kinds or {}).get(i % 8)
+        if kind == 6:
+            pts = cloud_rng.normal(size=(12, 3))
+            pts = 0.25 * pts / np.linalg.norm(pts, axis=1, keepdims=True)
+            pb.add_collider(b, 6, points=pts, friction=0.5)
+        elif kind == 3:
+            pb.add_collider(b, 3, [0.22, 0.2], friction=0.5)
+        elif kind == 4:
+            pb.add_collider(b, 4, [0.25, 0.22], friction=0.5)
+        elif i % 2:
+            pb.add_collider(b, 0, [0.25], friction=0.5, restitution=0.1)
+        else:
+            pb.add_collider(b, 1, [0.22, 0.22, 0.22], friction=0.5)
+    return pb
+
+
+def terrain_engine(scene, **build_kw):
+    """The port's Engine of a terrain scene (TERRAIN_FLAGSHIP or
+    TERRAIN_PILE) with build_flagship()'s character (100 bones, 50,000
+    vertices); `build_kw` go to PhysicsBuilder.build. Returns (Engine,
+    SkinTemplate)."""
+    from fyrox_tpu_torch.models import character
+    from fyrox_tpu_torch.physics import PhysicsBuilder
+    from fyrox_tpu_torch.scene import NodeType
+    sb, aset, mt, bones, skin_data = character.build_character_scene(
+        n_bones=100, n_verts=50_000, seed=0)
+    pb = terrain_pile(PhysicsBuilder(), sb, NodeType, **scene)
+    return character.assemble_flagship(sb, pb.build(**build_kw), aset, mt,
+                                       bones, skin_data)
+
+
+TERRAIN_SMALL = dict(n_bodies=16, res=9, size=6.0, ramp=True,
+                     kinds={0: 3, 2: 6, 4: 4})
+TERRAIN_SMALL_TICKS = 30
+# the terrain flagship's slab windows, as build() arguments. The flagship's
+# (12 / 8 / 10, walk 48, 16 active points) drop most of the settling
+# pile's demand on the hills (measured on one H100: walk 77, class 0 25,
+# active points 35); these cover the demand measured with wide windows
+# (walk 98, classes 25 / 15 / 16, active points 36 at W = 2 on the CPU)
+TERRAIN_BUILD = dict(broadphase="slab", slab_window=(32, 20, 20),
+                     slab_active=48, slab_walk=128)
+
+
+def card_vs_cpu_steps(label, t, state_cpu, ticks, step,
+                      bounds=(5e-4, 5e-3)):
+    """Step a state on the card `ticks` times and hold every tick against
+    the same tick on the CPU from a copy of the card's state: the largest
+    (dp, dv) of one tick, within card_vs_cpu's bounds. For scenes whose
+    trajectories part at the float32 rounding level (hull faces on
+    scenery: a 1e-7 relative change of the positions grows to ~2e-3 m in
+    23 ticks on the CPU alone), where a whole trajectory compares the
+    scene's chaos, not the two devices. Returns (dp, dv, live contacts)."""
+    from fyrox_tpu_torch import convert
+    gpu = convert.physics_state(convert.to_numpy(state_cpu), device="cuda")
+    dp = dv = 0.0
+    for _ in range(ticks):
+        cpu = step(convert.physics_state(convert.to_numpy(gpu),
+                                         device="cpu"))
+        gpu = step(gpu)
+        dp = max(dp, (gpu.position.cpu() - cpu.position).abs().max().item())
+        dv = max(dv, (gpu.linvel.cpu() - cpu.linvel).abs().max().item())
+    live = int((cpu.warm_pair >= 0).sum() if t.grid is not None
+               else (cpu.warm_n > 0).sum())
+    if not (dp < bounds[0] and dv < bounds[1] and live > 0):
+        fail(f"{label}: card vs CPU dp {dp:.3g}, dv {dv:.3g}, live contact "
+             f"points {live}")
+    if not all_differ(cpu.position):
+        fail(f"{label}: the worlds are equal")
+    return dp, dv, live
+
+
+def phase_terrain_small():
+    """The small terrain pile (16 bodies: cylinders, hull clouds, cones,
+    balls, cuboids over a 9 x 9 heightfield and the trimesh ramp) on the
+    dense and on the slab broadphase at W=4 distinct worlds: every one of
+    TERRAIN_SMALL_TICKS card ticks held against the same tick on the CPU
+    (card_vs_cpu_steps), within card_vs_cpu's bounds; the dense step
+    launches K4a and K4b dense_launches(t) times a tick, the slab step
+    (staged route) K1 once a tick, K4a and no fused kernel."""
+    from fyrox_tpu_torch.physics import PhysicsBuilder
+    from fyrox_tpu_torch.physics import world as phys_mod
+    for broadphase in ("dense", "slab"):
+        pb = terrain_pile(PhysicsBuilder(), **TERRAIN_SMALL)
+        t = pb.build(broadphase=broadphase)
+        cpu = jitter(phys_mod.init_physics_state(pb, t, 4, device="cpu"), t,
+                     "cpu", seed=4)
+        reset_all_launches()
+        dp, dv, live = card_vs_cpu_steps(
+            f"terrain-small {broadphase}", t, cpu, TERRAIN_SMALL_TICKS,
+            lambda s: phys_mod.step_physics(s, t, 1.0 / 60.0))
+        n = all_launches()
+        if broadphase == "dense":
+            g, sc = dense_launches(t)
+            want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                        plane_gather=g * TERRAIN_SMALL_TICKS,
+                        plane_scatter=sc * TERRAIN_SMALL_TICKS)
+            ok = n == want
+        else:
+            want = "solve_tgs once a tick, K4a, no fused kernel or K4b"
+            ok = (n["solve_tgs"] == TERRAIN_SMALL_TICKS
+                  and n["plane_gather"] > 0 and n["fused_bp"] == 0
+                  and n["narrow_compact"] == 0 and n["plane_scatter"] == 0)
+        if not ok:
+            fail(f"terrain-small {broadphase}: launches {n}, want {want}")
+        log(f"[terrain-small] {broadphase}: {t.num_colliders} colliders, "
+            f"card == CPU on each of {TERRAIN_SMALL_TICKS} ticks from the "
+            f"card's state (W=4 distinct worlds, {live} live contacts): "
+            f"worst dp {dp:.3g} (bound 5e-4), dv {dv:.3g} (bound 5e-3); "
+            f"launches {n}")
+
+
+class GatherSpy:
+    """Counts (and with `keep`, keeps) the K4a calls of the main path by
+    kind while installed: "heights" (a heightfield's shared [1,4,Rz·Rx]
+    corner table), "hulls" (the shared [1,256,C] hull rows), "worlds"
+    (per-world planes)."""
+
+    def __init__(self, keep=False):
+        from fyrox_tpu_torch.physics import plane_ops
+        self.ops, self.keep = plane_ops, keep
+        self.count = dict(heights=0, hulls=0, worlds=0)
+        self.calls = dict(heights=[], hulls=[], worlds=[])
+
+    @staticmethod
+    def kind(planes):
+        if planes.shape[0] != 1:
+            return "worlds"
+        return "heights" if planes.shape[1] == 4 else "hulls"
+
+    def __enter__(self):
+        self.orig = self.ops.plane_gather
+
+        def spy(planes, idx):
+            k = self.kind(planes)
+            self.count[k] += 1
+            if self.keep:
+                self.calls[k].append((planes, idx))
+            return self.orig(planes, idx)
+
+        self.ops.plane_gather = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.plane_gather = self.orig
+
+
+def shared_gather_record(name, calls, launches):
+    """K4a on a tick's calls of one shared-table kind (W distinct worlds):
+    bit-equal to its plain version, two launches bit-equal; the set timed
+    against its bound (the table read once, the indices, the output),
+    its plain version and torch.gather on the table broadcast over the
+    worlds (stride 0, no copy)."""
+    from fyrox_tpu_torch.physics import plane_ops
+    for planes, idx in calls:
+        got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
+        if not (torch.equal(got, again) and torch.equal(
+                got, plane_ops.plane_gather_plain(planes, idx))):
+            fail(f"{name}: kernel differs from its plain version or from "
+                 f"itself")
+    if not all_differ(calls[-1][1]):
+        fail(f"{name}: the worlds' indices repeat")
+    lib = [(p.expand(i.shape[0], -1, -1), i.long()[:, None, :].expand(
+        i.shape[0], p.shape[1], i.shape[1])) for p, i in calls]
+    for (p, li), c in zip(lib, calls):
+        if not torch.equal(torch.gather(p, 2, li),
+                           plane_ops.plane_gather(*c)):
+            fail(f"{name}: the torch.gather yardstick disagrees")
+
+    def run(fn, cs):
+        return lambda: [fn(*c) for c in cs]
+
+    # device_ms queues its calls behind one spin: keep them within the
+    # card's queue of pending launches (~1,000)
+    reps = max(1, min(20, 800 // len(calls)))
+    ms_k = cuda_ms(run(plane_ops.plane_gather, calls), 20)
+    ms_p = cuda_ms(run(plane_ops.plane_gather_plain, calls), 10)
+    ms_lib = cuda_ms(run(lambda p, li: torch.gather(p, 2, li), lib), 20)
+    dev_k = device_ms(run(plane_ops.plane_gather, calls), reps)
+    dev_lib = device_ms(run(lambda p, li: torch.gather(p, 2, li), lib),
+                        reps)
+    outs = [plane_ops.plane_gather(*c) for c in calls]
+    b_ms, b_by = bound_ms(sum(nbytes(p, i, o) for (p, i), o
+                              in zip(calls, outs)), 0)
+    shapes = sorted({(tuple(p.shape), tuple(i.shape)) for p, i in calls})
+    log(f"[terrain-K4a] {name}: a settled terrain tick's {len(calls)} "
+        f"calls at {shapes} bit-equal to plain, two launches bit-equal; "
+        f"CUDA events over the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} "
+        f"ms, torch.gather {ms_lib:.4f} ms; device time: kernel "
+        f"{dev_k:.4f} ms, torch.gather {dev_lib:.4f} ms; bound {b_ms:.4f} "
+        f"ms ({b_by}); {launches} launches on the main path on {CARD}")
+    return dict(name=name, route="cuda",
+                source="fyrox_tpu_torch/csrc/plane_gather.cu",
+                replaces="fyrox_tpu/physics/pallas_ops.py:171",
+                launches=launches, max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
+                device_ms=dev_k, library_device_ms=dev_lib)
+
+
+def sync_free_tick(label, engine, state):
+    """One eager tick under torch.cuda's sync debug mode "error": a
+    synchronising call (a host read, a pageable copy) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    out = None
+    try:
+        out = engine.step(state)
+    except RuntimeError:
+        import traceback
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"{label}: an eager tick synchronises with the card:\n"
+             + "".join(traceback.format_exc().splitlines(True)[-12:]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out
+
+
+def skinned_rates(engine, skin, state):
+    """env·steps/s with skinning of one eager roll and one Engine.rollout
+    roll of TICKS ticks each (the graph captured and the caches warm
+    before), and their ms a tick. Returns (rates, tick_ms, the last
+    state)."""
+    from fyrox_tpu_torch.animation import skinning
+
+    def eager_roll(st):
+        for _ in range(TICKS):
+            st = engine.step(st)
+        return st
+
+    rates, tick_ms = {}, {}
+    for kind, roll in (("eager", eager_roll),
+                       ("rollout", lambda st: engine.rollout(st, TICKS))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = roll(state)
+        bm = skinning.bone_matrices(state.scene.globals_, skin)
+        verts = skinning.skin_positions_dense(bm, skin)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        check_state(state, verts, skin)
+        rates[kind] = WORLDS * TICKS / elapsed
+        tick_ms[kind] = elapsed * 1e3 / TICKS
+    return rates, tick_ms, state
+
+
+def terrain_stages(engine, state, reps=2):
+    """Device ms and device events (profiler) per call of an eager
+    terrain tick's stages from `state`: the tick, its physics step, the
+    step's contacts (slab2.contacts: broadphase, narrowphase, compaction),
+    and the contacts again without the hull parts and without the
+    scenery parts (the slab context's tables emptied for the
+    measurement), whose differences give those parts; the solve and the
+    rest of the tick are differences too."""
+    from fyrox_tpu_torch.physics import slab2
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t, dt = engine.physics, engine.dt
+    cx = slab2._ctx(t)
+    ph = state.physics
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        _, events, dev = profiled(lambda: [fn() for _ in range(reps)], reps)
+        return dev, events
+
+    def contacts():
+        return slab2.contacts(ph, t, dt)
+
+    out = dict(tick=measure(lambda: engine.step(state)),
+               physics=measure(lambda: phys_mod.step_physics(ph, t, dt)),
+               contacts=measure(contacts))
+    parts, scenery = cx.cx_parts, cx.scenery
+    try:
+        cx.cx_parts = {}
+        no_hulls = measure(contacts)
+        cx.cx_parts, cx.scenery = parts, []
+        no_scenery = measure(contacts)
+    finally:
+        cx.cx_parts, cx.scenery = parts, scenery
+
+    def minus(a, b):
+        return tuple(x - y for x, y in zip(a, b))
+
+    out["hull parts"] = minus(out["contacts"], no_hulls)
+    out["scenery parts"] = minus(out["contacts"], no_scenery)
+    out["solve and the step's rest"] = minus(out["physics"], out["contacts"])
+    out["rest of the tick"] = minus(out["tick"], out["physics"])
+    return out
+
+
+def phase_terrain(engine, skin):
+    """The terrain flagship (slab, staged route) at W distinct worlds
+    through the entry points: TICKS eager ticks with the launches counted
+    (K1 once a tick, K4a by kind, no fused kernel, no K4b); one more tick
+    under sync debug mode; the tick's peak memory; TICKS replayed ticks
+    equal the eager ones bit for bit; a replayed roll's kernels, device
+    events and device ms (profiler) and the busy share; env·steps/s with
+    skinning of eager and captured rolls; K1 on the settled step's packed
+    inputs (contacts with hulls and the heightfield, COM planes) and K4a
+    at the heights and hull shapes against their plain versions; the
+    broadphase audit. Returns (kernel records, the settled state)."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.physics import fused_step, slab2, tgs_kernel
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t, dt = engine.physics, engine.dt
+    cx = slab2._ctx(t)
+    if (t.grid is None or cx.hull_rows is None or not cx.scenery
+            or fused_step.supports_fused(t)):
+        fail("terrain: the terrain flagship is not a staged slab scene with "
+             "hulls and a heightfield")
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=31)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eager = state0
+    t0 = time.perf_counter()
+    with GatherSpy() as spy:
+        for _ in range(TICKS):
+            eager = engine.step(eager)
+        torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / TICKS
+    n, per_kind = all_launches(), dict(spy.count)
+    if not (n["solve_tgs"] == TICKS and n["fused_bp"] == 0
+            and n["narrow_compact"] == 0 and n["plane_scatter"] == 0
+            and n["plane_gather"] == sum(per_kind.values())
+            and per_kind["heights"] == TICKS and per_kind["hulls"] > 0
+            and per_kind["hulls"] % TICKS == 0):
+        fail(f"terrain: launches of {TICKS} eager ticks {n}, K4a by kind "
+             f"{per_kind}")
+    nxt = sync_free_tick("terrain", engine, eager)
+    del nxt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.step(eager)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rolled = engine.rollout(state0, TICKS)
+    torch.cuda.synchronize()
+    tick = engine.captured_tick(state0)
+    n_leaves = same_state("terrain rollout", rolled, eager)
+    n_prof, events, dev_ms = profiled(
+        lambda: engine.rollout(rolled, TERRAIN_PROFILED), TERRAIN_PROFILED)
+    if not (n_prof["solve_tgs"] == TERRAIN_PROFILED and n_prof["fused_bp"] == 0
+            and n_prof["narrow_compact"] == 0
+            and n_prof["plane_gather"] == n["plane_gather"] // TICKS
+            * TERRAIN_PROFILED):
+        fail(f"terrain: kernels of a replayed roll {n_prof}")
+    rates, tick_ms, settled = skinned_rates(engine, skin, rolled)
+    busy = dev_ms / tick_ms["rollout"]
+    live = int((settled.physics.warm_pair >= 0).sum())
+    if live == 0:
+        fail("terrain: no live contact point after the rolls")
+    log(f"[terrain] terrain flagship ({t.num_bodies} bodies, "
+        f"{t.num_colliders} colliders: {int((t.col_shape == 6).sum())} "
+        f"hulls, {int((t.col_shape == 3).sum())} cylinders, a "
+        f"{t.hf_heights.shape[1]} x {t.hf_heights.shape[2]} heightfield; "
+        f"windows {t.grid.s_class}, s_active {t.grid.s_active}, walk "
+        f"{t.grid.s_walk}), W={WORLDS}: {TICKS} eager ticks launch K1 "
+        f"once, K4a {n['plane_gather'] // TICKS} times (heights "
+        f"{per_kind['heights'] // TICKS}, hull rows "
+        f"{per_kind['hulls'] // TICKS}, per-world "
+        f"{per_kind['worlds'] // TICKS}) a tick and no fused kernel "
+        f"({eager_ms:.3f} ms a tick); an eager tick makes no synchronising "
+        f"call; peak memory of a tick {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the state); {TICKS} "
+        f"replayed ticks equal them bit for bit ({n_leaves} state tensors);"
+        f" replayed roll's kernels {n_prof} over {TERRAIN_PROFILED} tick; "
+        f"env·steps/s with skinning (a roll of {TICKS} ticks each): eager "
+        f"{rates['eager']:.1f}, rollout {rates['rollout']:.1f} "
+        f"({tick_ms['eager']:.3f} and {tick_ms['rollout']:.3f} ms a tick); "
+        f"replayed "
+        f"tick: {events:.1f} device events, {dev_ms:.3f} ms of device time, "
+        f"busy share {busy:.3f}; {live} live contact points; capture "
+        f"{tick.capture_seconds:.3f} s, graph pool "
+        f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
+
+    stages = terrain_stages(engine, settled)
+    log(f"[terrain] stages of an eager tick from the settled state, device "
+        f"ms (profiler) / device events per call: " + ", ".join(
+            f"{k} {v[0]:.3f} / {v[1]:.0f}" for k, v in stages.items())
+        + f" on {CARD}")
+
+    # K1 on the settled step's packed inputs
+    accel, angvel = phys_mod.external_accelerations(settled.physics, t, dt)
+    packed, _ = slab2.solver_inputs(settled.physics, t, dt, accel, angvel)
+    params = tgs_kernel.solver_params(t, dt)
+    if not (all_differ(packed[0]) and all_differ(packed[2])):
+        fail("terrain: the solver's packed inputs repeat across worlds")
+    err, errs, ms_k, dev_k, ms_p, b_ms, b_by, visited = k1_against_plain(
+        "K1terrain", packed, params, has_com=cx.has_com)
+    n_act = int(packed[0][:, 9].sum().item())
+    log(f"[K1terrain] solve_tgs (COM planes {cx.has_com}) matches plain on "
+        f"a settled terrain-flagship step (W={WORLDS} distinct worlds, "
+        f"{n_act} active contact points with hulls and the heightfield): "
+        f"{errs}; two launches bit-equal; live slots visited "
+        f"{int(visited.sum())}; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}) on {CARD}")
+    k1 = k1_record("solve_tgs_terrain", err, ms_k, dev_k, ms_p, b_ms, b_by)
+    k1["launches"] = n["solve_tgs"]
+
+    # K4a at the heights and hull shapes, on one settled tick's calls
+    with GatherSpy(keep=True) as spy:
+        engine.step(settled)
+        torch.cuda.synchronize()
+    recs = [k1]
+    for kind, name in (("heights", "plane_gather_heights"),
+                       ("hulls", "plane_gather_hulls")):
+        recs.append(shared_gather_record(name, spy.calls[kind],
+                                         per_kind[kind]))
+
+    # broadphase audit: card vs CPU on a few worlds
+    ph = settled.physics
+    dem = slab2.bp_demand_stats(t, ph)
+    ovf = slab2.overflow_stats(t, ph)
+    sub = world_slice(ph, 2)
+    cpu = convert.physics_state(convert.to_numpy(sub), device="cpu")
+    for fn in (slab2.bp_demand_stats, slab2.overflow_stats):
+        on_card, on_cpu = fn(t, sub), fn(t, cpu)
+        if on_card != on_cpu:
+            fail(f"terrain bp-audit: {fn.__name__} card {on_card} vs CPU "
+                 f"{on_cpu}")
+    cls = "; ".join(
+        f"class {c} max {d['max_valid']} / cap {d['cap']} ({d['dropped']} "
+        f"dropped; tight max {d['max_tight']}, {d['tight_dropped']} dropped)"
+        for c, d in ((c, dem[f"class{c}"]) for c in range(3)) if d["cap"])
+    log(f"[terrain-bp-audit] settled terrain flagship (W={WORLDS}): walk max "
+        f"{dem['max_walk']} / {dem['s_walk']} ({dem['walk_dropped']} "
+        f"dropped); {cls}; active points max {ovf['max_active_points']} / "
+        f"s_active {ovf['s_active']} (mean {ovf['mean_active_points']:.3f}, "
+        f"{ovf['dropped_points']} dropped; tight max "
+        f"{ovf['max_tight_points']}, {ovf['tight_dropped_points']} "
+        f"dropped); both equal card vs CPU as integers on 2 worlds")
+    return recs, settled
+
+
+def phase_terrain_dense(engine, skin):
+    """The terrain pile (dense) through phase_dense's checks (launches a
+    tick, replayed == eager, profiler, rates), one tick under sync debug
+    mode, the tick's peak memory, and K4a / K4b on one settled tick's
+    calls against their plain versions."""
+    n, rolled = phase_dense(engine, skin, label="terrain-dense",
+                            bodies=TERRAIN_PILE["n_bodies"] + 2)
+    sync_free_tick("terrain-dense", engine, rolled)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.step(rolled)
+    torch.cuda.synchronize()
+    log(f"[terrain-dense] peak memory of a tick "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; an eager tick "
+        f"makes no synchronising call")
+    recs = phase_dense_k4(engine, capture_dense_calls(engine, rolled),
+                          tag="terrain_dense")
+    recs[0]["launches"] = n["plane_gather"]
+    recs[1]["launches"] = n["plane_scatter"]
+    return recs
+
+
+def ray_fan(n_side, w, device, height=20.0, spread=0.6, length=25.0):
+    """An n_side x n_side fan of rays a world from (0, height, 0) down over
+    ±spread of the length: (origin, direction) [w, n_side², 3]."""
+    a = np.linspace(-spread, spread, n_side)
+    aa, bb = np.meshgrid(a, a)
+    d = np.stack([aa, -np.ones_like(aa), bb], -1).reshape(-1, 3) * length
+    o = np.broadcast_to(np.array([0.0, height, 0.0]), d.shape)
+    def rep(x):
+        return torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+            x, (w,) + x.shape)).astype(np.float32), device=device)
+    return rep(o), rep(d)
+
+
+def phase_queries(engine, state):
+    """cast_ray (a 16 x 16 fan a world) and sphere_cast (8 x 8, radius
+    0.1) on the settled terrain flagship at W worlds: ms a call (CUDA
+    events); hits, colliders and bodies equal card vs CPU on QUERY_WORLDS
+    worlds, times of impact within 1e-5."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.physics import queries
+    t = engine.physics
+    ph = state.physics
+    cpu = convert.physics_state(convert.to_numpy(world_slice(
+        ph, QUERY_WORLDS)), device="cpu")
+    out = []
+    for name, n_side, fn in (
+            ("cast_ray", 16, lambda s, o, d: queries.cast_ray(s, t, o, d)),
+            ("sphere_cast", 8,
+             lambda s, o, d: queries.sphere_cast(s, t, o, d, 0.1))):
+        o, d = ray_fan(n_side, WORLDS, "cuda")
+        got = fn(ph, o, d)
+        ms = cuda_ms(lambda: fn(ph, o, d), 5)
+        ref = fn(cpu, o[:QUERY_WORLDS].cpu(), d[:QUERY_WORLDS].cpu())
+        hit = ref["hit"]
+        for k in ("hit", "collider", "body"):
+            if not torch.equal(got[k][:QUERY_WORLDS].cpu(), ref[k]):
+                fail(f"queries: {name} {k} differs card vs CPU")
+        dt = (got["toi"][:QUERY_WORLDS].cpu()[hit] - ref["toi"][hit]).abs()
+        if not (int(hit.sum()) > 0 and int((~hit).sum()) > 0
+                and float(dt.max()) < 1e-5):
+            fail(f"queries: {name} hits {int(hit.sum())}, toi card vs CPU "
+                 f"{float(dt.max()):.3g}")
+        out.append(f"{name} ({n_side * n_side} rays a world) {ms:.3f} ms a "
+                   f"call, {int(got['hit'].sum())} hits of "
+                   f"{got['hit'].numel()}, toi card vs CPU "
+                   f"{float(dt.max()):.3g}")
+    log(f"[queries] settled terrain flagship, W={WORLDS}: " + "; ".join(out)
+        + f"; hits, colliders and bodies equal card vs CPU on "
+        f"{QUERY_WORLDS} worlds on {CARD}")
 
 
 # ---------------------------------------------------------------- render
@@ -2883,6 +3501,17 @@ def main():
                                         capture_dense_calls(engine, rolled))
     phase_health(engine, rolled)
     del engine, skin, rolled
+    phase_terrain_small()
+    t0 = time.perf_counter()
+    engine, skin = terrain_engine(TERRAIN_FLAGSHIP, **TERRAIN_BUILD)
+    log(f"[setup] terrain flagship templates built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    terrain_recs, settled = phase_terrain(engine, skin)
+    phase_queries(engine, settled)
+    del engine, skin, settled
+    engine, skin = terrain_engine(TERRAIN_PILE, broadphase="dense")
+    terrain_recs += phase_terrain_dense(engine, skin)
+    del engine, skin
     t0 = time.perf_counter()
     engine, skin = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000,
                                   broadphase_period=PERIOD)
@@ -2928,7 +3557,7 @@ def main():
     kg_dense["launches"] = n_dense["plane_gather"]
     ks_dense["launches"] = n_dense["plane_scatter"]
     records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b, k1m, kg_dense,
-               ks_dense]
+               ks_dense] + terrain_recs
     print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

@@ -59,3 +59,17 @@ def const_rows(arr, device, w, dtype=None) -> torch.Tensor:
     t = const(arr, device, dtype).unsqueeze(0).expand(w, -1).contiguous()
     _CONST_CACHE[key] = (arr, t)
     return t
+
+
+def dot3(a, b):
+    """a·b over the last axis (3), summed in index order, so that the card
+    and the CPU round it alike (torch.sum's reduction order differs
+    between them)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def sqrt_rn(x):
+    """The correctly rounded square root on either device: the card's
+    float32 sqrt is; the CPU's is not always, its float64 one rounded to
+    float32 is."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(x.dtype)

@@ -20,6 +20,7 @@ from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
 from fyrox_tpu_torch.core.curve import CurveSet
 from fyrox_tpu_torch.engine import AnimState, Engine, EngineState
 from fyrox_tpu_torch.physics.broadphase import SlabCandidates, SlabConfig
+from fyrox_tpu_torch.physics.convex import ConvexSet
 from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
 from fyrox_tpu_torch.render.mesh import MeshData
@@ -100,12 +101,8 @@ def joint_set(j) -> JointSet:
 def physics_template(t) -> PhysicsTemplate:
     """A JAX-package PhysicsTemplate → the port's: a slab template with its
     SlabConfig, a dense one with its pair list, kind ranges and compaction
-    width; joints and centre-of-mass offsets come along, the parts the port
-    has no counterpart for (hulls, scenery, the grid broadphase) raise."""
-    if getattr(t, "hulls", None) is not None:
-        raise NotImplementedError("convex hulls (incl. cylinder/cone)")
-    if any(getattr(t, k, None) is not None for k in ("col_hf", "col_tm")):
-        raise NotImplementedError("heightfield/trimesh scenery")
+    width; joints, centre-of-mass offsets, convex hulls and heightfield /
+    trimesh scenery come along; the grid broadphase raises."""
     names = ("body_node", "body_type", "inv_mass", "inv_inertia_local",
              "com_local", "lin_damping", "ang_damping", "gravity_scale",
              "col_body", "col_shape", "col_params", "col_pos", "col_rot",
@@ -115,11 +112,16 @@ def physics_template(t) -> PhysicsTemplate:
              "restitution_threshold", "n_substeps", "n_pgs",
              "n_stabilization", "warmstart_coefficient", "mass_split_pow",
              "gravity", "broadphase_period", "pair_a", "pair_b",
-             "pair_kind_ranges", "max_active_pairs")
+             "pair_kind_ranges", "max_active_pairs", "col_hull",
+             "hf_heights", "hf_size", "col_hf", "tm_tris", "tm_mask",
+             "col_tm")
     out = _copy(t, PhysicsTemplate, names)
     out.grid = None if t.grid is None else slab_config(t.grid)
     if getattr(t, "joints", None) is not None:
         out.joints = joint_set(t.joints)
+    if getattr(t, "hulls", None) is not None:
+        out.hulls = ConvexSet(*(np.asarray(getattr(t.hulls, f))
+                                for f in ConvexSet._fields))
     return out
 
 

@@ -136,7 +136,9 @@ __device__ Pose collider_pose(const float* body, int B, const int* col_body,
   return o;
 }
 
-// slab2._aabb_planes for a ball / cuboid / capsule (grid colliders)
+// slab2._aabb_planes for a ball / cuboid / capsule / cylinder / cone (grid
+// colliders; shape is the collider's own tag, 3 and 4 the cylinder and
+// the cone)
 __device__ void collider_aabb(const Pose& o, int shape, const float* col_sta,
                               int C, int c, float cap, float margin,
                               float* amin, float* amax) {
@@ -144,9 +146,12 @@ __device__ void collider_aabb(const Pose& o, int shape, const float* col_sta,
   float a[9];
   for (int k = 0; k < 9; ++k) a[k] = fabsf(r.m[k]);
   const float p0 = col_sta[c], p1 = col_sta[C + c], p2 = col_sta[2 * C + c];
+  const bool cyl = shape == 3 || shape == 4;
   float hx, hy, hz;
   if (shape == kCuboid) {
     hx = p0; hy = p1; hz = p2;
+  } else if (cyl) {   // cylinder / cone: rot_box(p1, p0, p1)
+    hx = p1; hy = p0; hz = p1;
   } else {      // capsule: rot_box(p1, p0 + p1, p1)
     hx = p1; hy = add(p0, p1); hz = p1;
   }
@@ -156,7 +161,7 @@ __device__ void collider_aabb(const Pose& o, int shape, const float* col_sta,
     float he;
     if (shape == kBall)
       he = p0;
-    else if (shape == kCuboid || shape == kCapsule)
+    else if (shape == kCuboid || shape == kCapsule || cyl)
       he = add(add(mul(a[3 * i], hx), mul(a[3 * i + 1], hy)),
                mul(a[3 * i + 2], hz));
     else

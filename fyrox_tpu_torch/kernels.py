@@ -36,11 +36,11 @@ BUILD_ROOT = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name → argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _VP],
     "fyrox_plane_scatter": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_tgs_solve": [_VP] * 21 + [_I] * 12 + [_F] * 10 + [_VP],
     "fyrox_fused_bp": [_VP] * 12 + [_I] * 12 + [_F] * 5 + [_VP],

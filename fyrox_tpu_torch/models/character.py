@@ -20,7 +20,8 @@ from fyrox_tpu_torch.scene import NodeType, SceneBuilder
 from fyrox_tpu_torch.scene import graph as graph_mod
 from fyrox_tpu_torch.scene import init_state
 
-__all__ = ["build_flagship", "build_character_scene", "build_pile_scene"]
+__all__ = ["build_flagship", "build_character_scene", "build_pile_scene",
+           "assemble_flagship"]
 
 # slab windows sized from the measured demand of the settled 1k pile
 SLAB_WINDOW = (12, 8, 10)
@@ -131,11 +132,9 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
     FYROX_SLAB_BP_PERIOD), with its wider windows. A smaller pile takes
     the dense broadphase, all P pairs in the compact contact layout, or
     compacted into max_active_pairs slots a step where that is given."""
-    sb, aset, mt, bones, (verts, idx4, w4) = build_character_scene(
+    sb, aset, mt, bones, skin_data = build_character_scene(
         n_bones=n_bones, n_verts=n_verts, seed=seed)
     pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
-    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
-    template = sb.build()
     if n_bodies >= 192:
         reuse = broadphase_period > 1
         pt = pb.build(broadphase="slab",
@@ -146,7 +145,16 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
     else:
         pt = pb.build(max_active_pairs=max_active_pairs or 0,
                       broadphase="dense")
-    # inverse bind poses from the initial hierarchy
+    return assemble_flagship(sb, pt, aset, mt, bones, skin_data)
+
+
+def assemble_flagship(sb, pt, aset, mt, bones, skin_data):
+    """The flagship's tail: a camera, the scene template, the skin's
+    inverse bind poses from the initial hierarchy and the Engine. Returns
+    (Engine, SkinTemplate)."""
+    verts, idx4, w4 = skin_data
+    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    template = sb.build()
     st = graph_mod.update_hierarchical_data(
         init_state(template, 1, device="cpu"), template)
     bind = st.globals_[0].numpy()

@@ -14,7 +14,8 @@ windows (``fyrox_tpu.physics.broadphase`` slab path).
    overlap first: the rapier prediction-distance AABBs (``tight_delta``),
    or, under temporal broadphase reuse, the current step's own AABBs
    beside the period-fattened ones (``amin_tight`` / ``amax_tight``);
-4. "big" colliders (halfspaces) get one static slot per class.
+4. "big" colliders (halfspaces, heightfields, trimeshes) get one static
+   slot per class.
 
 Candidates are directed: (i, j) comes from i's window and (j, i) from j's.
 """
@@ -123,11 +124,14 @@ def build_slab_config(col_shape, col_params, col_body, body_type,
             bound[i] = float(np.linalg.norm(p[:3]))
         elif t == sh.CAPSULE:
             bound[i] = float(np.linalg.norm([p[1], p[0] + p[1], p[1]]))
-        elif t == sh.HALFSPACE:
-            bound[i] = np.inf
+        elif t in (sh.CYLINDER, sh.CONE):
+            bound[i] = float(np.linalg.norm([p[1], p[0], p[1]]))
+        elif t == sh.CONVEX:
+            bound[i] = p[0]          # the hull's radius bound
         else:
-            raise NotImplementedError(
-                f"shape {t} in the torch port's slab broadphase")
+            # halfspace and scenery: broadphase-big partners, one static
+            # slot per grid collider per class
+            bound[i] = np.inf
     finite = np.isfinite(bound)
     med = np.median(bound[finite]) if finite.any() else 1.0
     big = ~finite | (bound > big_factor * max(med, 1e-6))

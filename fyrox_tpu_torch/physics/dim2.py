@@ -5,14 +5,15 @@ Equivalent of the reference's scene/dim2/ module (collider.rs:195
 ColliderShape over rapier2d). A z-locked 3D world is a 2D world: every 2D
 shape maps to a z-extruded 3D shape and every body gets the dim2 locks (z
 translation, x/y rotation), so one solver and one broadphase serve both
-dimensions. Circles, rectangles, capsules, segments and polylines (thin
-boxes), halfspaces and revolute joints are ported; triangles (convex
-prisms) and heightfields raise NotImplementedError, as hulls and scenery
-do in 3D.
+dimensions: circles, rectangles, capsules, segments and polylines (thin
+boxes), triangles (z-extruded convex prisms), heightfields (a 1D profile
+extruded along z), halfspaces and revolute joints.
 """
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics.joints import JointKind
@@ -66,12 +67,19 @@ class Physics2DBuilder:
             offset=mid, offset_rot=q, **kw)
 
     def add_triangle(self, body, a, b, c, **kw) -> int:
-        raise NotImplementedError("dim2 triangles are convex prisms; convex "
-                                  "hulls are not ported")
+        """TriangleShape as a z-extruded convex prism."""
+        pts = [(x, y, z) for (x, y) in (a, b, c)
+               for z in (-EXTRUDE_HALF, EXTRUDE_HALF)]
+        return self.pb.add_collider(body, sh.CONVEX,
+                                    points=np.asarray(pts, np.float32), **kw)
 
     def add_heightfield(self, body, heights, size_x, **kw) -> int:
-        raise NotImplementedError("dim2 heightfields; heightfield scenery "
-                                  "is not ported")
+        """1D heightfield (HeightfieldShape): heights [Rx] over a centred x
+        range, flat along z."""
+        h = np.asarray(heights, np.float32)
+        return self.pb.add_collider(body, sh.HEIGHTFIELD,
+                                    heights=np.stack([h, h], 0),
+                                    size=(size_x, 2.0 * EXTRUDE_HALF), **kw)
 
     def add_polyline(self, body, points, thickness=0.05, **kw) -> list:
         """TrimeshShape's dim2 reality is a polyline: one thin box per

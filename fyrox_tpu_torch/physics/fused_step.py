@@ -72,12 +72,15 @@ def reset_launches():
 
 def supports_fused(t) -> bool:
     """K2 scope (pallas_step.supports_fused): no joints, no centre-of-mass
-    offsets and at least one window class. Jointed and COM templates take
-    the staged route, whose K1 call carries the joint tables; hulls and
-    scenery raise in slab2._ctx before a route is chosen."""
+    offsets, no heightfield / trimesh scenery, no convex hull tables and at
+    least one window class. Other templates take the staged route, whose
+    K1 call carries the joint tables and whose narrowphase has the hull
+    and scenery parts."""
     joints = getattr(t, "joints", None)
+    cx = slab2._ctx(t)
     return (not np.any(np.asarray(t.com_local))
             and (joints is None or joints.num_joints == 0)
+            and not cx.scenery and cx.hull_rows is None
             and any(t.grid.nslot(c) for c in range(3)))
 
 

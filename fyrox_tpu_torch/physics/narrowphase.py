@@ -17,11 +17,18 @@ each routine on its own contiguous slice and emits the compact layout
 has pairs of any kind in its slots and runs every routine on every slot,
 selecting by kind (``generate_contacts``).
 
+Convex hulls (CONVEX, and cylinders / cones with their registered 12-gon
+hulls) go through the SAT routines of physics/convex.py, and pairs with a
+heightfield or trimesh through the point-sample routines of
+physics/scenery.py; the template's hull and scenery tables reach them as
+the per-pair host arrays of ``_hull_gather`` / ``_scenery_kernel``, in
+slices of at most ``CHUNK_SLOTS`` (world, pair) slots so that the
+routines' [slots, faces, vertices, 3] intermediates stay bounded.
+
 Where JAX's reductions choose an index (argmin / argmax over 3 axes, the 4
-deepest of a box's 8 corners), the port counts comparisons, so ties go to
-the lowest index as XLA's do, on either device. Convex hulls and scenery
-(heightfields, trimeshes) are not ported: ``flat_contact_layout`` raises
-NotImplementedError on their kinds.
+deepest of a box's 8 corners, a hull's face or support vertex), the port
+counts comparisons or takes the lowest index among equals, so ties go the
+way XLA's do, on either device.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ from fyrox_tpu_torch.physics import shapes as sh
 
 __all__ = ["Manifold", "generate_contacts", "generate_contacts_flat",
            "flat_contact_layout", "effective_kind", "KIND_POINTS",
-           "KIND_KERNELS"]
+           "KIND_KERNELS", "CLASS_COMBOS_CONVEX", "convex_pair",
+           "scenery_pair", "CHUNK_SLOTS"]
 
 _EPS = 1e-9
 _UP = np.array([0.0, 1.0, 0.0], np.float32)
@@ -402,7 +410,8 @@ def _k_capsule_halfspace(pa6, pos_a, rot_a, pb6, pos_b, rot_b, pred):
 
 
 def effective_kind(t):
-    """Cylinder and cone collapse onto their capsule proxy (host int)."""
+    """Cylinder and cone collapse onto their capsule proxy (host int); the
+    dense builder sends those with a registered hull to CONVEX."""
     return sh.CAPSULE if t in (sh.CYLINDER, sh.CONE) else t
 
 
@@ -419,8 +428,8 @@ KIND_KERNELS = {
     (sh.CAPSULE, sh.HALFSPACE): _k_capsule_halfspace,
 }
 
-# useful manifold points per canonical pair kind of the ported shapes: the
-# compact dense layout gives each pair this many contact slots
+# useful manifold points per canonical pair kind: the compact dense layout
+# gives each pair this many contact slots
 KIND_POINTS = {
     (sh.BALL, sh.BALL): 1,
     (sh.BALL, sh.CUBOID): 1,
@@ -431,19 +440,222 @@ KIND_POINTS = {
     (sh.CUBOID, sh.HALFSPACE): 4,
     (sh.CAPSULE, sh.CAPSULE): 1,
     (sh.CAPSULE, sh.HALFSPACE): 2,
+    (sh.BALL, sh.CONVEX): 1,
+    (sh.CUBOID, sh.CONVEX): 4,
+    (sh.CAPSULE, sh.CONVEX): 2,
+    (sh.HALFSPACE, sh.CONVEX): 4,
+    (sh.CONVEX, sh.CONVEX): 4,
+    (sh.BALL, sh.HEIGHTFIELD): 1,
+    (sh.CAPSULE, sh.HEIGHTFIELD): 2,
+    (sh.CUBOID, sh.HEIGHTFIELD): 4,
+    (sh.CONVEX, sh.HEIGHTFIELD): 4,
+    (sh.BALL, sh.TRIMESH): 1,
+    (sh.CAPSULE, sh.TRIMESH): 2,
+    (sh.CUBOID, sh.TRIMESH): 4,
+    (sh.CONVEX, sh.TRIMESH): 4,
 }
+
+# (world, pair) slots of one hull or scenery routine call: a slice's
+# [slots, 64, 32, 3] edge-axis intermediates take ~24 KB a slot
+CHUNK_SLOTS = 1 << 16
+
+
+def _chunked(fn, w, n, *args):
+    """fn over pair slices of at most CHUNK_SLOTS // w pairs: every tensor
+    arg is [*, n, ...] along axis 1 (or has 1 there, broadcast), a Python
+    scalar passes as is; the Manifolds concatenate along axis 1."""
+    step = max(1, CHUNK_SLOTS // max(w, 1))
+    if n <= step:
+        return fn(*args)
+    outs = []
+    for s0 in range(0, n, step):
+        s1 = min(n, s0 + step)
+        outs.append(fn(*(a[:, s0:s1] if torch.is_tensor(a) and a.dim() >= 2
+                         and a.shape[1] == n else a for a in args)))
+    return Manifold(*(torch.cat(parts, 1) for parts in zip(*outs)))
+
+
+def scenery_pair(ka, kb, hull_a, tab, pa6, pos_a, rot_a, pos_b, rot_b,
+                 pred):
+    """A canonical (dynamic kind, HEIGHTFIELD | TRIMESH) pair through the
+    point-sample routines: sample the dynamic shape, contact every sample
+    with the surface, keep the 4 deepest (narrowphase.py:462). hull_a:
+    (verts, vmask) of a CONVEX A side; tab: per-pair (heights, size_x,
+    size_z) or (tris, mask) tensors."""
+    from fyrox_tpu_torch.physics import scenery as sc_mod
+    from fyrox_tpu_torch.physics.convex import pick, pick3, top_k_first
+    samples, radius = sc_mod.sample_points_for(ka, pa6, pos_a, rot_a,
+                                               hull=hull_a)
+    predn = pred if torch.is_tensor(pred) else torch.full(
+        pos_a.shape[:-1], float(pred), device=pos_a.device)
+    if kb == sh.HEIGHTFIELD:
+        normal, p_w, depth, active = sc_mod.points_heightfield(
+            samples, radius, pos_b, rot_b, *tab, predn)
+    else:
+        # a two-sided distance cannot represent the penetration of a
+        # zero-radius sample: every sample gets a collision margin
+        radius = torch.clamp(radius, min=0.04)
+        normal, p_w, depth, active = sc_mod.points_trimesh(
+            samples, radius, pos_b, rot_b, *tab, predn)
+    n_s = depth.shape[-1]
+    if n_s <= 4:
+        pad = 4 - n_s
+        return Manifold(
+            normal, torch.cat([p_w, p_w.new_zeros(p_w.shape[:-2] + (pad, 3))],
+                              -2),
+            torch.cat([depth, depth.new_full(depth.shape[:-1] + (pad,),
+                                             -1e9)], -1),
+            torch.cat([active, active.new_zeros(active.shape[:-1] + (pad,))],
+                      -1))
+    top_d, top_i = top_k_first(torch.where(active, depth, -1e9), 4)
+    act = pick(active, top_i) & (top_d > -1e8)
+    return Manifold(normal, pick3(p_w, top_i), pick(depth, top_i), act)
+
+
+def _scenery_kernel(ka, kb, scenery_ctx, hull_ctx, args, sl):
+    """A kind-range slice of (ka, HEIGHTFIELD | TRIMESH) pairs with the
+    template's host tables, in slices of CHUNK_SLOTS slots."""
+    dev = args[1].device
+    hull_a = (tuple(const(x, dev)[None]
+                    for x in _hull_gather(hull_ctx, 0, sl)[:2])
+              if ka == sh.CONVEX else ())
+    tab = tuple(const(x, dev)[None]
+                for x in _scenery_rows(scenery_ctx, kb, sl))
+    nh = len(hull_a)
+
+    def run(pa6, pos_a, rot_a, _pb6, pos_b, rot_b, pred, *rows):
+        return scenery_pair(ka, kb, rows[:nh] or None, rows[nh:], pa6, pos_a,
+                            rot_a, pos_b, rot_b, pred)
+
+    return _chunked(run, args[1].shape[0], sl.stop - sl.start, *args,
+                    *hull_a, *tab)
+
+
+def _scenery_rows(scn_ctx, kb, sl):
+    """Static per-pair scenery tables of one kind-range slice, built once
+    per context: heightfield (heights, size_x, size_z), trimesh (tris,
+    mask)."""
+    (hf_heights, hf_size, col_hf, tm_tris, tm_mask, col_tm, _pair_a,
+     pair_b) = scn_ctx
+    key = (kb, sl.start, sl.stop)
+    cache = _ROWS_CACHE.setdefault(id(pair_b), (pair_b, {}))[1]
+    if key not in cache:
+        if kb == sh.HEIGHTFIELD:
+            idx = col_hf[pair_b[sl]]
+            cache[key] = (np.ascontiguousarray(hf_heights[idx]),
+                          np.ascontiguousarray(hf_size[idx, 0]),
+                          np.ascontiguousarray(hf_size[idx, 1]))
+        else:
+            idx = col_tm[pair_b[sl]]
+            cache[key] = (np.ascontiguousarray(tm_tris[idx]),
+                          np.ascontiguousarray(tm_mask[idx]))
+    return cache[key]
+
+
+_ROWS_CACHE: dict = {}
+
+
+def _hull_gather(hull_ctx, side, sl, cut=False):
+    """Static per-pair hull arrays (verts, vmask, normals, nmask) of one
+    kind-range slice (side 0: the pairs' A colliders, 1: B), built once
+    per context; with `cut`, cut to the template's hull_widths (the SAT
+    routines' inputs)."""
+    from fyrox_tpu_torch.physics.convex import hull_widths
+    hulls, col_hull, pair_a, pair_b = hull_ctx
+    pairs = pair_a if side == 0 else pair_b
+    key = (side, sl.start, sl.stop, cut)
+    cache = _ROWS_CACHE.setdefault(id(pairs), (pairs, {}))[1]
+    if key not in cache:
+        idx = col_hull[pairs[sl]]
+        nv, nf = (hull_widths(hulls.vmask, hulls.nmask) if cut
+                  else hulls.vmask.shape[1:] + hulls.nmask.shape[1:])
+        cache[key] = tuple(np.ascontiguousarray(x[idx][:, :n]) for x, n in
+                           ((hulls.verts, nv), (hulls.vmask, nv),
+                            (hulls.normals, nf), (hulls.nmask, nf)))
+    return cache[key]
+
+
+def _capsule_convex(pa6, pos_a, rot_a, pos_b, rot_b, vb, vmb, nb, nmb, pred):
+    """Capsule vs hull: a ball at each segment end; the deeper end's
+    normal (narrowphase.py:530)."""
+    from fyrox_tpu_torch.physics import convex as cx
+    a0, a1 = _segment_endpoints(pos_a, rot_a, pa6[..., 0])
+    ra = pa6[..., 1]
+    m0 = cx.ball_convex(a0, ra, pos_b, rot_b, vb, vmb, nb, nmb, pred)
+    m1 = cx.ball_convex(a1, ra, pos_b, rot_b, vb, vmb, nb, nmb, pred)
+    deeper0 = m0.depth[..., 0] >= m1.depth[..., 0]
+    normal = torch.where(deeper0[..., None], m0.normal, m1.normal)
+    return Manifold(
+        normal,
+        torch.cat([m0.points[..., :1, :], m1.points[..., :1, :],
+                   m0.points[..., 2:, :]], -2),
+        torch.cat([m0.depth[..., :1], m1.depth[..., :1], m0.depth[..., 2:]],
+                  -1),
+        torch.cat([m0.active[..., :1], m1.active[..., :1],
+                   m0.active[..., 2:]], -1))
+
+
+# convex combos per manifold-size class (canonical effective kinds): the
+# slab path's hull routines (fyrox_tpu/physics/narrowphase.py:604,
+# physics/slab2.py _convex_parts)
+CLASS_COMBOS_CONVEX = {
+    0: [(sh.BALL, sh.CONVEX)],
+    1: [(sh.CAPSULE, sh.CONVEX)],
+    2: [(sh.CUBOID, sh.CONVEX), (sh.HALFSPACE, sh.CONVEX),
+        (sh.CONVEX, sh.CONVEX)],
+}
+
+
+def convex_pair(ka, hull_a, hull_b, pa6, pos_a, rot_a, pos_b, rot_b, pred):
+    """A canonical (ka, CONVEX) pair: hull_a / hull_b are (verts, vmask,
+    normals, nmask) tensors (hull_a only for a CONVEX A side)."""
+    from fyrox_tpu_torch.physics import convex as cx
+    vb, vmb, nb, nmb = hull_b
+    if ka == sh.BALL:
+        return cx.ball_convex(pos_a, pa6[..., 0], pos_b, rot_b, vb, vmb, nb,
+                              nmb, pred)
+    if ka == sh.CUBOID:
+        va, vma, na, nma = cx.box_as_hull(pa6[..., :3], vb.shape[-2],
+                                          nb.shape[-2])
+        return cx.convex_convex(pos_a, rot_a, va, vma, na, nma, pos_b, rot_b,
+                                vb, vmb, nb, nmb, pred)
+    if ka == sh.CAPSULE:
+        return _capsule_convex(pa6, pos_a, rot_a, pos_b, rot_b, vb, vmb, nb,
+                               nmb, pred)
+    if ka == sh.HALFSPACE:
+        m = cx.convex_halfspace(pos_b, rot_b, vb, vmb, pos_a, rot_a, pred)
+        return Manifold(-m.normal, m.points, m.depth, m.active)
+    if ka == sh.CONVEX:
+        return cx.convex_convex(pos_a, rot_a, *hull_a, pos_b, rot_b, vb, vmb,
+                                nb, nmb, pred)
+    raise NotImplementedError((ka, sh.CONVEX))
+
+
+def _convex_kernel(ka, hull_a, hull_b, pa6, pos_a, rot_a, pb6, pos_b, rot_b,
+                   pred):
+    """A canonical (ka, CONVEX) pair slice with host hull arrays
+    (narrowphase.py:517)."""
+    dev = pos_a.device
+
+    def dev_rows(h):
+        return None if h is None else tuple(const(x, dev)[None] for x in h)
+
+    ha, hb = dev_rows(hull_a), dev_rows(hull_b)
+
+    def run(pa6, pos_a, rot_a, pos_b, rot_b, pred, *hulls):
+        n_a = 4 if ka == sh.CONVEX else 0
+        return convex_pair(ka, hulls[:n_a] or None, hulls[n_a:], pa6, pos_a,
+                           rot_a, pos_b, rot_b, pred)
+
+    return _chunked(run, pos_a.shape[0], pos_a.shape[1], pa6, pos_a, rot_a,
+                    pos_b, rot_b, pred, *((ha or ()) + hb))
 
 
 def flat_contact_layout(kind_ranges):
     """(pair_idx [K] int32, K): the pair of each slot of the compact dense
-    layout, KIND_POINTS[kind] slots a pair. Raises on the kinds of convex
-    hulls and scenery, which are not ported."""
+    layout, KIND_POINTS[kind] slots a pair."""
     idx = []
     for (ka, kb), s0, s1 in kind_ranges:
-        if (ka, kb) not in KIND_POINTS:
-            raise NotImplementedError(
-                f"contacts of shape kinds {ka} and {kb} (convex hulls, "
-                "heightfields, trimeshes) are not ported")
         npts = KIND_POINTS[(ka, kb)]
         for p in range(s0, s1):
             idx.extend([p] * npts)
@@ -451,19 +663,32 @@ def flat_contact_layout(kind_ranges):
 
 
 def generate_contacts_flat(kind_ranges, params_a, pos_a, rot_a,
-                           params_b, pos_b, rot_b, pred):
+                           params_b, pos_b, rot_b, pred, hull_ctx=None,
+                           scenery_ctx=None):
     """Kind-grouped narrowphase over the kind-sorted pair list [W,P]
     emitting the compact layout: dict(normal [W,K,3], point [W,K,3], depth
     [W,K], active [W,K]), K from flat_contact_layout. pred: [W,P] per-pair
-    prediction distance (or a scalar)."""
+    prediction distance (or a scalar). hull_ctx = (ConvexSet, col_hull,
+    pair_a, pair_b) and scenery_ctx = (hf_heights, hf_size, col_hf,
+    tm_tris, tm_mask, col_tm, pair_a, pair_b), the template's host arrays,
+    where the pairs hold hulls or scenery."""
     normals, points, depths, actives = [], [], [], []
     for (ka, kb), s0, s1 in kind_ranges:
         npts = KIND_POINTS[(ka, kb)]
+        sl = slice(s0, s1)
         pr = pred[:, s0:s1] if torch.is_tensor(pred) and pred.dim() >= 2 \
             else pred
-        m = KIND_KERNELS[(ka, kb)](
-            params_a[:, s0:s1], pos_a[:, s0:s1], rot_a[:, s0:s1],
-            params_b[:, s0:s1], pos_b[:, s0:s1], rot_b[:, s0:s1], pr)
+        args = (params_a[:, sl], pos_a[:, sl], rot_a[:, sl],
+                params_b[:, sl], pos_b[:, sl], rot_b[:, sl], pr)
+        if kb == sh.CONVEX:
+            m = _convex_kernel(
+                ka, _hull_gather(hull_ctx, 0, sl, cut=True)
+                if ka == sh.CONVEX else None,
+                _hull_gather(hull_ctx, 1, sl, cut=True), *args)
+        elif kb in (sh.HEIGHTFIELD, sh.TRIMESH):
+            m = _scenery_kernel(ka, kb, scenery_ctx, hull_ctx, args, sl)
+        else:
+            m = KIND_KERNELS[(ka, kb)](*args)
         w = m.points.shape[0]
         normals.append(repeat_slots(m.normal, npts))
         points.append(m.points[:, :, :npts].reshape(w, -1, 3))
@@ -484,10 +709,16 @@ def _sel(cond, m_true: Manifold, m_false: Manifold) -> Manifold:
 
 def generate_contacts(type_a, params_a, pos_a, rot_a,
                       type_b, params_b, pos_b, rot_b, pred):
-    """Manifolds of canonical pair-aligned collider arrays of any ported
-    kinds (compacted mode): every routine runs on every slot and the
-    pair's kind selects. type_* [...] int; params_* [...,6]; pos_* [...,3];
+    """Manifolds of canonical pair-aligned collider arrays (compacted
+    mode): every primitive routine runs on every slot and the pair's kind
+    selects; cylinders and cones take their capsule proxy, and hulls and
+    scenery, which this mode does not carry, get no contact, as in the
+    JAX package. type_* [...] int; params_* [...,6]; pos_* [...,3];
     rot_* [...,3,3]."""
+    def eff(t):
+        return torch.where((t == sh.CYLINDER) | (t == sh.CONE), sh.CAPSULE, t)
+
+    type_a, type_b = eff(type_a), eff(type_b)
     ra = params_a[..., 0]
     half_a = params_a[..., :3]
     hh_a, rcap_a = params_a[..., 0], params_a[..., 1]

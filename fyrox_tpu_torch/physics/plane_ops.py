@@ -2,7 +2,9 @@
 the slab broadphase.
 
 - K4a ``plane_gather``: ``out[w, a, k] = planes[w, a, idx[w, k]]``, where an
-  index below 0 or at or above N reads 0. Replaces
+  index below 0 or at or above N reads 0; planes [1, A, N] is one table
+  that every world reads (world stride 0), so that a table shared by the
+  worlds (heightfield corners, hull rows) is not copied W times. Replaces
   ``fyrox_tpu/physics/pallas_ops.py:171 plane_gather``; on the card it is
   ``csrc/plane_gather.cu``.
 - K4b ``plane_scatter``: ``out[w, a, b] = Σ_k vals[w, a, k]·[idx[w, k] == b]``,
@@ -37,13 +39,15 @@ def reset_launches():
         _LAUNCHES[k] = 0
 
 
-def _check(fn, x, idx, x_name):
+def _check(fn, x, idx, x_name, shared=False):
     """Raise unless x [W,A,*] float32 and idx [W,K] int32 are contiguous,
-    on one device and of matching worlds."""
+    on one device and of matching worlds (x may have one world where
+    `shared`)."""
     if x.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError(f"{fn}: {x_name} must be float32 and idx int32, got "
                         f"{x.dtype} / {idx.dtype}")
-    if x.dim() != 3 or idx.dim() != 2 or idx.shape[0] != x.shape[0]:
+    if x.dim() != 3 or idx.dim() != 2 or (
+            idx.shape[0] != x.shape[0] and not (shared and x.shape[0] == 1)):
         raise ValueError(f"{fn}: shapes {tuple(x.shape)} / "
                          f"{tuple(idx.shape)}, want [W,A,*] / [W,K]")
     if idx.device != x.device:
@@ -68,9 +72,11 @@ def _launch(name, out, *args):
 # --------------------------------------------------------------------------
 
 def plane_gather_plain(planes, idx):
-    """planes [W,A,N] f32, idx [W,K] int → [W,A,K]."""
-    w, a, n = planes.shape
-    k = idx.shape[1]
+    """planes [W,A,N] (or [1,A,N], read by every world) f32, idx [W,K]
+    int → [W,A,K]."""
+    _, a, n = planes.shape
+    w, k = idx.shape
+    planes = planes.expand(w, a, n)
     idx = idx.long()
     ok = (idx >= 0) & (idx < n)
     safe = torch.where(ok, idx, torch.zeros_like(idx))
@@ -79,14 +85,14 @@ def plane_gather_plain(planes, idx):
 
 
 def _plane_gather_cuda(planes, idx):
-    _check("plane_gather", planes, idx, "planes")
-    w, a, n = planes.shape
-    k = idx.shape[1]
+    _check("plane_gather", planes, idx, "planes", shared=True)
+    wp, a, n = planes.shape
+    w, k = idx.shape
     out = torch.empty((w, a, k), dtype=torch.float32, device=planes.device)
     if out.numel() == 0:
         return out
     return _launch("plane_gather", out, planes.data_ptr(), idx.data_ptr(),
-                   out.data_ptr(), w, a, n, k)
+                   out.data_ptr(), w, a, n, k, 0 if wp == 1 else a * n)
 
 
 def plane_gather(planes, idx):

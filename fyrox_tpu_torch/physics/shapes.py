@@ -1,10 +1,13 @@
 """Collider shape tags and host-side mass properties (collider.rs:511).
 
 Param layout (params[6], unused slots zero):
-  BALL [radius]; CUBOID [hx, hy, hz]; CAPSULE [half_height, radius]
-  (axis = local +Y); HALFSPACE [] (normal = local +Y through the origin).
-The tags of the other shapes are kept so templates stay comparable; the
-port's steps raise NotImplementedError on them.
+  BALL [radius]; CUBOID [hx, hy, hz]; CAPSULE, CYLINDER, CONE
+  [half_height, radius] (axis = local +Y, a cone's apex up); HALFSPACE []
+  (normal = local +Y through the origin); CONVEX [radius_bound] (its hull
+  lives on the template); HEIGHTFIELD [size_x, size_z, radius_bound] and
+  TRIMESH [radius_bound] (static scenery, their tables on the template).
+SEGMENT and TRIANGLE lower at build time (physics/world.py) to a
+zero-radius capsule and a one-cell trimesh; no template holds them.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ _HUGE = 1.0e9
 
 def shape_aabb_half_extents(shape_type, params, rot_mat):
     """Conservative world-axis half-extents [..., 3] of shapes rotated by
-    rot_mat [..., 3, 3] (fyrox_tpu.physics.shapes.shape_aabb_half_extents,
-    for the ported shapes): the ball's radius, the abs-matrix bound of a
-    box or of a capsule's [r, hh + r, r] box; a halfspace gets a huge box
-    (its bounds are set by the caller)."""
+    rot_mat [..., 3, 3] (fyrox_tpu.physics.shapes.shape_aabb_half_extents):
+    the ball's radius, the abs-matrix bound of a box, of a capsule's
+    [r, hh + r, r] box or of a cylinder's / cone's [r, hh, r] box, the
+    rotation-invariant radius bound of a hull or of scenery; a halfspace
+    gets a huge box (its bounds are set by the caller)."""
     r = params[..., 0]
     rad = params[..., 1]
     absm = torch.abs(rot_mat)
@@ -36,14 +40,22 @@ def shape_aabb_half_extents(shape_type, params, rot_mat):
     box = torch.sum(absm * params[..., None, :3], -1)
     cap = torch.sum(absm * torch.stack([rad, r + rad, rad], -1)[..., None, :],
                     -1)
+    cyl = torch.sum(absm * torch.stack([rad, r, rad], -1)[..., None, :], -1)
+    hf = torch.stack([params[..., 2]] * 3, -1)
     st = shape_type[..., None]
     return torch.where(st == BALL, ball,
            torch.where(st == CUBOID, box,
-           torch.where(st == CAPSULE, cap, torch.full_like(box, _HUGE))))
+           torch.where(st == CAPSULE, cap,
+           torch.where((st == CYLINDER) | (st == CONE), cyl,
+           torch.where((st == CONVEX) | (st == TRIMESH), ball,
+           torch.where(st == HEIGHTFIELD, hf,
+                       torch.full_like(box, _HUGE)))))))
 
 
 def mass_properties(shape_type: int, params: np.ndarray, density: float):
-    """(mass, local inertia [3,3]) of one primitive, parry's formulas."""
+    """(mass, local inertia [3,3]) of one shape, parry's formulas; scenery
+    carries no mass, and a hull's comes from its geometry
+    (convex.hull_mass), so CONVEX reads zero here."""
     p = np.asarray(params, np.float64)
     if shape_type == BALL:
         r = p[0]
@@ -71,6 +83,21 @@ def mass_properties(shape_type: int, params: np.ndarray, density: float):
         ix = i_cyl_x + i_sph_x
         iy = i_cyl_y + i_sph
         return m, np.diag([ix, iy, ix])
-    if shape_type == HALFSPACE:
+    if shape_type == CYLINDER:
+        hh, r = p[0], p[1]
+        h = 2.0 * hh
+        m = density * np.pi * r * r * h
+        iy = 0.5 * m * r * r
+        ix = m * (3.0 * r * r + h * h) / 12.0
+        return m, np.diag([ix, iy, ix])
+    if shape_type == CONE:
+        hh, r = p[0], p[1]
+        h = 2.0 * hh
+        m = density * np.pi * r * r * h / 3.0
+        iy = 0.3 * m * r * r
+        ix = (m * (3.0 / 20.0 * r * r + 3.0 / 80.0 * h * h)
+              + m * (h / 4.0) ** 2)
+        return m, np.diag([ix, iy, ix])
+    if shape_type in (HALFSPACE, HEIGHTFIELD, TRIMESH, CONVEX):
         return 0.0, np.zeros((3, 3))
-    raise NotImplementedError(f"shape type {shape_type} in the torch port")
+    raise ValueError(f"unsupported shape type {shape_type}")

@@ -37,14 +37,14 @@ import torch
 
 from fyrox_tpu_torch._util import const
 from fyrox_tpu_torch.physics import broadphase as bp_mod
-from fyrox_tpu_torch.physics import np_planes
+from fyrox_tpu_torch.physics import np_planes, plane_ops
 from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics import tgs_kernel
 from fyrox_tpu_torch.physics.joints import joint_table
-from fyrox_tpu_torch.physics.plane_ops import plane_gather, plane_gather_plain
-from fyrox_tpu_torch.physics.planes import (norm3, q_to_rot9, qmul, qrotate,
-                                            scale3, splat, sub3, where3,
-                                            where_n)
+from fyrox_tpu_torch.physics.planes import (add3, cross3, dot3, norm3,
+                                            q_to_rot9, qmul, qrotate,
+                                            rot9_apply, rot9_apply_t, scale3,
+                                            splat, sub3, where3, where_n)
 
 __all__ = ["step_slab2", "contacts", "solver_inputs", "pack_solver_inputs",
            "pack_contacts", "pack_body_planes", "joint_tables",
@@ -63,10 +63,6 @@ class _Ctx:
             raise NotImplementedError("the torch port steps slab templates "
                                       "only (dense and grid broadphases "
                                       "are not ported)")
-        shapes_ok = (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE)
-        if not np.all(np.isin(np.asarray(t.col_shape), shapes_ok)):
-            raise NotImplementedError("convex hulls, cylinders/cones and "
-                                      "heightfield/trimesh scenery")
         self.c, self.b = t.num_colliders, t.num_bodies
         self.cg = int(sc.grid_cols.size)
         self.s_active = int(sc.s_active)
@@ -135,6 +131,11 @@ class _Ctx:
                       np.linalg.norm(p[:, :3], axis=1), br)
         br = np.where(self.shape == sh.CAPSULE,
                       np.sqrt(2 * p[:, 1] ** 2 + (p[:, 0] + p[:, 1]) ** 2), br)
+        br = np.where((self.shape == sh.CYLINDER) | (self.shape == sh.CONE),
+                      np.sqrt(p[:, 0] ** 2 + 2 * p[:, 1] ** 2), br)
+        br = np.where(self.shape == sh.HEIGHTFIELD, p[:, 2], br)
+        br = np.where((self.shape == sh.TRIMESH) | (self.shape == sh.CONVEX),
+                      p[:, 0], br)
         self.bound_radius = np.where(np.isfinite(br), br,
                                      sh._HUGE).astype(np.float32)
         # static per-body coverage cap of a reuse window: half the smallest
@@ -150,6 +151,94 @@ class _Ctx:
                 offb[bi] = max(offb[bi],
                                float(np.linalg.norm(self.col_pos[ci])))
         self.body_cov_cap = np.maximum(capb - 2.0 * offb, 0.0)
+        self._hulls(t, sc)
+        self._scenery(t, sc)
+
+    def _hulls(self, t, sc):
+        """Hull tables of a scene with CONVEX colliders (None elsewhere):
+        hull_rows [1, 4·nv + 4·nf, C] (verts, vmask, normals, nmask a
+        collider, cut to hull_widths = (nv, nf): the JAX package's
+        hull_flat, attribute-major for K4a),
+        hull_verts [C,32,3], hull_vmask [C,32]; and per class, for each
+        convex combo whose kinds occur, the window columns whose self kind
+        is one of the combo's (the only columns that can hold such a pair)
+        and their self sides' hull rows [1,R,A] (cx_parts)."""
+        from fyrox_tpu_torch.physics import narrowphase as np_mod
+        from fyrox_tpu_torch.physics.convex import (MAX_HULL_FACES,
+                                                    MAX_HULL_VERTS,
+                                                    hull_widths)
+        self.hull_rows = self.hull_verts = self.hull_vmask = None
+        self.cx_parts = {}
+        if t.hulls is None or not np.any(self.shape == sh.CONVEX):
+            return
+        c = self.c
+        hv = np.zeros((c, MAX_HULL_VERTS, 3), np.float32)
+        hvm = np.zeros((c, MAX_HULL_VERTS), np.float32)
+        hn = np.zeros((c, MAX_HULL_FACES, 3), np.float32)
+        hn[..., 1] = 1.0
+        hnm = np.zeros((c, MAX_HULL_FACES), np.float32)
+        has = np.asarray(t.col_hull) >= 0
+        hi = np.maximum(np.asarray(t.col_hull), 0)
+        hv[has] = t.hulls.verts[hi[has]]
+        hvm[has] = t.hulls.vmask[hi[has]]
+        hn[has] = t.hulls.normals[hi[has]]
+        hnm[has] = t.hulls.nmask[hi[has]]
+        self.hull_verts, self.hull_vmask = hv, hvm
+        # the SAT routines' widths: the CONVEX colliders' largest hulls
+        cxc = self.shape == sh.CONVEX
+        nv, nf = self.hull_widths = hull_widths(hvm[cxc], hnm[cxc])
+        flat = np.concatenate([hv[:, :nv].reshape(c, -1), hvm[:, :nv],
+                               hn[:, :nf].reshape(c, -1), hnm[:, :nf]], -1)
+        self.hull_rows = np.ascontiguousarray(flat.T)[None]  # [1,A,C]
+        uniq = set(int(k) for k in np.unique(self.kinds))
+        for cls, combos in np_mod.CLASS_COMBOS_CONVEX.items():
+            ns = sc.nslot(cls)
+            if not ns:
+                continue
+            k_i = self.kinds[self.i_static[cls]]
+            # big partners sit in each window's last slots: never a hull
+            grid_slot = (np.arange(k_i.size) % ns) < sc.s_class[cls]
+            parts = []
+            for ka, kb in combos:
+                if ka not in uniq or kb not in uniq:
+                    continue
+                cols = np.flatnonzero(np.isin(k_i, (ka, kb)) & grid_slot)
+                if cols.size:
+                    parts.append(((ka, kb), cols.astype(np.int64),
+                                  np.ascontiguousarray(
+                                      flat[self.i_static[cls][cols]])[None]))
+            if parts:
+                self.cx_parts[cls] = parts
+
+    def _scenery(self, t, sc):
+        """Heightfield and trimesh big partners: their column in the big
+        slots, kind and lookup tables (heightfield corners as one [1,4,Rh]
+        table, the shifted copies that give a cell's 4 corner heights at
+        one index)."""
+        self.scenery = []
+        big_index = {int(ci): i for i, ci in enumerate(sc.big_cols)}
+        for ci in range(self.c):
+            k = int(self.shape[ci])
+            if k == sh.HEIGHTFIELD:
+                hf = int(t.col_hf[ci])
+                h = np.asarray(t.hf_heights[hf], np.float32)   # [Rz,Rx]
+                rz, rx = h.shape
+                h10 = np.concatenate([h[:, 1:], h[:, -1:]], 1)
+                h01 = np.concatenate([h[1:], h[-1:]], 0)
+                h11 = np.concatenate([h01[:, 1:], h01[:, -1:]], 1)
+                corners = np.stack([x.reshape(-1) for x in
+                                    (h, h10, h01, h11)])[None]  # [1,4,Rh]
+                self.scenery.append(dict(
+                    col=ci, kind=k, big=big_index[ci], corners=corners,
+                    rz=rz, rx=rx,
+                    sx=np.float32(t.hf_size[hf, 0]),
+                    sz=np.float32(t.hf_size[hf, 1])))
+            elif k == sh.TRIMESH:
+                tm = int(t.col_tm[ci])
+                self.scenery.append(dict(
+                    col=ci, kind=k, big=big_index[ci],
+                    tris=np.asarray(t.tm_tris[tm], np.float32),
+                    tmask=np.asarray(t.tm_mask[tm], bool)))
 
 
 def _ctx(t) -> _Ctx:
@@ -205,13 +294,21 @@ def _aabb_planes(cx: _Ctx, t, cpos, crot9, v_sweep, margin,
     ball = (p[0], p[0], p[0])
     box = rot_box(p[0], p[1], p[2])
     cap = rot_box(p[1], p[0] + p[1], p[1])
+    cyl = rot_box(p[1], p[0], p[1])
     huge = splat(sh._HUGE, cpos[0])
     is_ball, is_box, is_cap = shp == sh.BALL, shp == sh.CUBOID, \
         shp == sh.CAPSULE
+    is_cyl = (shp == sh.CYLINDER) | (shp == sh.CONE)
+    # scenery and hulls: their rotation-invariant radius bounds (the
+    # heightfield's in p[2], the trimesh's and the hull's in p[0])
+    is_hf = shp == sh.HEIGHTFIELD
+    is_r0 = (shp == sh.TRIMESH) | (shp == sh.CONVEX)
     he = []
     for i in range(3):
         h = torch.where(is_ball, ball[i], torch.where(
-            is_box, box[i], torch.where(is_cap, cap[i], huge)))
+            is_box, box[i], torch.where(is_cap, cap[i], torch.where(
+                is_cyl, cyl[i], torch.where(is_hf, p[2], torch.where(
+                    is_r0, p[0], huge))))))
         he.append(h + margin)
     cap3 = const(sc.sweep_cap, dev)[None]
     if two_sided:
@@ -262,7 +359,8 @@ def _gather_planes(planes, idx, plain=False):
     """List of [W,N] planes gathered at rows idx [W,K] → list of [W,K],
     one K4a plane gather for the whole list (its plain version where
     `plain`)."""
-    gather = plane_gather_plain if plain else plane_gather
+    gather = (plane_ops.plane_gather_plain if plain
+              else plane_ops.plane_gather)
     out = gather(torch.stack(planes, 1).contiguous(),
                  idx.to(torch.int32).contiguous())
     return list(out.unbind(1))
@@ -316,9 +414,10 @@ def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin,
         pos_a, pos_b = where3(sw, j_pos, i_pos), where3(sw, i_pos, j_pos)
         q_a, q_b = where_n(sw, j_q, i_q), where_n(sw, i_q, j_q)
         p6_a, p6_b = where_n(sw, j_p6, i_p6), where_n(sw, i_p6, j_p6)
+        rot_a, rot_b = q_to_rot9(q_a), q_to_rot9(q_b)
         m = np_planes.generate_class_planes(
-            cls, eff_a, eff_b, pos_a, q_to_rot9(q_a), p6_a, pos_b,
-            q_to_rot9(q_b), p6_b, pred, combos_present=cx.combos[cls])
+            cls, eff_a, eff_b, pos_a, rot_a, p6_a, pos_b, rot_b, p6_b, pred,
+            combos_present=cx.combos[cls])
 
         fric_p = torch.sqrt(torch.clamp(i_fric * j_fric, min=0.0))
         rest_p = torch.maximum(i_rest.expand_as(j_rest), j_rest)
@@ -344,9 +443,376 @@ def _narrowphase_windows(cx: _Ctx, t, cands, cpos, cq, v_sweep, margin,
             parts_i["body_j"].append(rsh(cand.body_j))
             parts_i["pid"].append(rsh(cand.pid * 4 + p_i))
 
+        # hull combos on the same windows, appended as extra parts (their
+        # primitive-pair slots come out inactive and compaction drops them)
+        if cls in cx.cx_parts:
+            mcx = _convex_parts(cx, cls, cand, sw, eff_a, eff_b, pos_a, rot_a,
+                                p6_a, pos_b, rot_b, pred, plain)
+            for p_i in range(npts):
+                for k, x in zip(("nx", "ny", "nz", "px", "py", "pz"),
+                                mcx.normal.unbind(-1)
+                                + mcx.points[..., p_i, :].unbind(-1)):
+                    parts_f[k].append(rsh(x))
+                parts_f["depth"].append(rsh(mcx.depth[..., p_i]))
+                parts_f["act"].append(rsh(
+                    (mcx.active[..., p_i] & cand.valid).to(torch.float32)))
+                parts_f["fric"].append(rsh(fric_p))
+                parts_f["rest"].append(rsh(rest_p))
+                parts_f["sigma"].append(rsh(sigma))
+                parts_f["own"].append(rsh(torch.full_like(valid,
+                                                          float(npts))))
+                parts_i["body_j"].append(rsh(cand.body_j))
+                parts_i["pid"].append(rsh(cand.pid * 4 + p_i))
+
+    if cx.scenery:
+        _scenery_parts(cx, t, cands, ig_all, cpos, cq, margin, parts_f,
+                       parts_i, plain)
+
     attrs_f = {k: torch.cat(v, dim=2) for k, v in parts_f.items()}
     attrs_i = {k: torch.cat(v, dim=2) for k, v in parts_i.items()}
     return attrs_f, attrs_i
+
+
+def _unpack_hull(rows, nv, nf):
+    """Hull rows [..., 4·nv + 4·nf] → (verts [...,nv,3], vmask, normals
+    [...,nf,3], nmask)."""
+    lead = rows.shape[:-1]
+    o1, o2 = 3 * nv, 4 * nv
+    return (rows[..., :o1].reshape(lead + (nv, 3)),
+            rows[..., o1:o2] > 0.5,
+            rows[..., o2:o2 + 3 * nf].reshape(lead + (nf, 3)),
+            rows[..., o2 + 3 * nf:] > 0.5)
+
+
+def _convex_parts(cx: _Ctx, cls, cand, sw, eff_a, eff_b, pos_a, rot_a, p6_a,
+                  pos_b, rot_b, pred, plain=False):
+    """Hull manifolds of class `cls` on its candidate windows
+    (fyrox_tpu/physics/slab2.py:560-622): each convex combo runs on the
+    window columns whose self kind is one of its kinds (no other column
+    can hold such a pair: those get no contact, as in the JAX package), in
+    slices of CHUNK_SLOTS slots, with the partner's hull rows through K4a
+    from the shared [1,A,C] table and the self side's static; a slot
+    takes the combo its kinds match. Returns a Manifold of [W, Kc]
+    slots."""
+    from fyrox_tpu_torch.physics import narrowphase as np_mod
+    gather = (plane_ops.plane_gather_plain if plain
+              else plane_ops.plane_gather)
+    dev = cand.j_real.device
+    w, kp = cand.j_real.shape
+    npts = bp_mod.CLASS_NPTS[cls]
+    table = const(cx.hull_rows, dev)                       # [1,A,C]
+    out = np_mod.Manifold(
+        torch.zeros((w, kp, 3), device=dev),
+        torch.zeros((w, kp, npts, 3), device=dev),
+        torch.full((w, kp, npts), -1e9, device=dev),
+        torch.zeros((w, kp, npts), dtype=torch.bool, device=dev))
+    step = max(1, np_mod.CHUNK_SLOTS // max(w, 1))
+
+    def v(planes, c_):
+        return torch.stack([p.expand(w, kp)[:, c_] for p in planes], -1)
+
+    for (ka, kb), cols_np, rows_np in cx.cx_parts[cls]:
+        cols = const(cols_np, dev)
+        rows_i = const(rows_np, dev)                       # [1,R,A]
+        for r0 in range(0, cols.numel(), step):
+            c_ = cols[r0:r0 + step]
+            r = c_.numel()
+            jh = gather(table, cand.j_real[:, c_].to(torch.int32)
+                        .contiguous()).transpose(1, 2)
+            ih = rows_i[:, r0:r0 + step].expand_as(jh)
+            s_ = sw[:, c_, None]
+            hull_a = _unpack_hull(torch.where(s_, jh, ih), *cx.hull_widths)
+            hull_b = _unpack_hull(torch.where(s_, ih, jh), *cx.hull_widths)
+            m = np_mod.convex_pair(
+                ka, hull_a, hull_b, v(p6_a, c_), v(pos_a, c_),
+                v(rot_a, c_).reshape(w, r, 3, 3), v(pos_b, c_),
+                v(rot_b, c_).reshape(w, r, 3, 3), pred[:, c_])
+            hit = (eff_a[:, c_] == ka) & (eff_b[:, c_] == kb)
+            m = np_mod.Manifold(m.normal, m.points[..., :npts, :],
+                                m.depth[..., :npts], m.active[..., :npts])
+            for dst, src in zip(out, m):
+                cond = hit.reshape(hit.shape + (1,) * (src.dim() - 2))
+                dst[:, c_] = torch.where(cond, src, dst[:, c_])
+    return out
+
+
+def _scenery_parts(cx: _Ctx, t, cands, ig_all, cpos, cq, margin, parts_f,
+                   parts_i, plain=False):
+    """Heightfield / trimesh big-partner contacts in plane form
+    (fyrox_tpu/physics/slab2.py:633-917): every grid collider's samples
+    (ball centre, capsule ends, box corners, hull vertices with the
+    padding parked at the origin) against each scenery collider, the
+    class's deepest samples kept with one shared normal, that of the
+    deepest; appended to the windows as width-1 parts per point. The
+    heightfield's corner heights come through K4a from one [1,4,Rz·Rx]
+    table, one gather for all samples."""
+    gather = (plane_ops.plane_gather_plain if plain
+              else plane_ops.plane_gather)
+    sc = t.grid
+    cg, c_total = cx.cg, cx.c
+    dev = cpos[0].device
+    w = cpos[0].shape[0]
+    kind_g = cx.kinds[cx.grid_cols]
+    p_g = cx.params[cx.grid_cols]
+    pos_g = tuple(ig_all[0:3])
+    rot_g = q_to_rot9(tuple(ig_all[3:7]))
+    pred_g = margin + _norm3_rn(tuple(ig_all[7:10]))
+    if getattr(cx, "_scn_static", None) is None:
+        cx._scn_static = _scenery_statics(cx, kind_g, p_g)
+    st = cx._scn_static
+
+    def dv(name):
+        return const(st[name], dev)[None]
+
+    is_ball, is_cap, is_box = dv("is_ball"), dv("is_cap"), dv("is_box")
+    p0 = dv("p0")
+    hx, hy, hz = dv("hx"), dv("hy"), dv("hz")
+    radius = torch.where(is_ball, p0, torch.where(is_cap, dv("p1"), 0.0))
+    ay = (rot_g[1], rot_g[4], rot_g[7])
+    n_s = st["n_s"]
+    samples, svalid = [], []
+    for s_i in range(n_s):
+        if s_i < 8:
+            csx, csy, csz = _CORNERS[s_i]
+            corner = add3(pos_g, rot9_apply(rot_g, (csx * hx, csy * hy,
+                                                    csz * hz)))
+        if s_i == 0:
+            cap_pt = sub3(pos_g, scale3(ay, p0))
+            pt = where3(is_box, corner, where3(is_cap, cap_pt, pos_g))
+            valid = is_box | is_cap | is_ball
+        elif s_i == 1:
+            pt = where3(is_box, corner, add3(pos_g, scale3(ay, p0)))
+            valid = is_box | is_cap
+        elif s_i < 8:
+            pt, valid = corner, is_box
+        else:
+            pt, valid = pos_g, torch.zeros_like(is_box)
+        if "hull_v" in st:
+            # hull vertices, padding parked at the shape origin (and
+            # valid), as scenery.sample_points_for has them
+            vloc = tuple(const(st["hull_v"][s_i][i], dev)[None]
+                         for i in range(3))
+            vm = dv("cx_in_grid")
+            pt = where3(vm, add3(pos_g, rot9_apply(rot_g, vloc)), pt)
+            valid = valid | vm
+        samples.append(pt)
+        svalid.append(valid.expand(w, cg))
+
+    for scn in cx.scenery:
+        col = scn["col"]
+        p_sc = tuple(p[:, col:col + 1] for p in cpos)        # [W,1]
+        rot_sc = q_to_rot9(tuple(p[:, col:col + 1] for p in cq))
+        if scn["kind"] == sh.HEIGHTFIELD:
+            depth_s, pw_s, nw_s = _hf_samples(scn, samples, p_sc, rot_sc,
+                                              radius, gather, dev)
+        else:
+            depth_s, pw_s, nw_s = _tm_samples(scn, samples, p_sc, rot_sc,
+                                              radius, cg)
+        depth_s = [torch.where(svalid[i], d, -1e9)
+                   for i, d in enumerate(depth_s)]
+        act_s = [d > -pred_g for d in depth_s]
+        gated = [torch.where(a, d, -1e9) for d, a in zip(depth_s, act_s)]
+        best = gated[0]
+        for d in gated[1:]:
+            best = torch.maximum(best, d)
+        # the shared normal: minus the deepest active sample's (first hit)
+        n_acc = None
+        taken = torch.zeros_like(best, dtype=torch.bool)
+        for d, nw in zip(gated, nw_s):
+            hit = (d == best) & ~taken
+            taken = taken | hit
+            h = hit.to(torch.float32)
+            n_acc = [x * h for x in nw] if n_acc is None else                 [a + x * h for a, x in zip(n_acc, nw)]
+        n_pair = tuple(-x for x in n_acc)
+        # each sample's rank by gated depth, ties by sample order
+        ranks = []
+        for i_s in range(n_s):
+            r = None
+            for j_s in range(n_s):
+                if j_s == i_s:
+                    continue
+                gt = ((gated[j_s] > gated[i_s])
+                      | ((gated[j_s] == gated[i_s]) & (j_s < i_s)))
+                r = gt.to(torch.int32) if r is None else r + gt
+            ranks.append(r)
+        pair = st["pairs"][col]
+        cls_of = pair["cls_of"]
+        for cls in range(3):
+            nslot_c = sc.nslot(cls)
+            if nslot_c == 0 or not np.any(cls_of == cls):
+                continue
+            npts = bp_mod.CLASS_NPTS[cls]
+            bvalid = cands[cls].valid.reshape(w, cg, nslot_c)[
+                :, :, sc.s_class[cls] + scn["big"]]
+            gate = (const(pair["cls_mask"][cls], dev)[None] & bvalid).to(
+                torch.float32)
+            for p_i in range(npts):
+                acc = None
+                for s_i in range(n_s):
+                    m = (ranks[s_i] == p_i).to(torch.float32)
+                    vals = [pw_s[s_i][0], pw_s[s_i][1], pw_s[s_i][2],
+                            depth_s[s_i], act_s[s_i].to(torch.float32)]
+                    acc = [x * m for x in vals] if acc is None else \
+                        [a + x * m for a, x in zip(acc, vals)]
+                px, py, pz, dsel, asel = acc
+
+                def col3(p):
+                    return p.expand(w, cg).reshape(w, cg, 1)
+
+                for k, x in zip(("nx", "ny", "nz", "px", "py", "pz",
+                                 "depth"), n_pair + (px, py, pz, dsel)):
+                    parts_f[k].append(col3(x))
+                parts_f["act"].append(col3(asel * gate))
+                parts_f["fric"].append(col3(const(pair["fric"], dev)[None]))
+                parts_f["rest"].append(col3(const(pair["rest"], dev)[None]))
+                parts_f["sigma"].append(col3(torch.ones_like(px)))
+                parts_f["own"].append(col3(torch.full_like(px, float(npts))))
+                parts_i["body_j"].append(col3(torch.full(
+                    (1, 1), pair["body"], dtype=torch.int32, device=dev)))
+                parts_i["pid"].append(col3(const(pair["pid"][p_i], dev)[None]))
+
+
+_CORNERS = [(sx, sy, sz) for sx in (-1, 1) for sy in (-1, 1)
+            for sz in (-1, 1)]
+
+
+def _norm3_rn(v):
+    """norm3 with a correctly rounded square root on either device, so
+    the hull and scenery parts round alike on the card and the CPU."""
+    from fyrox_tpu_torch.physics.convex import sqrt_rn
+    return sqrt_rn(dot3(v, v))
+
+
+def _normalize3_rn(a, eps=1e-9, fallback=(0.0, 1.0, 0.0)):
+    """planes.normalize3 on _norm3_rn."""
+    n = _norm3_rn(a)
+    inv = 1.0 / torch.clamp(n, min=eps)
+    return tuple(torch.where(n > eps, a[i] * inv,
+                             torch.full_like(n, fallback[i]))
+                 for i in range(3))
+
+
+def _scenery_statics(cx: _Ctx, kind_g, p_g):
+    """Host tables of the scenery parts: the grid colliders' kind masks
+    and params, the sample count (8, or the largest grid hull), the hull
+    vertices by sample, and per scenery collider its pair class, friction,
+    restitution, body and point identities."""
+    st = dict(is_ball=kind_g == sh.BALL, is_cap=kind_g == sh.CAPSULE,
+              is_box=kind_g == sh.CUBOID,
+              p0=np.ascontiguousarray(p_g[:, 0]),
+              p1=np.ascontiguousarray(p_g[:, 1]),
+              hx=np.ascontiguousarray(p_g[:, 0]),
+              hy=np.ascontiguousarray(p_g[:, 1]),
+              hz=np.ascontiguousarray(p_g[:, 2]), n_s=8)
+    if cx.hull_verts is not None:
+        cx_in_grid = cx.shape[cx.grid_cols] == sh.CONVEX
+        if np.any(cx_in_grid):
+            hv = cx.hull_verts[cx.grid_cols]                   # [Cg,V,3]
+            hm = (cx.hull_vmask[cx.grid_cols] > 0) & cx_in_grid[:, None]
+            n_s = max(8, int(hm.sum(1).max()))
+            st.update(n_s=n_s, cx_in_grid=cx_in_grid, hull_v=[
+                [np.ascontiguousarray(np.where(hm[:, s], hv[:, s, i], 0.0)
+                                      .astype(np.float32)) for i in range(3)]
+                for s in range(n_s)])
+    sc_tab = None
+    st["pairs"] = {}
+    for scn in cx.scenery:
+        col = scn["col"]
+        if sc_tab is None:
+            from fyrox_tpu_torch.physics.broadphase import pair_class_table
+            sc_tab = pair_class_table()
+        base = (cx.grid_cols.astype(np.int64) * cx.c + col) * 4
+        cls_of = sc_tab[kind_g, scn["kind"]]
+        st["pairs"][col] = dict(
+            cls_of=cls_of, cls_mask=[cls_of == c for c in range(3)],
+            fric=np.sqrt(cx.fric[cx.grid_cols] * cx.fric[col]),
+            rest=np.maximum(cx.rest[cx.grid_cols], cx.rest[col]),
+            body=int(cx.col_body[col]),
+            pid=[(base + p_i).astype(np.int32) for p_i in range(4)])
+    return st
+
+
+def _hf_samples(scn, samples, p_sc, rot_sc, radius, gather, dev):
+    """Per-sample tangent-plane contacts against one heightfield: lists of
+    depth [W,Cg], world point v3, world normal v3."""
+    rz, rx = scn["rz"], scn["rx"]
+    # device scalars: a division by a tensor is IEEE division on both
+    # devices (PyTorch divides a card tensor by a Python float as a
+    # product with its reciprocal)
+    sx, sz = const(scn["sx"], dev), const(scn["sz"], dev)
+    locs = [rot9_apply_t(rot_sc, sub3(pt, p_sc)) for pt in samples]
+    from fyrox_tpu_torch.physics.scenery import heightfield_cell
+    cells = [heightfield_cell(x, z, rx, rz, sx, sz) for x, _y, z in locs]
+    cg = locs[0][0].shape[1]
+    idx = torch.cat([j0 * rx + i0 for i0, j0, _, _ in cells], 1)
+    hc = gather(const(scn["corners"], dev), idx.contiguous())  # [W,4,S*Cg]
+    depth_s, pw_s, nw_s = [], [], []
+    for s_i, ((x, y, z), (_i0, _j0, fu, fv)) in enumerate(zip(locs, cells)):
+        h00, h10, h01, h11 = hc[:, :, s_i * cg:(s_i + 1) * cg].unbind(1)
+        gy = ((h00 * (1 - fu) + h10 * fu) * (1 - fv)
+              + (h01 * (1 - fu) + h11 * fu) * fv)
+        dhdx = ((h10 - h00) * (1 - fv) + (h11 - h01) * fv) * (rx - 1) / sx
+        dhdz = ((h01 - h00) * (1 - fu) + (h11 - h10) * fu) * (rz - 1) / sz
+        n_l = _normalize3_rn((-dhdx, torch.ones_like(gy), -dhdz))
+        dist = (y - gy) * n_l[1]
+        inside = ((torch.abs(x) <= radius + float(scn["sx"]) * 0.5)
+                  & (torch.abs(z) <= radius + float(scn["sz"]) * 0.5))
+        depth_s.append(torch.where(inside, radius - dist, -1e9))
+        pw_s.append(add3(p_sc, rot9_apply(rot_sc, sub3(
+            (x, y, z), scale3(n_l, dist)))))
+        nw_s.append(rot9_apply(rot_sc, n_l))
+    return depth_s, pw_s, nw_s
+
+
+def _tm_samples(scn, samples, p_sc, rot_sc, radius, cg):
+    """Per-sample closest-triangle contacts against one trimesh (a
+    running best over the triangles in slices of 32, first index among
+    equals as the JAX package's scan keeps it): lists of depth [W,Cg],
+    world point v3, world normal v3."""
+    from fyrox_tpu_torch.physics.convex import argmin_first
+    from fyrox_tpu_torch.physics.scenery import closest_on_triangle
+    dev = p_sc[0].device
+    n_s = len(samples)
+    flat = tuple(torch.cat([pt[i] for pt in samples], 1) for i in range(3))
+    loc = torch.stack(rot9_apply_t(rot_sc, sub3(flat, p_sc)), -1)  # [W,N,3]
+    tris = const(scn["tris"], dev)
+    tmask = const(scn["tmask"], dev)
+    e1, e2 = tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]
+    ntri = _normalize3_rn(cross3(e1.unbind(-1), e2.unbind(-1)), eps=1e-12)
+    ntri = torch.stack(ntri, -1)                          # [T,3]
+    bd = torch.full(loc.shape[:-1], 1e9, device=dev)
+    qb = torch.zeros_like(loc)
+    nb = torch.zeros_like(loc)
+    for t0 in range(0, tris.shape[0], 32):
+        tr = tris[t0:t0 + 32]
+        q = closest_on_triangle(loc[..., None, :], tr[:, 0], tr[:, 1],
+                                tr[:, 2])                 # [W,N,T,3]
+        d = _norm3_rn(tuple((loc[..., None, :] - q).unbind(-1)))
+        d = torch.where(tmask[t0:t0 + 32], d, 1e9)
+        k = argmin_first(d)[..., None]
+        dk = torch.gather(d, -1, k)[..., 0]
+        better = dk < bd
+        bd = torch.where(better, dk, bd)
+        qk = torch.gather(q, -2, k[..., None].expand(k.shape + (3,)))[..., 0, :]
+        nk = ntri[t0:t0 + 32][k[..., 0]]
+        qb = torch.where(better[..., None], qk, qb)
+        nb = torch.where(better[..., None], nk, nb)
+    qbest, nbest = qb.unbind(-1), nb.unbind(-1)
+    dir_raw = sub3(loc.unbind(-1), qbest)
+    side = torch.sign(dot3(dir_raw, nbest))
+    side = torch.where(side == 0, 1.0, side)
+    dlen = _norm3_rn(dir_raw)
+    dir_l = where3(dlen > 1e-6,
+                   scale3(dir_raw, 1.0 / torch.clamp(dlen, min=1e-9)),
+                   scale3(nbest, side))
+    rad = torch.clamp(radius, min=0.04).repeat(1, n_s)
+    depth_f = rad - bd
+    pw_f = add3(p_sc, rot9_apply(rot_sc, qbest))
+    nw_f = rot9_apply(rot_sc, dir_l)
+    cut = [slice(i * cg, (i + 1) * cg) for i in range(n_s)]
+    return ([depth_f[:, sl] for sl in cut],
+            [tuple(p[:, sl] for p in pw_f) for sl in cut],
+            [tuple(p[:, sl] for p in nw_f) for sl in cut])
 
 
 def _compact(cx: _Ctx, attrs_f, attrs_i):

@@ -17,7 +17,10 @@ Two broadphases, chosen at build time as the JAX package chooses them
   then the Jacobi TGS solver with its joint passes (physics/solver.py),
   whose gathers and scatters run on K4a / K4b.
 
-Convex hulls, scenery and the grid broadphase raise NotImplementedError.
+Every collider kind of the JAX package's builder steps on both: balls,
+cuboids, capsules, cylinders, cones, halfspaces, convex hulls,
+heightfields and trimeshes (segments and triangles lower at build time).
+The grid broadphase raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -80,6 +83,17 @@ class PhysicsTemplate:
     joints: object = None          # joints.JointSet (joint.rs:775)
     init_body_pos: np.ndarray = None
     init_body_rot: np.ndarray = None
+    # convex hulls (convex.ConvexSet): CONVEX colliders', and the 12-gon
+    # hulls of cylinders and cones (the dense path's SAT routines)
+    hulls: object = None
+    col_hull: np.ndarray = None    # [C] hull index (-1 none)
+    # static scenery: heightfields share one resolution
+    hf_heights: np.ndarray = None  # [Nhf, Rz, Rx]
+    hf_size: np.ndarray = None     # [Nhf, 2] (size_x, size_z)
+    col_hf: np.ndarray = None      # [C] heightfield index (-1)
+    tm_tris: np.ndarray = None     # [Ntm, MAX_TRIS, 3, 3] local
+    tm_mask: np.ndarray = None     # [Ntm, MAX_TRIS]
+    col_tm: np.ndarray = None      # [C] trimesh index (-1)
     # solver config (reference defaults physics/mod.rs:892-908)
     erp: float = 0.2
     allowed_linear_error: float = 0.002
@@ -180,6 +194,9 @@ class PhysicsBuilder:
         self._bodies = []
         self._colliders = []
         self._joints = None
+        self._hulls = None       # convex.ConvexBuilder, at the first hull
+        self._hfs = []           # (heights, size_x, size_z)
+        self._tms = []           # [T,3,3] triangle soups
 
     def add_body(self, node=-1, body_type=DYNAMIC, position=(0, 0, 0),
                  rotation=(0, 0, 0, 1), lin_damping=0.0, ang_damping=0.0,
@@ -221,20 +238,132 @@ class PhysicsBuilder:
 
     def add_collider(self, body, shape, params=(), density=1.0,
                      friction=0.5, restitution=0.0, offset=(0, 0, 0),
-                     offset_rot=(0, 0, 0, 1), node=-1) -> int:
-        if int(shape) not in (sh.BALL, sh.CUBOID, sh.CAPSULE, sh.HALFSPACE):
-            raise NotImplementedError(
-                f"collider shape {int(shape)} in the torch port (convex "
-                "hulls, cylinders/cones, segments, triangles and scenery "
-                "are not ported)")
+                     offset_rot=(0, 0, 0, 1), node=-1, points=None,
+                     heights=None, size=None, triangles=None) -> int:
+        """CONVEX takes `points` (a local point cloud, hulled here);
+        HEIGHTFIELD `heights` [Rz,Rx] and `size=(sx, sz)` (a centred local
+        rectangle); TRIMESH `triangles` ((verts, faces) or a [T,3,3] soup);
+        both scenery kinds are static-only. Cylinders and cones register a
+        12-gon prism / pyramid hull. SEGMENT (`points=(a, b)`, or
+        `params=[half_height]` along local Y) lowers to a zero-radius
+        capsule, TRIANGLE (`points=(a, b, c)` or one-cell `triangles`) to a
+        one-cell trimesh (fyrox_tpu/physics/world.py:240-380)."""
+        from fyrox_tpu_torch.physics import convex as cx
+        from fyrox_tpu_torch.physics.scenery import MAX_TRIS
+        if int(shape) == sh.SEGMENT:
+            if points is not None:
+                a, b = (np.asarray(p, np.float32) for p in points)
+                d = b - a
+                ln = float(np.linalg.norm(d))
+                if ln > 1e-12:
+                    # the rotation taking local +Y onto the segment
+                    y = np.array([0.0, 1.0, 0.0])
+                    dn = d / ln
+                    v = np.cross(y, dn)
+                    c = float(np.dot(y, dn))
+                    sn = float(np.linalg.norm(v))
+                    if sn > 1e-8:
+                        half = np.arctan2(sn, c) * 0.5
+                        offset_rot = np.concatenate(
+                            [v / sn * np.sin(half), [np.cos(half)]])
+                    elif c < 0.0:                      # antiparallel
+                        offset_rot = np.array([0.0, 0.0, 1.0, 0.0])
+                    offset = np.asarray(offset, np.float32) + 0.5 * (a + b)
+                params = [0.5 * ln, 0.0]
+            else:
+                params = [float(params[0]) if len(params) else 0.5, 0.0]
+            shape = sh.CAPSULE
+        elif int(shape) == sh.TRIANGLE:
+            if triangles is None:
+                if points is None or len(points) != 3:
+                    raise ValueError("TRIANGLE collider needs points=(a,b,c)"
+                                     " or triangles= one cell")
+                triangles = np.asarray(points, np.float32)[None]
+            shape = sh.TRIMESH
+        shape = int(shape)
         p6 = np.zeros(6, np.float32)
-        p6[:len(params)] = params
+        hull = hf = tm = -1
+        if shape == sh.CONVEX:
+            if points is None:
+                raise ValueError("CONVEX collider needs points=")
+            verts, normals = cx.hull_from_points(points)
+            hull = self._hulls_add(verts, normals)
+            p6[0] = float(np.linalg.norm(verts, axis=1).max())
+        elif shape == sh.HEIGHTFIELD:
+            if heights is None or size is None:
+                raise ValueError("HEIGHTFIELD collider needs heights= and "
+                                 "size=(size_x, size_z)")
+            h = np.asarray(heights, np.float32)
+            sx, sz = float(size[0]), float(size[1])
+            hf = len(self._hfs)
+            self._hfs.append((h, sx, sz))
+            p6[:3] = [sx, sz, float(np.linalg.norm(
+                [sx * 0.5, np.abs(h).max() + 1e-3, sz * 0.5]))]
+        elif shape == sh.TRIMESH:
+            if triangles is None:
+                raise ValueError("TRIMESH collider needs triangles= "
+                                 "((verts, tris) or [T,3,3] soup)")
+            if isinstance(triangles, tuple):
+                v, f = triangles
+                soup = np.asarray(v, np.float32)[np.asarray(f, np.int64)]
+            else:
+                soup = np.asarray(triangles, np.float32)
+            if soup.shape[0] > MAX_TRIS:
+                raise ValueError(f"trimesh has {soup.shape[0]} tris > "
+                                 f"{MAX_TRIS}; decimate or split")
+            tm = len(self._tms)
+            self._tms.append(soup)
+            p6[0] = float(np.linalg.norm(soup.reshape(-1, 3), axis=1).max())
+        else:
+            p6[:len(params)] = params
+            if shape == sh.CYLINDER:
+                hull = self._hulls_add(*cx.prism_hull(p6[0], p6[1], n=12))
+            elif shape == sh.CONE:
+                hull = self._hulls_add(*cx.cone_hull(p6[0], p6[1], n=12))
+        if shape in (sh.HEIGHTFIELD, sh.TRIMESH) \
+                and self._bodies[body]["body_type"] == DYNAMIC:
+            raise ValueError("heightfield/trimesh colliders are static-only")
         self._colliders.append(dict(
-            body=body, shape=int(shape), params=p6, density=density,
+            body=body, shape=shape, params=p6, density=density,
             friction=friction, restitution=restitution,
             offset=np.asarray(offset, np.float32),
-            offset_rot=np.asarray(offset_rot, np.float32), node=node))
+            offset_rot=np.asarray(offset_rot, np.float32), node=node,
+            hull=hull, hf=hf, tm=tm))
         return len(self._colliders) - 1
+
+    def _hulls_add(self, verts, normals):
+        from fyrox_tpu_torch.physics.convex import ConvexBuilder
+        if self._hulls is None:
+            self._hulls = ConvexBuilder()
+        return self._hulls.add(verts, normals)
+
+    def _scenery_fields(self):
+        """The template's heightfield and trimesh tables (None where the
+        scene has none)."""
+        from fyrox_tpu_torch.physics.scenery import MAX_TRIS
+        out = dict(hf_heights=None, hf_size=None, col_hf=None,
+                   tm_tris=None, tm_mask=None, col_tm=None)
+        if self._hfs:
+            if len({h.shape for h, _, _ in self._hfs}) > 1:
+                raise ValueError("all heightfields in a scene must share one "
+                                 "resolution (pad on the host)")
+            out["hf_heights"] = np.stack([h for h, _, _ in self._hfs])
+            out["hf_size"] = np.asarray([(sx, sz) for _, sx, sz in self._hfs],
+                                        np.float32)
+            out["col_hf"] = np.asarray([c["hf"] for c in self._colliders],
+                                       np.int32)
+        if self._tms:
+            n = len(self._tms)
+            tris = np.zeros((n, MAX_TRIS, 3, 3), np.float32)
+            mask = np.zeros((n, MAX_TRIS), bool)
+            for i, soup in enumerate(self._tms):
+                tris[i, :len(soup)] = soup
+                mask[i, :len(soup)] = True
+            out["tm_tris"] = tris
+            out["tm_mask"] = mask
+            out["col_tm"] = np.asarray([c["tm"] for c in self._colliders],
+                                       np.int32)
+        return out
 
     def build(self, max_active_pairs=0, broadphase="auto",
               slab_window=(12, 8, 10), slab_active=16, slab_walk=48,
@@ -259,21 +388,32 @@ class PhysicsBuilder:
         by_body = {}
         for c in self._colliders:
             by_body.setdefault(c["body"], []).append(c)
+        def collider_mass(c):
+            """(mass, inertia about the shape's COM in its local axes, COM
+            in collider-local space)."""
+            if c["shape"] == sh.CONVEX:
+                from fyrox_tpu_torch.physics.convex import hull_mass
+                return hull_mass(self._hulls.verts[c["hull"]],
+                                 self._hulls.normals[c["hull"]],
+                                 c["density"])
+            m, i_local = sh.mass_properties(c["shape"], c["params"],
+                                            c["density"])
+            return m, np.zeros(3), i_local
+
         for bi, body in enumerate(self._bodies):
             if body["body_type"] != DYNAMIC:
                 continue
-            props = [(sh.mass_properties(c["shape"], c["params"],
-                                         c["density"]), c)
-                     for c in by_body.get(bi, [])]
-            mass = sum(m for (m, _i), _c in props)
+            props = [(collider_mass(c), c) for c in by_body.get(bi, [])]
+            mass = sum(m for (m, _cm, _i), _c in props)
             if mass <= 0.0:
                 inv_mass[bi] = 1.0
                 continue
-            centers = [np.asarray(c["offset"], np.float64) for _, c in props]
-            com[bi] = sum(m * ctr for ((m, _i), _c), ctr
+            centers = [c["offset"] + _np_quat_mat(c["offset_rot"]) @ cm
+                       for (_m, cm, _i), c in props]
+            com[bi] = sum(m * ctr for ((m, _cm, _i), _c), ctr
                           in zip(props, centers)) / mass
             inertia = np.zeros((3, 3))
-            for ((m, i_local), c), ctr in zip(props, centers):
+            for ((m, _cm, i_local), c), ctr in zip(props, centers):
                 r = _np_quat_mat(c["offset_rot"])
                 d = ctr - com[bi]
                 inertia += (r @ i_local @ r.T
@@ -291,9 +431,11 @@ class PhysicsBuilder:
         grid_cfg = None
         pa = pb = np.zeros(0, np.int32)
         kind_ranges = None
+        col_hull = np.asarray([c["hull"] for c in self._colliders],
+                              np.int32)
         if broadphase == "dense":
             pa, pb, kind_ranges = _dense_pairs(col_shape, col_body,
-                                               body_type)
+                                               body_type, col_hull)
         elif nc:
             from fyrox_tpu_torch.physics.broadphase import build_slab_config
             margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
@@ -352,6 +494,9 @@ class PhysicsBuilder:
             joints=(self._joints.build(com_local=com)
                     if self._joints is not None else None),
             broadphase_period=int(broadphase_period),
+            hulls=None if self._hulls is None else self._hulls.build(),
+            col_hull=col_hull,
+            **self._scenery_fields(),
             **solver_kw)
 
     def initial_pose(self):
@@ -361,15 +506,20 @@ class PhysicsBuilder:
                 np.stack([b["rotation"] for b in self._bodies]))
 
 
-def _dense_pairs(col_shape, col_body, body_type):
+def _dense_pairs(col_shape, col_body, body_type, col_hull):
     """The dense broadphase's static candidate list: every collider pair
     on two different bodies of which one is dynamic, canonical (smaller
-    effective shape kind first) and sorted by (kind_a, kind_b), as
+    effective shape kind first; cylinders and cones with a registered hull
+    count as CONVEX) and sorted by (kind_a, kind_b), as
     ``fyrox_tpu.physics.world.PhysicsBuilder.build`` lays it out. Returns
     (pair_a [P], pair_b [P], [((kind_a, kind_b), start, end)])."""
     from fyrox_tpu_torch.physics.narrowphase import effective_kind
     nc = len(col_shape)
-    kinds = np.asarray([effective_kind(int(k)) for k in col_shape], np.int32)
+    kinds = np.asarray(
+        [sh.CONVEX if (k == sh.CONVEX or (k in (sh.CYLINDER, sh.CONE)
+                                          and h >= 0))
+         else effective_kind(int(k)) for k, h in zip(col_shape, col_hull)],
+        np.int32)
     ii, jj = np.triu_indices(nc, k=1)
     keep = (col_body[ii] != col_body[jj]) & (
         (body_type[col_body[ii]] == DYNAMIC)
@@ -535,10 +685,16 @@ def dense_contacts(state: PhysicsState, t: PhysicsTemplate, dt):
             tab = t.contact_tables()
             pred_p = margin + torch.sqrt(torch.sum(
                 (v_sweep[:, pa] - v_sweep[:, pb]) ** 2, -1))
+            hull_ctx = (None if t.hulls is None else
+                        (t.hulls, t.col_hull, t.pair_a, t.pair_b))
+            scenery_ctx = None
+            if t.col_hf is not None or t.col_tm is not None:
+                scenery_ctx = (t.hf_heights, t.hf_size, t.col_hf, t.tm_tris,
+                               t.tm_mask, t.col_tm, t.pair_a, t.pair_b)
             flat = np_mod.generate_contacts_flat(
                 t.pair_kind_ranges, cparams[pa][None], cpos[:, pa],
                 crot[:, pa], cparams[pb][None], cpos[:, pb], crot[:, pb],
-                pred=pred_p)
+                pred=pred_p, hull_ctx=hull_ctx, scenery_ctx=scenery_ctx)
             pair_idx = const(tab["pair_idx"], dev)
             contacts = solver_mod.ContactBatch(
                 index=const_rows(tab["index"], dev, w),

@@ -1,6 +1,6 @@
 """Scene layer: templates (static topology) + WorldState (batched state)."""
 from fyrox_tpu_torch.scene import (builder, camera, graph, ragdoll, state,
-                                   template)
+                                   template, terrain)
 from fyrox_tpu_torch.scene.builder import SceneBuilder
 from fyrox_tpu_torch.scene.ragdoll import (RagdollBuilder, RagdollTemplate,
                                            drive_kinematic)
@@ -8,6 +8,7 @@ from fyrox_tpu_torch.scene.state import WorldState, init_state
 from fyrox_tpu_torch.scene.template import NodeType, SceneTemplate
 
 __all__ = ["builder", "camera", "graph", "ragdoll", "state", "template",
+           "terrain",
            "SceneBuilder", "WorldState", "init_state", "NodeType",
            "SceneTemplate", "RagdollBuilder", "RagdollTemplate",
            "drive_kinematic"]

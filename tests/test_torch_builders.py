@@ -278,8 +278,11 @@ def test_out_of_scope_features_raise(case):
     offsets run on the staged route, any number of joints (the "joint"
     case: 129 joints, past the TPU kernel's 128, step); still out of scope
     are COM offsets on the fused kernels' own entry point and the JAX
-    package's grid broadphase. The slab cases ask for the slab broadphase:
-    this four-collider scene would take the dense one by default."""
+    package's grid broadphase. Every collider kind is in scope (the
+    "shape" case: a hull builds, and one without its points raises the
+    JAX package's ValueError). The slab cases ask for the slab
+    broadphase: this four-collider scene would take the dense one by
+    default."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=1)
     pb.add_collider(g, HALFSPACE, [])
@@ -296,6 +299,12 @@ def test_out_of_scope_features_raise(case):
         assert t.joints.num_joints == 129
         assert torch.isfinite(st.position).all()
         return
+    if case == "shape":
+        pb.add_collider(g, 6, points=np.eye(3).tolist() + [[0, 0, 0]])
+        with pytest.raises(ValueError):
+            pb.add_collider(g, 6, [])       # CONVEX without points
+        assert pb.build().hulls.count == 1
+        return
     with pytest.raises(NotImplementedError):
         if case == "com":
             t = pb.build(broadphase="slab")
@@ -304,8 +313,6 @@ def test_out_of_scope_features_raise(case):
             fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
         elif case == "grid":
             pb.build(broadphase="grid")
-        elif case == "shape":
-            pb.add_collider(g, 6, [])       # CONVEX
         else:
             pb.build(broadphase="slab")
 

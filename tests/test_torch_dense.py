@@ -348,7 +348,8 @@ def _dim2_world(b):
 def test_dim2_world_matches():
     """A dim2 world (circle, rectangle, capsule, segment, halfspace, a
     revolute joint) over 20 ticks: within 1e-4 of the JAX package's, and
-    on the z = 0 plane; triangles and heightfields raise."""
+    on the z = 0 plane; triangles and heightfields lower to a CONVEX prism
+    and a HEIGHTFIELD collider (their steps: test_torch_convex.py)."""
     jb, tb = _dim2_world(JPhysics2DBuilder()), _dim2_world(Physics2DBuilder())
     jt, tt = jb.build(), tb.build()
     np.testing.assert_array_equal(tt.pair_a, jt.pair_a)
@@ -359,10 +360,10 @@ def test_dim2_world_matches():
         js, ts = step(js), tworld.step_physics(ts, tt, DT)
     assert _max_diff(_np(js), ts) < 1e-4
     assert float(ts.position[..., 2].abs().max()) == 0.0
-    with pytest.raises(NotImplementedError):
-        tb.add_triangle(0, (0, 0), (1, 0), (0, 1))
-    with pytest.raises(NotImplementedError):
-        tb.add_heightfield(0, [0.0, 1.0], 2.0)
+    tri = tb.add_triangle(0, (0, 0), (1, 0), (0, 1))
+    hf = tb.add_heightfield(0, [0.0, 1.0], 2.0)
+    assert [tb.pb._colliders[i]["shape"] for i in (tri, hf)] == \
+        [sh.CONVEX, sh.HEIGHTFIELD]
 
 
 def test_engine_step_on_small_dense_flagship():

@@ -29,11 +29,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("w,a,n,k", [(4, 19, 1001, 13000), (2, 10, 1000, 48000),
-                                     (3, 1, 7, 5)])
-def test_plane_gather_kernel_is_bit_exact(cuda, w, a, n, k):
+@pytest.mark.parametrize("w,a,n,k,tables", [
+    (4, 19, 1001, 13000, 4), (2, 10, 1000, 48000, 2), (3, 1, 7, 5, 3),
+    (4, 4, 16641, 12000, 1), (4, 256, 1001, 3000, 1)])
+def test_plane_gather_kernel_is_bit_exact(cuda, w, a, n, k, tables):
+    """Per-world planes, and one table every world reads (world stride 0:
+    a heightfield's corner heights, the hull rows)."""
     rng = np.random.default_rng(k)
-    planes = torch.as_tensor(rng.standard_normal((w, a, n)).astype(
+    planes = torch.as_tensor(rng.standard_normal((tables, a, n)).astype(
         np.float32), device=cuda)
     idx = torch.as_tensor(rng.integers(-n // 4, n + n // 4, (w, k)).astype(
         np.int32), device=cuda)
@@ -551,6 +554,103 @@ def test_dense_k4_kernels_equal_plain(cuda):
         assert torch.equal(plane_ops.plane_scatter(vals, idx, n).cpu(),
                            plane_ops.plane_scatter_plain(vals.cpu(),
                                                          idx.cpu(), n))
+
+
+# ---- hulls, scenery, terrain and queries ------------------------------------
+
+@pytest.mark.parametrize("broadphase", ["dense", "slab"])
+def test_terrain_small_on_the_card_matches_the_cpu(cuda, broadphase):
+    """chip_smoke's terrain-small scene (cylinders, hull clouds, cones,
+    balls and cuboids over a heightfield and a trimesh ramp) at W=4: each
+    of 30 card ticks against the same tick on the CPU from the card's
+    state, within dp 5e-4, dv 5e-3 (chip_smoke.card_vs_cpu_steps)."""
+    import chip_smoke
+    pb = chip_smoke.terrain_pile(PhysicsBuilder(), **chip_smoke.TERRAIN_SMALL)
+    t = pb.build(broadphase=broadphase)
+    gpu = convert.physics_state(convert.to_numpy(chip_smoke.jitter(
+        phys_mod.init_physics_state(pb, t, 4, device="cpu"), t, "cpu", 4)),
+        device=cuda)
+    worst_p = worst_v = 0.0
+    for _ in range(30):
+        cpu = phys_mod.step_physics(convert.physics_state(
+            convert.to_numpy(gpu), device="cpu"), t, 1 / 60)
+        gpu = phys_mod.step_physics(gpu, t, 1 / 60)
+        worst_p = max(worst_p, float((gpu.position.cpu()
+                                      - cpu.position).abs().max()))
+        worst_v = max(worst_v, float((gpu.linvel.cpu()
+                                      - cpu.linvel).abs().max()))
+    assert worst_p < 5e-4 and worst_v < 5e-3, (worst_p, worst_v)
+    assert int((cpu.warm_n > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("broadphase", ["dense", "slab"])
+def test_terrain_rollout_replays_equal_eager_steps(cuda, broadphase):
+    """Engine.rollout on a small terrain engine (10-bone character, the
+    16-body terrain pile): 30 replays equal 30 Engine.step ticks bit for
+    bit from 4 jittered worlds, the pile landed."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import Engine, _leaves
+    from fyrox_tpu_torch.models import character
+    from fyrox_tpu_torch.scene import NodeType
+    sb, aset, mt, bones, skin = character.build_character_scene(
+        n_bones=10, n_verts=300)
+    pb = chip_smoke.terrain_pile(PhysicsBuilder(), sb, NodeType,
+                                 **chip_smoke.TERRAIN_SMALL)
+    engine, _ = character.assemble_flagship(
+        sb, pb.build(broadphase=broadphase), aset, mt, bones, skin)
+    assert isinstance(engine, Engine)
+    state = chip_smoke.distinct_worlds(engine, 4, cuda, seed=2)
+    eager = state
+    for _ in range(30):
+        eager = engine.step(eager)
+    rolled = engine.rollout(state, 30)
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+    assert int((eager.physics.warm_n != 0).sum()) > 0
+
+
+def test_fused_bp_kernel_with_cylinders_is_bit_exact(cuda):
+    """A slab pile with cylinders (capsule proxies, no hull tables) keeps
+    the K3 route, and K3's cylinder AABBs equal plain's."""
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [])
+    for i in range(200):
+        b = pb.add_body(position=(0.7 * (i % 10), 0.6 + 0.7 * (i // 50),
+                                  0.7 * ((i // 10) % 5)))
+        pb.add_collider(b, 3 if i % 3 == 0 else BALL,
+                        [0.22, 0.2] if i % 3 == 0 else [0.25])
+    t = pb.build(broadphase="slab")
+    assert fused_step.supports_fused_bp(t)
+    st = phys_mod.init_physics_state(pb, t, 4, device=cuda)
+    for _ in range(20):
+        st = phys_mod.step_physics(st, t, 1 / 60)
+    accel, angvel = phys_mod.external_accelerations(st, t, 1 / 60)
+    body = fused_step._inputs(st, t, accel, angvel)[0]
+    jv, col = fused_step.bp_candidates(t, body, 1 / 60)
+    jv_p, col_p = fused_step.bp_candidates_plain(t, body, 1 / 60)
+    assert (jv >= 0).sum() > 0
+    assert torch.equal(jv, jv_p) and torch.equal(col, col_p)
+
+
+def test_queries_on_the_card_match_the_cpu(cuda):
+    """cast_ray and sphere_cast fans over the small terrain pile at W=4:
+    hits, colliders and bodies equal card vs CPU, toi within 1e-5."""
+    import chip_smoke
+    from fyrox_tpu_torch.physics import queries
+    pb = chip_smoke.terrain_pile(PhysicsBuilder(), **chip_smoke.TERRAIN_SMALL)
+    t = pb.build()
+    cpu = phys_mod.init_physics_state(pb, t, 4, device="cpu")
+    gpu = convert.physics_state(convert.to_numpy(cpu), device=cuda)
+    for fn in (queries.cast_ray,
+               lambda s, t_, o, d: queries.sphere_cast(s, t_, o, d, 0.1)):
+        o, d = chip_smoke.ray_fan(8, 4, "cpu", height=6.0, length=8.0)
+        a, b = fn(cpu, t, o, d), fn(gpu, t, o.to(cuda), d.to(cuda))
+        for k in ("hit", "collider", "body"):
+            assert torch.equal(b[k].cpu(), a[k]), k
+        hit = a["hit"]
+        assert 0 < int(hit.sum()) < hit.numel()
+        assert float((b["toi"].cpu()[hit] - a["toi"][hit]).abs().max()) < 1e-5
 
 
 def _raster_scene(device, n_worlds=3):

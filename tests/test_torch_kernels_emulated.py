@@ -78,9 +78,11 @@ def on_cpu(emulated, monkeypatch):
                             cuda_stream=0))
 
 
-def _pile(big_cuboid=False, n=36, seed=5):
+def _pile(big_cuboid=False, n=36, seed=5, rounds=False):
     """Capsules, balls and cuboids at seeded random orientations over a
-    halfspace (K3) or a finite cuboid platform (K2)."""
+    halfspace (K3) or a finite cuboid platform (K2); with `rounds`,
+    cylinders and cones take the capsules' turns (their capsule proxies
+    on the slab path; K3 bounds them by their own [r, hh, r] box)."""
     rng = np.random.default_rng(seed)
     pb = PhysicsBuilder()
     if big_cuboid:
@@ -96,6 +98,8 @@ def _pile(big_cuboid=False, n=36, seed=5):
                         rotation=tuple(float(x) for x in q / np.linalg.norm(q)))
         shape, params = [(CAPSULE, [0.15, 0.12]), (BALL, [0.2]),
                          (CUBOID, [0.18, 0.18, 0.18])][i % 3]
+        if rounds and shape == CAPSULE:
+            shape = 3 if i % 2 else 4           # CYLINDER, CONE
         pb.add_collider(b, shape, params, friction=0.5)
     return pb.initial_pose(), pb.build(broadphase="slab")
 
@@ -125,6 +129,7 @@ def _crowd():
 
 
 SCENES = {"flagship": _flagship, "pile": _pile,
+          "rounds": lambda: _pile(rounds=True),
           "platform": lambda: _pile(big_cuboid=True), "crowd": _crowd,
           "reuse": lambda: _flagship(broadphase_period=4)}
 
@@ -172,6 +177,7 @@ def _walk_demand(t, col):
 _BP_CASES = {
     "flagship": ("flagship", 0, False),
     "pile": ("pile", 0, False),
+    "rounds": ("rounds", 0, False),
     "crowd": ("crowd", 0, False),
     "flagship-parts3": ("flagship", 3, False),
     "flagship-parts7": ("flagship", 7, False),
@@ -212,6 +218,7 @@ def test_fused_bp_matches_plain(on_cpu, monkeypatch, settled, parts, lean):
 _NC_CASES = {
     "flagship": ("flagship", False, None),
     "pile": ("pile", False, None),
+    "rounds": ("rounds", False, None),
     "platform": ("platform", False, None),
     "crowd": ("crowd", False, None),
     "reuse": ("reuse", False, None),
@@ -383,9 +390,11 @@ def test_tgs_solve_matches_plain(on_cpu, monkeypatch, case):
         assert (lam[0, :, 0, g] == 0).all() and (ref_l[0, :, 0, g] == 0).all()
 
 
-def test_plane_gather_matches_plain(on_cpu):
+@pytest.mark.parametrize("tables", [2, 1])
+def test_plane_gather_matches_plain(on_cpu, tables):
+    """Per-world planes, and one table every world reads (stride 0)."""
     rng = np.random.default_rng(0)
-    planes = torch.as_tensor(rng.standard_normal((2, 5, 40)).astype(
+    planes = torch.as_tensor(rng.standard_normal((tables, 5, 40)).astype(
         np.float32))
     idx = torch.as_tensor(rng.integers(-5, 45, (2, 300)).astype(np.int32))
     got = plane_ops._plane_gather_cuda(planes, idx)
