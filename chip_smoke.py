@@ -51,6 +51,25 @@ last line:
              graph pool's size;
   health   — world_health and restore_unhealthy on the rolled state with a
              NaN injected into one world.
+Then the animation breadth and the real-asset flagship:
+  anim-small — W=4, the card against the CPU from the same state: ANIM_TICKS
+             ticks of the plain AnimationPlayer, of a machine with a
+             blend-space state and of a layered machine (bone mask, float
+             weight and sampling-point parameters), gather skinning (and
+             against dense on the card), blend shapes and sprite frames;
+             a root-motion walker with a particle emitter through
+             Engine.step (the body driven by the root delta); its replayed
+             roll equals its eager ticks bit for bit, and a replay draws
+             from the counter in the graph's buffer;
+  real-asset — build_flagship(n_bodies=1000, real_asset=
+             make_character_fbx(100, 50,000)) on the plain player: the
+             write and import seconds, W distinct worlds, TICKS eager ticks
+             with the launches counted (K3, K2, K1 once a tick), TICKS
+             replayed ticks equal to them bit for bit, world_health, the
+             mesh at bind pose before and moved after; a replayed roll's
+             kernels, device events and device ms; env·steps/s with
+             skinning, eager and through rollout in turns; the peak memory
+             of an eager tick and of a replayed roll.
 Then the reuse flagship (the flagship at broadphase_period 4, windows
 16 / 8 / 12, walk 64), which takes the K2 route with the broadphase in
 PyTorch, count rank:
@@ -2157,6 +2176,387 @@ def phase_health(engine, state):
         f" fallback's state and keeps the others bit for bit")
 
 
+# ---------------------------------------------------------------- animation
+# The animation breadth (the plain AnimationPlayer, root motion with its
+# body drive, blend spaces, layered machines, blend shapes, gather
+# skinning, sprite sheets, particles): plain PyTorch, the same on the card
+# and the CPU, so the card is held to the CPU from the same state. Then the
+# real-asset flagship: build_flagship(real_asset=make_character_fbx(100,
+# 50,000)) with the flagship's 1,000-body pile, on the plain player.
+ANIM_W = 4
+ANIM_TICKS = 20
+ANIM_NODES = 6
+REAL_ASSET = dict(n_bones=100, n_verts=50_000)
+
+
+def _lin(keys):
+    return [dict(time=float(t), value=float(v)) for t, v in keys]
+
+
+def anim_clips(seed=0):
+    """Three clips over ANIM_NODES nodes with seeded random position,
+    rotation and scale keys (one reversed, one not looping), and a fourth
+    that writes +y on every node (the layered machine's wave)."""
+    from fyrox_tpu_torch.animation import AnimationSetBuilder
+    rng = np.random.default_rng(seed)
+    b = AnimationSetBuilder()
+    for c, (speed, loop) in enumerate(((1.0, True), (-0.7, True),
+                                       (1.3, False))):
+        length = float(rng.uniform(0.6, 1.2))
+        cid = b.add_clip(f"c{c}", length=length, speed=speed, looping=loop)
+        times = np.linspace(0.0, length, 5)
+        for node in rng.choice(ANIM_NODES, 4, replace=False):
+            kind = int(rng.integers(0, 3))
+            lo, hi = (0.5, 1.5) if kind == 2 else (-1.0, 1.0)
+            keys = [_lin(zip(times, rng.uniform(lo, hi, 5)))
+                    for _ in range(3)]
+            (b.add_position_track, b.add_rotation_track,
+             b.add_scale_track)[kind](cid, int(node), keys)
+    wave = b.add_clip("wave", length=1.0)
+    for n in range(ANIM_NODES):
+        b.add_position_track(wave, n, [_lin([(0, 0), (1, 0)]),
+                                       _lin([(0, 0.1 * n), (1, 1.0)]),
+                                       _lin([(0, 0), (1, 0)])])
+    return b.build()
+
+
+def anim_pose(w, device, seed=1):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-1, 1, (w, ANIM_NODES, 3))
+    r = rng.standard_normal((w, ANIM_NODES, 4))
+    r /= np.linalg.norm(r, axis=-1, keepdims=True)
+    s = rng.uniform(0.5, 1.5, (w, ANIM_NODES, 3))
+    return tuple(torch.as_tensor(x.astype(np.float32), device=device)
+                 for x in (p, r, s))
+
+
+def walker_engine(particles=None):
+    """A capsule character on a halfspace (dense) whose root clip walks +x
+    at 1.2 m/s, with root motion driving its body
+    (tests/test_blendspace_rootmotion.py:218-260), and an optional particle
+    emitter."""
+    from fyrox_tpu_torch.animation import AnimationSetBuilder
+    from fyrox_tpu_torch.animation import rootmotion
+    from fyrox_tpu_torch.engine import Engine
+    from fyrox_tpu_torch.physics import (CAPSULE, HALFSPACE, BodyType,
+                                         PhysicsBuilder)
+    from fyrox_tpu_torch.scene import SceneBuilder
+    sb = SceneBuilder()
+    root = sb.add_pivot("char_root", position=(0, 0.9, 0))
+    ab = AnimationSetBuilder()
+    walk = ab.add_clip("walk", length=1.0, looping=True)
+    ab.add_position_track(walk, root, [_lin([(0, 0), (1, 1.2)]),
+                                       _lin([(0, 0), (1, 0)]),
+                                       _lin([(0, 0), (1, 0)])])
+    aset = ab.build()
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [0, 0, 0])
+    body = pb.add_body(node=root, position=(0, 0.9, 0),
+                       lock_rotation=(0, 0, 0))
+    pb.add_collider(body, CAPSULE, [0.4, 0.3])
+    return Engine(template=sb.build(), physics=pb.build(broadphase="dense"),
+                  animations=aset, particles=particles,
+                  root_motion=rootmotion.build_root_motion(
+                      aset, rootmotion.RootMotionSettings(node=root)),
+                  root_motion_body=body), body
+
+
+def held(label, card, cpu, tol):
+    """max |card - cpu| over paired tensors; fails above tol."""
+    d = max((a.cpu().double() - b.double()).abs().max().item()
+            for a, b in zip(card, cpu))
+    if not d <= tol:
+        fail(f"anim-small {label}: card vs CPU {d:.3g} > {tol:g}")
+    return d
+
+
+def anim_player(dev):
+    """ANIM_TICKS plain-player ticks (worlds with different enabled
+    clips): poses and clip times each tick."""
+    from fyrox_tpu_torch.animation import player, track
+    aset = anim_clips()
+    a = track.init_animation_state(aset, ANIM_W, device=dev)
+    en = np.random.default_rng(2).random((ANIM_W, aset.num_animations)) > 0.3
+    a = a._replace(enabled=torch.as_tensor(en, device=dev))
+    p, r, s = anim_pose(ANIM_W, dev)
+    out = []
+    for _ in range(ANIM_TICKS):
+        a, p, r, s = player.step_player(aset, a, p, r, s, 1 / 60)
+        out += [a.time, p, r, s]
+    return out
+
+
+def blend_space_machine(dev):
+    """A machine (idle clip → a 4-point blend space on a bool rule) and a
+    layered machine (that machine below, a masked wave layer above with a
+    float weight parameter and a sampling point): ANIM_TICKS ticks of
+    each, the poses every tick."""
+    from fyrox_tpu_torch.animation import (MachineBuilder, blendspace,
+                                           machine, player, pose, track)
+    aset = anim_clips()
+    bst = blendspace.build_blend_space([[0, 0], [1, 0], [1, 1], [0, 1]],
+                                       [0, 1, 2, 0])
+    mb = MachineBuilder()
+    go = mb.add_parameter("go")
+    idle = mb.add_state("idle", clip=0)
+    loco = mb.add_state("locomotion", blendspace=bst)
+    mb.set_entry_state(idle)
+    mb.add_transition(idle, loco, go, duration=0.1)
+    mt = mb.build()
+    wb = MachineBuilder()
+    wb.add_state("wave", clip=3)
+    lm = machine.LayeredMachine(layers=[
+        machine.LayerSpec(machine=mt, sampling_param=0),
+        machine.LayerSpec(machine=wb.build(),
+                          mask=np.arange(ANIM_NODES) >= ANIM_NODES // 2,
+                          weight_param=0)])
+    rng = np.random.default_rng(3)
+    xy = torch.as_tensor(rng.uniform(-0.5, 1.5, (ANIM_W, 2)).astype(
+        np.float32), device=dev)
+    prm = machine.make_parameters(ANIM_W, bools=1, floats=1, points=1,
+                                  device=dev)
+    prm = prm._replace(
+        bools=torch.as_tensor(np.arange(ANIM_W)[:, None] % 2 == 0,
+                              device=dev),
+        floats=torch.as_tensor(rng.uniform(0, 1, (ANIM_W, 1)).astype(
+            np.float32), device=dev),
+        points=xy[:, None])
+    a = track.init_animation_state(aset, ANIM_W, device=dev)
+    ms = machine.init_machine_state(mt, ANIM_W, device=dev)
+    layers = machine.init_layered_state(lm, ANIM_W, device=dev)
+    p, r, s = anim_pose(ANIM_W, dev)
+    lp, lr, ls = p, r, s
+    out = []
+    for _ in range(ANIM_TICKS):
+        poses = pose.build_poses(aset, track.sample_tracks(aset, a),
+                                 ANIM_NODES)
+        ms = machine.update_machine(mt, ms, prm.bools, 1 / 60)
+        out += list(machine.evaluate_pose(mt, ms, poses, xy)[:3])
+        _, layers, lp, lr, ls = player.step_absm_layered(
+            aset, lm, a, layers, prm, lp, lr, ls, 1 / 60)
+        out += [lp, lr, ls]
+        a = track.tick_times(aset, a, 1 / 60)
+    return out
+
+
+def skin_inputs(dev, b=7, v=3000):
+    from fyrox_tpu_torch.animation import SkinTemplate
+    rng = np.random.default_rng(4)
+    w4 = rng.uniform(0.1, 1, (v, 4)).astype(np.float32)
+    skin = SkinTemplate(
+        bones=np.arange(b, dtype=np.int32),
+        inv_bind=np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        vertices=rng.uniform(-1, 1, (v, 3)).astype(np.float32),
+        bone_indices=rng.integers(0, b, (v, 4)).astype(np.int32),
+        bone_weights=w4 / w4.sum(-1, keepdims=True))
+    mats = np.tile(np.eye(4, dtype=np.float32), (ANIM_W, b, 1, 1))
+    mats[:, :, :3] += rng.uniform(-0.3, 0.3, (ANIM_W, b, 3, 4))
+    shapes = (skin.vertices, rng.uniform(-0.1, 0.1, (5, v, 3)).astype(
+        np.float32), rng.uniform(0, 100, (ANIM_W, 5)).astype(np.float32))
+    return skin, torch.as_tensor(mats, device=dev), shapes
+
+
+def particle_replays(engine, w):
+    """On the card: ANIM_TICKS replayed ticks equal ANIM_TICKS eager ticks
+    bit for bit and leave the counter at ANIM_TICKS; a replayed tick from
+    the same state with the counter at 0 and at 1 draws different
+    newborns (the graph reads the counter from its buffer). Returns the
+    replayed state."""
+    state = engine.init_state(w, device="cuda")
+    eager = state
+    for _ in range(ANIM_TICKS):
+        eager = engine.step(eager)
+    rolled = engine.rollout(state, ANIM_TICKS)
+    torch.cuda.synchronize()
+    same_state("particle rollout", rolled, eager)
+    if int(rolled.particles.step) != ANIM_TICKS:
+        fail(f"particle rollout: counter {int(rolled.particles.step)}, want "
+             f"{ANIM_TICKS}")
+    one = state._replace(particles=state.particles._replace(
+        step=state.particles.step + 1))
+    t0, t1 = engine.rollout(state, 1), engine.rollout(one, 1)
+    born = t0.particles.alive
+    if not bool(born.any()) or not torch.equal(born, t1.particles.alive):
+        fail("particle rollout: no newborns, or newborns that depend on the "
+             "counter's value")
+    if bool((t0.particles.velocity[born] == t1.particles.velocity[born])
+            .any()):
+        fail("particle rollout: a replay at counter 1 drew counter 0's "
+             "velocities")
+    return rolled
+
+
+def phase_anim_small():
+    """The card against the CPU from the same state for every module of
+    the animation breadth, and the particle engine's replays."""
+    from fyrox_tpu_torch.animation import skinning, spritesheet
+    from fyrox_tpu_torch.scene.particles import ParticleTemplate
+    res = {}
+    res["player"] = held("player", anim_player("cuda"), anim_player("cpu"),
+                         1e-5)
+    res["blend-space, layers"] = held("blend-space, layers",
+                                      blend_space_machine("cuda"),
+                                      blend_space_machine("cpu"), 1e-5)
+    skin, mats, (verts, deltas, wts) = skin_inputs("cuda")
+    gather = skinning.skin_positions_gather(mats, skin)
+    res["gather"] = held("gather skinning", [gather],
+                         [skinning.skin_positions_gather(mats.cpu(), skin)],
+                         1e-5)
+    held("gather vs dense on the card", [gather],
+         [skinning.skin_positions_dense(mats, skin).cpu()], 1e-5)
+    res["blend shapes"] = held(
+        "blend shapes",
+        [skinning.apply_blend_shapes(verts, deltas,
+                                     torch.as_tensor(wts, device="cuda"))],
+        [skinning.apply_blend_shapes(verts, deltas, torch.as_tensor(wts))],
+        1e-5)
+    sheet = spritesheet.SpriteSheetAnimation(columns=5, rows=3, fps=12.0,
+                                             first_frame=1, last_frame=12)
+    times = torch.linspace(-0.5, 4.0, 401)
+    frames = [spritesheet.current_frame(sheet, x) for x in
+              (times.cuda(), times)]
+    uvs = [spritesheet.frame_uv_rect(sheet, f) for f in frames]
+    if not (torch.equal(frames[0].cpu(), frames[1])
+            and torch.equal(uvs[0].cpu(), uvs[1])):
+        fail("anim-small spritesheet: card and CPU frames differ")
+    # root motion with its body drive, and particles, through Engine.step
+    engine, body = walker_engine(ParticleTemplate(max_particles=64,
+                                                  emit_rate=90.0, seed=3))
+    gpu, cpu = (engine.init_state(ANIM_W, device=d) for d in ("cuda", "cpu"))
+    for _ in range(ANIM_TICKS):
+        gpu, cpu = engine.step(gpu), engine.step(cpu)
+    res["root motion"] = held("root motion body", [gpu.physics.position],
+                              [cpu.physics.position], 5e-4)
+    res["particles"] = held("particles", [gpu.particles.position,
+                                          gpu.particles.velocity,
+                                          gpu.particles.lifetime],
+                            [cpu.particles.position, cpu.particles.velocity,
+                             cpu.particles.lifetime], 1e-5)
+    if not torch.equal(gpu.particles.alive.cpu(), cpu.particles.alive):
+        fail("anim-small particles: card and CPU alive masks differ")
+    walked = float(cpu.physics.position[0, body, 0])
+    if not walked > 0.2:
+        fail(f"anim-small root motion: the body walked {walked:.3f} m in "
+             f"{ANIM_TICKS} ticks")
+    particle_replays(engine, ANIM_W)
+    log(f"[anim-small] card == CPU, W={ANIM_W}, {ANIM_TICKS} ticks, max "
+        f"|card - CPU|: " + ", ".join(f"{k} {v:.3g}" for k, v in res.items())
+        + f"; gather skinning == dense; sprite frames and UVs equal; the "
+        f"root-motion body walked {walked:.3f} m; {ANIM_TICKS} replayed "
+        f"particle ticks equal the eager ones bit for bit, the counter "
+        f"advancing the draws")
+
+
+def phase_real_asset():
+    """The real-asset flagship at full width: the FBX written and imported
+    (seconds), W distinct worlds, TICKS eager ticks with the launches
+    counted (K3, K2, K1 once a tick), TICKS replayed ticks equal to them
+    bit for bit, world_health, the mesh at bind pose on the first state
+    and moved after the roll; a replayed roll's kernels, device events and
+    device ms; env·steps/s with skinning, eager and through rollout in
+    turns; the peak memory of an eager tick and of a replayed roll."""
+    from fyrox_tpu_torch.animation import skinning
+    from fyrox_tpu_torch.engine import world_health
+    from fyrox_tpu_torch.models import build_flagship, make_character_fbx
+    from fyrox_tpu_torch.physics import fused_step
+    t0 = time.perf_counter()
+    data = make_character_fbx(**REAL_ASSET)
+    t1 = time.perf_counter()
+    engine, skin = build_flagship(n_bodies=1000, real_asset=data)
+    t2 = time.perf_counter()
+    if (skin.num_bones, skin.num_vertices) != (REAL_ASSET["n_bones"],
+                                               REAL_ASSET["n_verts"]):
+        fail(f"real-asset: imported {skin.num_bones} bones, "
+             f"{skin.num_vertices} vertices")
+    if engine.machine is not None or not fused_step.supports_fused_bp(
+            engine.physics):
+        fail("real-asset: not the plain player on the K3 route")
+
+    def skinned(st):
+        bm = skinning.bone_matrices(st.scene.globals_, skin)
+        return skinning.skin_positions_dense(bm, skin)
+
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=23)
+    v0 = skinned(state0)
+    bind_err = (v0[0] - torch.as_tensor(skin.vertices, device="cuda")
+                ).abs().max().item()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eager = state0
+    for _ in range(TICKS):
+        eager = engine.step(eager)
+    torch.cuda.synchronize()
+    n = all_launches()
+    want = dict(fused_bp=TICKS, narrow_compact=TICKS, solve_tgs=TICKS,
+                plane_gather=0, plane_scatter=0)
+    if n != want:
+        fail(f"real-asset: launches of {TICKS} eager ticks {n}, want {want}")
+    rolled = engine.rollout(state0, TICKS)
+    n_leaves = same_state("real-asset rollout", rolled, eager)
+    if not bool(world_health(rolled).all()):
+        fail("real-asset: a rolled world is unhealthy")
+    verts = skinned(rolled)
+    check_state(rolled, verts, skin)
+    moved = (verts - v0).norm(dim=-1).max().item()
+    if not (bind_err < 1e-3 and moved > 0.01):
+        fail(f"real-asset: bind-pose error {bind_err:.3g} (want < 1e-3), "
+             f"mesh moved {moved:.3g} (want > 0.01)")
+    kn, events, dev_ms = profiled(lambda: engine.rollout(rolled, TICKS),
+                                  TICKS)
+    if kn != want:
+        fail(f"real-asset: kernels of a replayed roll {kn}, want {want}")
+
+    def eager_roll(st):
+        for _ in range(TICKS):
+            st = engine.step(st)
+        return st
+
+    rates = {}
+    for label, roll in (("eager", eager_roll),
+                        ("rollout", lambda st: engine.rollout(st, TICKS))) * 2:
+        st, v = roll(rolled), None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CALLS):
+            st = roll(st)
+            v = skinned(st)
+        torch.cuda.synchronize()
+        check_state(st, v, skin)
+        rates.setdefault(label, []).append(
+            WORLDS * TICKS * CALLS / (time.perf_counter() - t))
+    peak = {}
+    for label, fn in (("eager tick", lambda: engine.step(rolled)),
+                      ("replayed roll",
+                       lambda: engine.rollout(rolled, TICKS))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    tick = engine.captured_tick(state0)
+    log(f"[real-asset] make_character_fbx({REAL_ASSET['n_bones']}, "
+        f"{REAL_ASSET['n_verts']}) {len(data) / 2**20:.2f} MiB in "
+        f"{t1 - t0:.2f} s; [import] fbx_to_engine + pile + slab template in "
+        f"{t2 - t1:.2f} s ({skin.num_bones} bones, {skin.num_vertices} "
+        f"vertices, {engine.animations.rot_node.size} rotation tracks, "
+        f"{engine.physics.num_bodies - 1} bodies); W={WORLDS}: {TICKS} "
+        f"replayed ticks equal {TICKS} eager ticks bit for bit ({n_leaves} "
+        f"state tensors, distinct worlds); eager launches a tick: fused_bp "
+        f"1, narrow_compact 1, solve_tgs 1, plane_gather 0; world_health "
+        f"all true; bind-pose error {bind_err:.3g}, mesh moved {moved:.3f};"
+        f" replayed roll's kernels {kn}; replayed tick: {events:.1f} device"
+        f" events, {dev_ms:.3f} ms of device time; env·steps/s with "
+        f"skinning ({CALLS} x {TICKS} ticks, in turns): eager "
+        f"{', '.join(f'{r:.1f}' for r in rates['eager'])}, rollout "
+        f"{', '.join(f'{r:.1f}' for r in rates['rollout'])}; peak memory "
+        f"above the state: eager tick {peak['eager tick']:.2f} GiB, "
+        f"replayed roll {peak['replayed roll']:.2f} GiB; capture "
+        f"{tick.capture_seconds:.3f} s, graph pool "
+        f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
+
+
 # ---------------------------------------------------------------- dense
 # The dense broadphase path: every scene under 192 colliders, the default
 # build_flagship() (64 bodies: 2,080 pairs, 3,664 contact slots) among
@@ -3491,6 +3891,8 @@ def main():
     rolled = phase_rollout(engine, skin)
     phase_health(engine, rolled)
     del engine, skin, settled, rolled
+    phase_anim_small()
+    phase_real_asset()
     phase_dense_small()
     t0 = time.perf_counter()
     engine, skin = build_flagship()

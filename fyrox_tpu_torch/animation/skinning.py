@@ -1,10 +1,14 @@
-"""Skeletal skinning batched over worlds (mesh/mod.rs:781-792, 509-519).
+"""Skeletal skinning batched over worlds (mesh/mod.rs:781-792, 509-519),
+and blend shapes (morph targets, mesh/mod.rs:357-360).
 
-``skin_positions_dense`` turns the sparse [V,4] bone weights into a
+``skin_positions_gather`` is the per-vertex form: each vertex gathers its
+4 bone matrices. ``skin_positions_dense`` turns the sparse [V,4] bone weights into a
 static dense [V,B] matrix, so skinning is one product [V,B] @ [W,B,12]
 followed by an elementwise apply. That product is a plain large matrix
 multiply and stays ``torch.matmul`` (the JAX package has no kernel for it
 either); TF32 must be off on the card (``fyrox_tpu_torch.disable_tf32``).
+``apply_blend_shapes`` is one product over the shape axis, also a plain
+``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import torch
 
 from fyrox_tpu_torch._util import const
 
-__all__ = ["SkinTemplate", "bone_matrices", "skin_positions_dense"]
+__all__ = ["SkinTemplate", "apply_blend_shapes", "bone_matrices",
+           "skin_positions_gather", "skin_positions_dense"]
 
 
 @dataclass
@@ -47,12 +52,40 @@ class SkinTemplate:
         return self._dense_weights
 
 
+def _on(x, device):
+    """A host constant (numpy) as a cached device tensor; a tensor as is."""
+    return x if isinstance(x, torch.Tensor) else const(x, device)
+
+
+def apply_blend_shapes(vertices, shape_deltas, weights):
+    """Morph targets mixed into base vertices before skinning: vertices
+    [V,3], shape_deltas [S,V,3] (numpy constants or tensors), weights
+    [W,S] in percent ([0, 100], as the reference's). Returns [W,V,3]."""
+    dev = weights.device
+    deltas = _on(shape_deltas, dev)
+    w = weights / 100.0
+    morphed = w @ deltas.reshape(deltas.shape[0], -1)
+    return _on(vertices, dev)[None] + morphed.reshape(w.shape[0], -1, 3)
+
+
 def bone_matrices(globals_, skin: SkinTemplate):
     """[W,B,4,4] skinning matrices = bone_global @ inv_bind."""
     dev = globals_.device
     bg = globals_[:, const(skin.bones, dev).long()]
     ib = const(skin.inv_bind, dev)[None]
     return torch.sum(bg[..., :, :, None] * ib[..., None, :, :], -2)
+
+
+def skin_positions_gather(bone_mats, skin: SkinTemplate):
+    """[W,V,3] skinned positions, per vertex: v' = Σ_k w_k (M[i_k] @ v)."""
+    dev = bone_mats.device
+    idx = const(skin.bone_indices, dev).long()           # [V,4]
+    wts = const(skin.bone_weights, dev)                  # [V,4]
+    verts = const(skin.vertices, dev)                    # [V,3]
+    m = bone_mats[:, idx]                                # [W,V,4,4,4]
+    blended = torch.sum(m * wts[None, :, :, None, None], dim=2)
+    return (torch.sum(blended[..., :3, :3] * verts[None, :, None, :], -1)
+            + blended[..., :3, 3])
 
 
 def skin_positions_dense(bone_mats, skin: SkinTemplate):

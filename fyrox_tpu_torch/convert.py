@@ -14,7 +14,12 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch._util import resolve_device
-from fyrox_tpu_torch.animation.machine import MachineState, MachineTemplate
+from fyrox_tpu_torch.animation.blendspace import BlendSpaceTemplate
+from fyrox_tpu_torch.animation.machine import (LayeredMachine, LayerSpec,
+                                               MachineState, MachineTemplate)
+from fyrox_tpu_torch.animation.rootmotion import (RootMotionData,
+                                                  RootMotionSettings,
+                                                  RootMotionState)
 from fyrox_tpu_torch.animation.skinning import SkinTemplate
 from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
 from fyrox_tpu_torch.core.curve import CurveSet
@@ -25,13 +30,15 @@ from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
 from fyrox_tpu_torch.render.mesh import MeshData
 from fyrox_tpu_torch.render.pipeline import RenderTemplate
+from fyrox_tpu_torch.scene.particles import ParticleState, ParticleTemplate
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
 __all__ = ["scene_template", "physics_template", "joint_set", "slab_config",
-           "animation_set", "machine_template", "skin_template", "engine",
-           "engine_state", "physics_state", "scene_state", "render_template",
-           "to_numpy"]
+           "animation_set", "blend_space", "machine_template",
+           "layered_machine", "root_motion", "particle_template",
+           "skin_template", "engine", "engine_state", "physics_state",
+           "scene_state", "render_template", "to_numpy"]
 
 
 def _np(x):
@@ -143,13 +150,45 @@ def animation_set(a) -> AnimationSet:
         scl_anim=_np(a.scl_anim))
 
 
+def blend_space(b) -> BlendSpaceTemplate:
+    return BlendSpaceTemplate(points=_np(b.points), clips=_np(b.clips),
+                              triangles=_np(b.triangles))
+
+
 def machine_template(m) -> MachineTemplate:
-    if getattr(m, "state_spaces", None):
-        raise NotImplementedError("blend-space machine states")
+    """A JAX-package MachineTemplate → the port's, its blend-space states
+    included."""
     names = ("state_anim", "state_names", "entry_state", "t_from", "t_to",
              "t_param", "t_invert", "t_duration", "param_names",
              "state_clips", "state_weights")
-    return _copy(m, MachineTemplate, names)
+    out = _copy(m, MachineTemplate, names)
+    out.state_spaces = [(int(i), blend_space(b))
+                        for i, b in getattr(m, "state_spaces", None) or []]
+    return out
+
+
+def layered_machine(lm) -> LayeredMachine:
+    return LayeredMachine(layers=[
+        LayerSpec(machine=machine_template(l.machine), mask=_np(l.mask),
+                  weight=float(l.weight), weight_param=int(l.weight_param),
+                  sampling_param=int(l.sampling_param))
+        for l in lm.layers])
+
+
+def root_motion(r) -> RootMotionData:
+    """A JAX-package RootMotionData → the port's (host arrays)."""
+    st = r.settings
+    settings = RootMotionSettings(
+        node=int(st.node), ignore_x=bool(st.ignore_x),
+        ignore_y=bool(st.ignore_y), ignore_z=bool(st.ignore_z),
+        ignore_rotations=bool(st.ignore_rotations))
+    return RootMotionData(settings=settings, **{
+        f: _np(getattr(r, f)) for f in RootMotionData.__dataclass_fields__
+        if f != "settings"})
+
+
+def particle_template(t) -> ParticleTemplate:
+    return _copy(t, ParticleTemplate, ParticleTemplate.__dataclass_fields__)
 
 
 def skin_template(s) -> SkinTemplate:
@@ -160,17 +199,20 @@ def skin_template(s) -> SkinTemplate:
 
 
 def engine(e) -> Engine:
-    """A JAX-package Engine → the port's Engine (same templates)."""
-    for attr in ("particles", "root_motion"):
-        if getattr(e, attr, None) is not None:
-            raise NotImplementedError(attr)
+    """A JAX-package Engine → the port's Engine (same templates, particles
+    and root motion included)."""
+    parts = getattr(e, "particles", None)
+    rm = getattr(e, "root_motion", None)
     return Engine(
         template=scene_template(e.template),
         physics=None if e.physics is None else physics_template(e.physics),
         animations=None if e.animations is None else animation_set(
             e.animations),
         machine=None if e.machine is None else machine_template(e.machine),
-        dt=float(e.dt))
+        particles=None if parts is None else particle_template(parts),
+        dt=float(e.dt),
+        root_motion=None if rm is None else root_motion(rm),
+        root_motion_body=int(getattr(e, "root_motion_body", -1)))
 
 
 def _t(x, device):
@@ -207,21 +249,26 @@ def scene_state(s, device="cuda") -> WorldState:
 
 def engine_state(s, device="cuda") -> EngineState:
     """A JAX-package EngineState with numpy leaves → the port's state (on
-    the card unless `device` says otherwise)."""
+    the card unless `device` says otherwise); audio raises."""
     device = resolve_device(device)
-    if s.particles is not None or s.audio is not None:
-        raise NotImplementedError("particles and audio")
+    if s.audio is not None:
+        raise NotImplementedError("audio")
     scene = scene_state(s.scene, device)
     phys = None if s.physics is None else physics_state(s.physics, device)
     anim = None
     if s.animation is not None:
-        if s.animation.rootmotion is not None:
-            raise NotImplementedError("root motion")
-        anim = AnimState(
-            anim=_tuple(s.animation.anim, AnimationState, device),
-            machine=(None if s.animation.machine is None else
-                     _tuple(s.animation.machine, MachineState, device)))
-    return EngineState(scene=scene, physics=phys, animation=anim)
+        a = s.animation
+
+        def opt(x, cls):
+            return None if x is None else _tuple(x, cls, device)
+
+        anim = AnimState(anim=_tuple(a.anim, AnimationState, device),
+                         machine=opt(a.machine, MachineState),
+                         rootmotion=opt(a.rootmotion, RootMotionState))
+    parts = (None if s.particles is None
+             else _tuple(s.particles, ParticleState, device))
+    return EngineState(scene=scene, physics=phys, animation=anim,
+                       particles=parts)
 
 
 def to_numpy(x):

@@ -1,17 +1,23 @@
 """Engine facade: one batched engine tick over the world batch
 (Engine::update, fyrox-impl engine/mod.rs:1616).
 
-    1. the ABSM writes node local transforms (AnimationPlayer::update)
+    1. animation writes node local transforms: the ABSM, or the plain
+       AnimationPlayer (clips overwriting in order), with root motion
+       extracted when the engine has it (AnimationPlayer::update)
     2. hierarchical data (skipped when every body node is a scene root:
        the post-physics refresh recomputes everything)
-    3. physics step (PhysicsWorld::update)
+    3. physics step (PhysicsWorld::update); with root motion, the
+       character body's horizontal velocity is set from the root delta
+       first
     4. body poses written back into their nodes' local transforms
     5. hierarchy refresh so consumers see post-physics globals
+    6. particle systems (ParticleSystem::update)
 
 ``Engine.rollout`` runs N ticks; on the card it replays one captured CUDA
 graph of a tick (the JAX package's one ``lax.scan`` dispatch).
 ``world_health`` / ``restore_unhealthy`` find and reset diverged worlds.
-Root motion, particles and audio are not ported and raise.
+Audio (the JAX package's ``Engine.render_audio``) is not ported and
+raises.
 """
 from __future__ import annotations
 
@@ -26,10 +32,13 @@ from fyrox_tpu_torch import disable_tf32
 from fyrox_tpu_torch._util import const, resolve_device
 from fyrox_tpu_torch.animation import machine as machine_mod
 from fyrox_tpu_torch.animation import player as player_mod
+from fyrox_tpu_torch.animation import rootmotion as rm_mod
 from fyrox_tpu_torch.animation import track as track_mod
+from fyrox_tpu_torch.core import quat
 from fyrox_tpu_torch.core import transform as tfm
 from fyrox_tpu_torch.physics import world as phys_mod
 from fyrox_tpu_torch.scene import graph as graph_mod
+from fyrox_tpu_torch.scene import particles as particles_mod
 from fyrox_tpu_torch.scene.state import WorldState, init_state
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
@@ -42,25 +51,32 @@ DEFAULT_DT = 1.0 / 60.0  # executor.rs:87
 class AnimState(NamedTuple):
     anim: Optional[track_mod.AnimationState] = None
     machine: Optional[machine_mod.MachineState] = None
-    rootmotion: Optional[NamedTuple] = None
+    rootmotion: Optional[rm_mod.RootMotionState] = None
 
 
 class EngineState(NamedTuple):
     scene: WorldState
     physics: Optional[phys_mod.PhysicsState] = None
     animation: Optional[AnimState] = None
-    particles: Optional[NamedTuple] = None
+    particles: Optional[particles_mod.ParticleState] = None
     audio: Optional[NamedTuple] = None
 
 
 @dataclass
 class Engine:
-    """Holds the static templates; all dynamics live in EngineState."""
+    """Holds the static templates; all dynamics live in EngineState.
+
+    root_motion: when set, the player pins the root bone and the tick
+    drives the physics body `root_motion_body` horizontally with the
+    extracted delta (Animation::update_root_motion, lib.rs:498)."""
     template: SceneTemplate
     physics: Optional[phys_mod.PhysicsTemplate] = None
     animations: Optional[track_mod.AnimationSet] = None
     machine: Optional[machine_mod.MachineTemplate] = None
+    particles: Optional[particles_mod.ParticleTemplate] = None
     dt: float = DEFAULT_DT
+    root_motion: Optional[rm_mod.RootMotionData] = None
+    root_motion_body: int = -1
 
     def init_state(self, num_worlds: int, device="cuda",
                    body_pose=None) -> EngineState:
@@ -95,8 +111,15 @@ class Engine:
             m = (machine_mod.init_machine_state(self.machine, num_worlds,
                                                device)
                  if self.machine is not None else None)
-            anim = AnimState(anim=a, machine=m)
-        return EngineState(scene=scene, physics=phys, animation=anim)
+            rm = (rm_mod.init_root_motion_state(self.root_motion, num_worlds,
+                                                device)
+                  if self.root_motion is not None else None)
+            anim = AnimState(anim=a, machine=m, rootmotion=rm)
+        parts = (particles_mod.init_particles(self.particles, num_worlds,
+                                              device)
+                 if self.particles is not None else None)
+        return EngineState(scene=scene, physics=phys, animation=anim,
+                           particles=parts)
 
     def step(self, state: EngineState, machine_params=None,
              dt: Optional[float] = None, fused=True,
@@ -107,25 +130,40 @@ class Engine:
         dt = self.dt if dt is None else dt
         scene = state.scene
         anim = state.animation
-        if (state.particles is not None or state.audio is not None
-                or (anim is not None and anim.rootmotion is not None)):
-            raise NotImplementedError("particles, audio and root motion")
+        if state.audio is not None:
+            raise NotImplementedError("audio")
 
         # ---- 1. animation ----
+        rm_delta = None
         if anim is not None and self.animations is not None:
-            if self.machine is None or anim.machine is None:
-                raise NotImplementedError("the plain AnimationPlayer path "
-                                          "(the port drives ABSMs)")
-            if machine_params is None:
-                machine_params = torch.zeros(
-                    (scene.num_worlds, max(len(self.machine.param_names), 1)),
-                    dtype=torch.bool, device=scene.position.device)
-            a, m, p, r, s = player_mod.step_absm(
-                self.animations, self.machine, anim.anim, anim.machine,
-                machine_params, scene.position, scene.rotation, scene.scale,
-                dt)
-            anim = AnimState(anim=a, machine=m)
-            scene = scene._replace(position=p, rotation=r, scale=s)
+            if self.root_motion is not None and anim.rootmotion is not None:
+                a, rm, p, r, s, rm_delta = player_mod.step_player_root_motion(
+                    self.animations, self.root_motion, anim.anim,
+                    anim.rootmotion, scene.position, scene.rotation,
+                    scene.scale, dt)
+                anim = AnimState(anim=a, machine=anim.machine, rootmotion=rm)
+                scene = scene._replace(position=p, rotation=r, scale=s)
+            elif self.machine is not None and anim.machine is not None:
+                if machine_params is None:
+                    machine_params = torch.zeros(
+                        (scene.num_worlds,
+                         max(len(self.machine.param_names), 1)),
+                        dtype=torch.bool, device=scene.position.device)
+                a, m, p, r, s = player_mod.step_absm(
+                    self.animations, self.machine, anim.anim, anim.machine,
+                    machine_params, scene.position, scene.rotation,
+                    scene.scale, dt)
+                anim = AnimState(anim=a, machine=m)
+            else:
+                a, p, r, s = player_mod.step_player(
+                    self.animations, anim.anim, scene.position,
+                    scene.rotation, scene.scale, dt)
+                anim = AnimState(anim=a, machine=anim.machine,
+                                 rootmotion=anim.rootmotion)
+            # as the JAX package: an engine with root motion applies only
+            # the root-motion branch's pose
+            if self.root_motion is None:
+                scene = scene._replace(position=p, rotation=r, scale=s)
 
         # ---- 2. hierarchy (pre-physics) ----
         skip_pre = (state.physics is not None and self.physics is not None
@@ -136,11 +174,30 @@ class Engine:
         # ---- 3+4+5. physics, body → node sync, refresh ----
         phys = state.physics
         if phys is not None and self.physics is not None:
+            if rm_delta is not None and self.root_motion_body >= 0:
+                phys = self._drive_root_body(phys, rm_delta, dt)
             phys = phys_mod.step_physics(phys, self.physics, dt, fused=fused,
                                          bp_rank=bp_rank)
             scene = self._sync_bodies_to_nodes(scene, phys)
             scene = graph_mod.update_hierarchical_data(scene, self.template)
-        return EngineState(scene=scene, physics=phys, animation=anim)
+
+        # ---- 6. particle systems ----
+        parts = state.particles
+        if parts is not None and self.particles is not None:
+            parts = particles_mod.step_particles(parts, self.particles, dt)
+        return EngineState(scene=scene, physics=phys, animation=anim,
+                           particles=parts)
+
+    def _drive_root_body(self, phys, rm_delta, dt):
+        """The character body's x and z velocity from the root delta
+        rotated into the body's frame, over dt; gravity and contacts keep
+        the vertical axis. Out of place, with no host read."""
+        bi = self.root_motion_body
+        wd = quat.rotate(phys.rotation[:, bi], rm_delta) / dt
+        lv = phys.linvel.clone()
+        lv[:, bi, 0] = wd[:, 0]
+        lv[:, bi, 2] = wd[:, 2]
+        return phys._replace(linvel=lv)
 
     def rollout(self, state: EngineState, num_steps: int,
                 machine_params=None, fused=True,

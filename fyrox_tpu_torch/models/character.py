@@ -5,7 +5,9 @@ the same numpy seeds give the same templates (a CPU test holds them
 equal). By default the pile has 64 bodies and takes the dense broadphase,
 as the JAX package's default does; ``n_bodies=1000`` is the bench
 configuration (100 bones / 50k vertices / 1000 bodies) on the slab
-broadphase, which every pile of 192 bodies or more takes.
+broadphase, which every pile of 192 bodies or more takes. With
+``real_asset`` the character is an imported FBX (``models.assets``
+writes one) on the plain AnimationPlayer.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 from fyrox_tpu_torch.animation import (AnimationSetBuilder, MachineBuilder,
                                        SkinTemplate)
 from fyrox_tpu_torch.engine import Engine
+from fyrox_tpu_torch.io.fbx import fbx_to_engine
 from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, BodyType,
                                      PhysicsBuilder)
 from fyrox_tpu_torch.scene import NodeType, SceneBuilder
@@ -124,14 +127,24 @@ def build_pile_scene(sb: SceneBuilder, n_bodies=64, seed=1):
 
 
 def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
-                   max_active_pairs=None, seed=0, broadphase_period=1):
+                   max_active_pairs=None, seed=0, broadphase_period=1,
+                   real_asset=None):
     """Character + pile + camera. Returns (Engine, SkinTemplate).
 
     A pile of 192 bodies or more takes the slab broadphase;
     broadphase_period > 1 turns on its temporal reuse (the JAX package's
     FYROX_SLAB_BP_PERIOD), with its wider windows. A smaller pile takes
     the dense broadphase, all P pairs in the compact contact layout, or
-    compacted into max_active_pairs slots a step where that is given."""
+    compacted into max_active_pairs slots a step where that is given.
+
+    real_asset: binary FBX bytes or a path. The character then comes
+    through the full import path (io/fbx.fbx_to_engine: document → models
+    → skin clusters → animation curves) and plays on the plain
+    AnimationPlayer (no machine); n_bones, n_verts, max_active_pairs and
+    broadphase_period are then unused, as in the JAX package.
+    ``models.assets.make_character_fbx()`` writes one."""
+    if real_asset is not None:
+        return _build_flagship_real(real_asset, n_bodies=n_bodies, seed=seed)
     sb, aset, mt, bones, skin_data = build_character_scene(
         n_bones=n_bones, n_verts=n_verts, seed=seed)
     pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
@@ -165,3 +178,20 @@ def assemble_flagship(sb, pt, aset, mt, bones, skin_data):
                     machine=mt)
     return engine, skin
 
+
+
+def _build_flagship_real(asset, n_bodies=64, seed=0):
+    """The flagship with an imported skinned character (build_flagship's
+    real_asset): the FBX's scene, skin and clip, the pile, a camera."""
+    sb = SceneBuilder()
+    _, _, skin, aset = fbx_to_engine(asset, scene_builder=sb)
+    if skin is None:
+        raise ValueError("real_asset has no skin deformer")
+    pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
+    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    template = sb.build()
+    if n_bodies >= 192:
+        pt = pb.build(broadphase="slab", slab_window=SLAB_WINDOW)
+    else:
+        pt = pb.build(max_active_pairs=0, broadphase="dense")
+    return Engine(template=template, physics=pt, animations=aset), skin

@@ -211,6 +211,20 @@ def test_port_imports_and_builds_without_jax():
         assert plane_ops.launches("plane_scatter") == 0
         assert slab2.bp_demand_stats(r.physics, rs.physics, period=4)
         assert slab2.overflow_stats(r.physics, rs.physics)
+        from fyrox_tpu_torch.animation import (blendspace, player,
+                                               rootmotion, skinning,
+                                               spritesheet)
+        from fyrox_tpu_torch.core import threefry
+        from fyrox_tpu_torch.io import fbx
+        from fyrox_tpu_torch.models import make_character_fbx
+        from fyrox_tpu_torch.scene import particles
+        fe, fskin = build_flagship(n_bodies=24, real_asset=make_character_fbx(
+            n_bones=6, n_verts=160))
+        fe.particles = particles.ParticleTemplate(max_particles=16)
+        fs = fe.rollout(fe.init_state(2, device="cpu"), 2)
+        assert fe.machine is None and int(fs.particles.step) == 2
+        assert skinning.skin_positions_gather(skinning.bone_matrices(
+            fs.scene.globals_, fskin), fskin).shape == (2, 160, 3)
         from fyrox_tpu_torch import render
         from fyrox_tpu_torch.core import aabb, frustum
         from fyrox_tpu_torch.render import tile_raster

@@ -765,3 +765,51 @@ def test_tile_raster_kernel_rejects_bad_inputs(cuda):
         tile_raster.visibility(feats, ids, count, 16, 128, 8, 128)
     with pytest.raises(ValueError):                     # tile > 1024 px
         tile_raster.visibility(feats, ids, count, 16, 128, 16, 128)
+
+
+# ---- the animation breadth and the real-asset flagship ---------------------
+
+def test_real_asset_rollout_replays_equal_eager_steps(cuda):
+    """The real-asset flagship (an 8-bone FBX character on the plain
+    AnimationPlayer, 192 bodies, K3 route): 12 replays of Engine.rollout
+    equal 12 Engine.step ticks bit for bit, from 4 jittered worlds, and
+    K3, K2 and K1 launch once an eager tick."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import _leaves
+    from fyrox_tpu_torch.models import make_character_fbx
+    engine, _ = build_flagship(n_bodies=192, real_asset=make_character_fbx(
+        n_bones=8, n_verts=320))
+    assert engine.machine is None
+    assert fused_step.supports_fused_bp(engine.physics)
+    state = chip_smoke.distinct_worlds(engine, 4, cuda, seed=2)
+    chip_smoke.reset_all_launches()
+    eager = state
+    for _ in range(12):
+        eager = engine.step(eager)
+    assert chip_smoke.all_launches() == dict(
+        fused_bp=12, narrow_compact=12, solve_tgs=12, plane_gather=0,
+        plane_scatter=0)
+    rolled = engine.rollout(state, 12)
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+
+
+def test_particles_replay_with_an_advancing_counter(cuda):
+    """A root-motion walker with a particle emitter: replays equal eager
+    ticks bit for bit with the counter advanced in the graph's buffer, and
+    a replay at counter 1 draws other newborns than at counter 0."""
+    import chip_smoke
+    from fyrox_tpu_torch.scene.particles import ParticleTemplate
+    engine, _ = chip_smoke.walker_engine(ParticleTemplate(
+        max_particles=32, emit_rate=90.0, emitter_kind=2, seed=1))
+    rolled = chip_smoke.particle_replays(engine, 4)
+    assert int(rolled.particles.step) == chip_smoke.ANIM_TICKS
+    assert bool(rolled.particles.alive.any())
+
+
+def test_anim_breadth_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke.py's anim-small phase: the player, root motion with its
+    body drive, a blend-space state, a layered machine, blend shapes,
+    gather skinning, sprite sheets and particles, card against CPU."""
+    import chip_smoke
+    chip_smoke.phase_anim_small()
