@@ -170,7 +170,7 @@ Then hulls, scenery and queries (chip_smoke.terrain_pile):
 Then the render path (bench_render.py's scene and config, W=16 at 256x256,
 worlds made distinct by seeded jitter of the mesh nodes):
   K5full   — the tile raster kernel, full variant, vs its plain version on
-             the camera pass of one frame and on the knife-edge inputs
+             every camera-pass call of one frame and on the knife-edge inputs
              (k5_knife_edges): z, idx, w0, w1 bit-equal, two launches
              bit-equal; slots per tile, the split of the long tiles,
              covered pairs and the bound;
@@ -185,6 +185,32 @@ worlds made distinct by seeded jitter of the mesh nodes):
              warm-up, frames/s and ms/frame/world, K5 launched exactly
              twice per frame;
   render-profile — device events per frame and the device's busy share.
+Then the features frame (features_scene: the bench scene + textured ground
+and cubes, a spot and a point light with shadow maps, HZB occlusion, 4
+transparent panes, 16 sprites, 2 decals, a LOD group, 2 rectangles, light
+shafts and a skybox; W=16 at 256x256, caps FEATURES_CAPS):
+  render-features-small — W=2 at 32x32: each feature alone and all
+             together in both raster modes, card vs CPU from the same state
+             (99.9 % of the colours within 1e-4, all within 2e-3; caps
+             equal);
+  K5 features frame — every K5 call of the homogeneous frame (the
+             camera pass, the 64x64 occlusion prepass, the cascades, the
+             128x128 spot map and the 6 x 64x64 point faces, each one
+             launch over every world) launched twice and held bit for bit
+             against visibility_plain at its own shape;
+  K5clip   — K5's affine variant, full on the clipped frame's camera pass
+             and depth-only on its occlusion prepass (2T clipped rows),
+             and on the affine knife-edge inputs (k5_knife_edges_affine):
+             bit-equal to visibility_plain(affine=True), two launches
+             bit-equal, timed against its bound (the bytes of an affine
+             row's 10 columns); the clipped frame's 2DH map launches are
+             held as the homogeneous frame's;
+  render-features — the full-width frame in each raster mode: the
+             bin-demand audit of its 12 passes (fails at demand >= cap),
+             RENDER_FRAMES timed frames after a warm-up with K5's launches
+             per frame by variant (homogeneous: full 1, depth 4; clipped:
+             full_affine 1, depth_affine 1, depth 3), frames/s, and the
+             profiler's device events, device ms and busy share.
 Then one JSON line describing the kernels, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Each kernel's `ms` (and
 `plain_ms`, `library_ms`) is CUDA-event time over a run of calls, which
@@ -3498,55 +3524,196 @@ RENDER_PROFILED = 3  # frames under the profiler
 # covered pairs only (k5_covered_pairs): a pair that an edge test rejects
 # needs no z, and csrc/tile_raster.cu skips most such pairs unevaluated.
 K5_OPS = 31
+K5_OPS_AFFINE = 24   # w0, w1 and z forms, w2, six tests, four selects
 
 
 def render_scene(n_worlds, device, seed=0):
-    """The bench scene (bench_render.py:31-72) with its render template
-    and config, W worlds whose mesh nodes are moved by seeded jitter
-    (±5 cm), so that no two worlds render the same images."""
-    from fyrox_tpu_torch.render import (RenderConfig, build_render_template,
-                                        make_cube, make_plane, make_sphere)
-    from fyrox_tpu_torch.scene import NodeType, SceneBuilder, graph
-    from fyrox_tpu_torch.scene import init_state
-    sb = SceneBuilder()
-    sb.add_mesh(make_plane(40.0, albedo=(0.5, 0.5, 0.5)), name="ground")
-    rng = np.random.default_rng(0)
-    for i in range(64):
-        x, z = rng.uniform(-10, 10, 2)
-        if i % 2:
-            sb.add_mesh(make_cube(1.0, albedo=(0.7, 0.3, 0.2)),
-                        position=(x, 0.5, z))
-        else:
-            sb.add_mesh(make_sphere(0.5, slices=8, stacks=8,
-                                    albedo=(0.2, 0.4, 0.7)),
-                        position=(x, 0.5, z))
-    tilt = (np.sin(np.pi / 3), 0.0, 0.0, np.cos(np.pi / 3))
-    sb.add_light("directional", rotation=tilt, intensity=2.0)
-    look_down = (np.sin(np.pi / 8), 0.0, 0.0, np.cos(np.pi / 8))
-    sb.add_camera("cam", position=(0, 8.0, -14.0), rotation=look_down)
-    t = sb.build()
-    st = init_state(t, n_worlds, device=device)
-    mesh = torch.as_tensor(t.node_type == NodeType.MESH, device=device)
-    noise = np.random.default_rng(seed).uniform(
-        -0.05, 0.05, tuple(st.position.shape)).astype(np.float32)
-    st = st._replace(position=st.position + torch.as_tensor(
-        noise, device=device) * mesh[None, :, None].float())
-    st = graph.update_hierarchical_data(st, t)
+    """The bench scene (bench_render.py:31-72: features_frame with no
+    feature) with its render template and the bench's config, W worlds
+    whose mesh nodes are moved by seeded jitter (±5 cm), so that no two
+    worlds render the same images."""
+    from fyrox_tpu_torch.render import RenderConfig
+    t, rt, st, _ = features_frame(n_worlds, device, features=frozenset(),
+                                  seed=seed)
     cfg = RenderConfig(width=RENDER_SIZE, height=RENDER_SIZE, shadows=True,
                        cascade_tri_budget=(0.05, 1.0, 0.75), k_per_tile=424,
                        csm_k_per_tile=896)
-    return t, build_render_template(t), st, cfg
+    return t, rt, st, cfg
 
 
-def capture_k5_inputs(t, rt, st, cfg):
-    """The K5 inputs of one frame of the main path, as it calls the
-    dispatch point (launches made here are not counted)."""
+# The features frame: the bench scene plus every feature of render_frame
+# (textured ground and cubes, a spot and a point light with shadow maps,
+# HZB occlusion, transparent panes, sprites, decals, a LOD group,
+# rectangles, light shafts and a skybox), rendered in both raster modes.
+FEATURES = ("textures", "spot", "point", "occlusion", "transparent",
+            "sprites", "decals", "lod", "rectangles", "shafts", "skybox",
+            "gradient", "clipped")
+FEATURES_FRAME = frozenset(FEATURES) - {"gradient", "clipped"}
+# bin caps that no pass of the full-width features frame reaches (its
+# render-features audit prints the demand against them). The spot and
+# point maps bin a caster that is not wholly in front of the light's plane
+# into every tile (its 2DH bbox is the whole map, as in the JAX package),
+# so their demand nears T (4,718 rows) and k_per_tile exceeds T: those
+# passes, the camera pass and the prepass bin at min(k_per_tile, rows)
+FEATURES_CAPS = dict(k_per_tile=8192, csm_k_per_tile=1024)
+
+
+def render_lib():
+    """The port's render builders, as features_scene takes them."""
+    import types
+    from fyrox_tpu_torch import render
+    from fyrox_tpu_torch.scene import SceneBuilder
+    return types.SimpleNamespace(
+        SceneBuilder=SceneBuilder, make_plane=render.make_plane,
+        make_cube=render.make_cube, make_sphere=render.make_sphere,
+        Texture=render.Texture, Material=render.Material,
+        SkyBox=render.SkyBox, gradient_faces=render.gradient_faces)
+
+
+def features_scene(lib, features=FEATURES_FRAME, n_obj=64, tex_size=256,
+                   n_sprites=16, seed=0, generic=False):
+    """The bench scene (render_scene's: a 40 m ground, n_obj cubes and
+    spheres, one directional light, the bench camera) plus the parts of
+    `features` (names from FEATURES), built with either package's builders
+    (`lib`, as render_lib()): "textures" a tex_size² albedo and a
+    metallic-roughness texture on the ground (numpy, from `seed`) and 4
+    cubes whose Material binds the albedo as "diffuseTexture"; "spot" /
+    "point" a spot and a point light with radii; "transparent" 4 panes at
+    alpha 0.4; "sprites" n_sprites billboards; "decals" 2 decals; "lod" a
+    LOD group (a cube near, a sphere far, at the camera's distance); and
+    "rectangles" 2 rectangles, one textured. `generic` gives every
+    triangle a back-face determinant far from rounding noise, so that two
+    packages decide each triangle's validity alike (the cubes turn by
+    seeded rotations, the spheres lose their zero-area pole triangles,
+    the directional light tilts about a generic axis)."""
+    rng = np.random.default_rng(seed)
+    turn = np.random.default_rng(7)
+    sb = lib.SceneBuilder()
+
+    def cube(size, **kw):
+        q = turn.standard_normal(4) if generic else None
+        return lib.make_cube(size, **kw), (
+            None if q is None else tuple(q / np.linalg.norm(q)))
+
+    def sphere(**kw):
+        m = lib.make_sphere(0.5, slices=8, stacks=8, **kw)
+        if generic:
+            p = m.positions[m.triangles]
+            area = np.linalg.norm(np.cross(p[:, 1] - p[:, 0],
+                                           p[:, 2] - p[:, 0]), axis=-1)
+            m.triangles = m.triangles[area > 1e-6]
+        return m
+
+    ground = {}
+    tex = None
+    if "textures" in features or "rectangles" in features:
+        tex = lib.Texture.from_array(rng.uniform(
+            0.3, 1.0, (tex_size, tex_size, 3)).astype(np.float32))
+    if "textures" in features:
+        ground = dict(albedo_texture=tex, mr_texture=lib.Texture.from_array(
+            rng.uniform(0.2, 1.0, (tex_size, tex_size, 3)).astype(
+                np.float32)))
+    sb.add_mesh(lib.make_plane(40.0, albedo=(0.5, 0.5, 0.5), **ground),
+                name="ground")
+    pos = np.random.default_rng(0)
+    for i in range(n_obj):
+        x, z = pos.uniform(-10, 10, 2)
+        if i % 2:
+            m, q = cube(1.0, albedo=(0.7, 0.3, 0.2))
+            sb.add_mesh(m, position=(x, 0.5, z), rotation=q)
+        else:
+            sb.add_mesh(sphere(albedo=(0.2, 0.4, 0.7)), position=(x, 0.5, z))
+    tilt = (np.sin(np.pi / 3), 0.0, 0.0, np.cos(np.pi / 3))
+    if generic:
+        axis = np.array([1.0, 0.3, 0.2]) / np.linalg.norm([1.0, 0.3, 0.2])
+        tilt = tuple(np.append(axis * np.sin(0.55), np.cos(0.55)))
+    sb.add_light("directional", rotation=tilt, intensity=2.0)
+    down = (np.sin(np.pi / 4), 0.0, 0.0, np.cos(np.pi / 4))   # +Z → -Y
+    if "textures" in features:
+        mat = lib.Material(albedo=(0.9, 0.9, 0.9)).bind("diffuseTexture",
+                                                        tex)
+        for i in range(4):
+            m, q = cube(1.2, material=mat)
+            sb.add_mesh(m, position=(-6.0 + 4.0 * i, 0.6, -4.0), rotation=q)
+    if "spot" in features:
+        sb.add_light("spot", position=(2.0, 6.0, -2.0), rotation=down,
+                     color=(1.0, 0.9, 0.7), radius=20.0,
+                     hotspot=np.deg2rad(50.0), intensity=3.0)
+    if "point" in features:
+        sb.add_light("point", position=(-3.0, 3.0, 1.0),
+                     color=(0.6, 0.8, 1.0), radius=15.0, intensity=3.0)
+    if "transparent" in features:
+        stand = (np.sin(-np.pi / 4), 0.0, 0.0, np.cos(-np.pi / 4))
+        for i in range(4):
+            sb.add_mesh(lib.make_plane(2.0, albedo=(0.3, 0.9, 0.4),
+                                       alpha=0.4),
+                        position=(-5.0 + 3.3 * i, 1.2, -7.0), rotation=stand)
+    if "sprites" in features:
+        for i in range(n_sprites):
+            x, z = rng.uniform(-8, 8, 2)
+            sb.add_sprite(position=(x, 2.0 + rng.uniform(0, 2), z),
+                          size=0.3, color=tuple(rng.uniform(0.3, 1.0, 3)))
+    if "decals" in features:
+        for i, col in enumerate(((1.0, 0.2, 0.2), (0.2, 0.2, 1.0))):
+            sb.add_decal(position=(-3.0 + 6.0 * i, 0.0, -2.0),
+                         scale=(4.0, 2.0, 4.0), color=col, strength=0.8)
+    if "lod" in features:
+        m, q = cube(1.0, albedo=(0.9, 0.9, 0.2))
+        near = sb.add_mesh(m, position=(1.5, 0.5, -6.0), rotation=q)
+        far = sb.add_mesh(sphere(albedo=(0.9, 0.2, 0.9)),
+                          position=(1.5, 0.5, -6.0))
+        # the bench camera sits 11.07 m away, (11.07 - 0.025) / (2048 -
+        # 0.025) = 0.00539: the near cube, which a camera 0.02 m farther
+        # off trades for the far sphere
+        sb.add_lod_group([(0.0, 0.0054, [near]), (0.0054, 1.0, [far])])
+    if "rectangles" in features:
+        face = (0.0, 1.0, 0.0, 0.0)          # +Z turned to face the camera
+        sb.add_rectangle(position=(-2.5, 2.5, 4.0), scale=(3.0, 2.0, 1.0),
+                         rotation=face, color=(1.0, 0.8, 0.6), texture=tex,
+                         uv_rect=(0.0, 0.0, 0.5, 0.5))
+        sb.add_rectangle(position=(2.5, 2.5, 4.0), scale=(2.0, 2.0, 1.0),
+                         rotation=face, color=(0.4, 0.7, 1.0))
+    look_down = (np.sin(np.pi / 8), 0.0, 0.0, np.cos(np.pi / 8))
+    sb.add_camera("cam", position=(0, 8.0, -14.0), rotation=look_down)
+    return sb.build()
+
+
+def features_config(lib, features=FEATURES_FRAME, size=RENDER_SIZE):
+    """The RenderConfig keywords of `features` at size x size (either
+    package's config takes them; the JAX package's also wants its
+    use_pallas / pallas_interpret / bin_mode): the bench's CSM and
+    budgets, FEATURES_CAPS, and the switches of `features` ("occlusion",
+    "spot" / "point" maps, "shafts", "skybox", "gradient", "clipped")."""
+    kw = dict(width=size, height=size, shadows=True,
+              cascade_tri_budget=(0.05, 1.0, 0.75), **FEATURES_CAPS)
+    if "occlusion" in features:
+        kw.update(occlusion=True, occlusion_size=64, occluder_quantile=0.75)
+    if "spot" in features:
+        kw.update(spot_shadows=True, spot_shadow_size=128)
+    if "point" in features:
+        kw.update(point_shadows=True, point_shadow_size=64)
+    if "shafts" in features:
+        kw.update(light_shafts=True)
+    if "skybox" in features:
+        kw.update(skybox=lib.SkyBox(lib.gradient_faces(
+            (0.15, 0.3, 0.7), (0.8, 0.8, 0.75), size=16)))
+    if "gradient" in features:
+        kw.update(sky_zenith=(0.1, 0.2, 0.5), sky_horizon=(0.7, 0.7, 0.7))
+    if "clipped" in features:
+        kw.update(raster_mode="clipped")
+    return kw
+
+
+def capture_k5_calls(t, rt, st, cfg):
+    """Every K5 call of one frame, as (args, depth_only, affine), in the
+    frame's order (launches made here are not counted)."""
     from fyrox_tpu_torch.render import render_frame, tile_raster
     seen = []
     dispatch = tile_raster.visibility
 
     def spy(*args, **kw):
-        seen.append((args, kw.get("depth_only", False)))
+        seen.append((args, kw.get("depth_only", False),
+                     kw.get("affine", False)))
         return dispatch(*args, **kw)
 
     tile_raster.visibility = spy
@@ -3558,10 +3725,17 @@ def capture_k5_inputs(t, rt, st, cfg):
     return seen
 
 
-def k5_covered_pairs(feats, ids, count, height, width, tile_h, tile_w):
-    """The (pixel, walked slot) pairs whose e0, e1, e2 >= 0, by
-    visibility_plain's arithmetic on the same inputs: the pairs that any
-    implementation of K5 has to finish."""
+def capture_k5_inputs(t, rt, st, cfg):
+    """The (args, depth_only) of one frame's K5 calls (kernel_ab.py's
+    view of capture_k5_calls)."""
+    return [(a, d) for a, d, _ in capture_k5_calls(t, rt, st, cfg)]
+
+
+def k5_covered_pairs(feats, ids, count, height, width, tile_h, tile_w,
+                     affine=False):
+    """The (pixel, walked slot) pairs whose e0, e1, e2 >= 0 (w0, w1, w2 >=
+    0 for affine rows), by visibility_plain's arithmetic on the same
+    inputs: the pairs that any implementation of K5 has to finish."""
     from fyrox_tpu_torch.render import tile_raster
     b = feats.shape[0]
     nty, ntx = height // tile_h, width // tile_w
@@ -3578,22 +3752,24 @@ def k5_covered_pairs(feats, ids, count, height, width, tile_h, tile_w):
         def aff(i):
             return f[:, :, i] * px + f[:, :, i + 1] * py + f[:, :, i + 2]
 
-        e0, e1, s = aff(0), aff(3), aff(6)
-        e2 = s - e0 - e1
+        e0, e1 = aff(0), aff(3)
+        e2 = (1.0 if affine else aff(6)) - e0 - e1
         total += int(((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (j < cnt)).sum())
     return total
 
 
-def k5_bytes(feats, ids, count, outs):
+def k5_bytes(feats, ids, count, outs, affine=False):
     """The bytes K5 has to move: each tile's count and the ids of the slots
-    it walks read once, each feature row that some tile of its image walks
-    read once, the outputs written once."""
+    it walks read once, the columns of each feature row that some tile of
+    its image walks read once (16 for 2DH rows, the first 10 of affine
+    ones: w0, w1 and z forms and the ok flag), the outputs written once."""
     b, t = feats.shape[:2]
     walked = torch.arange(ids.shape[-1], device=ids.device) < count[..., None]
     img = torch.arange(b, device=ids.device).reshape(b, 1, 1) * t
     rows = torch.unique((ids.long() + img)[walked]).numel()
+    cols = 10 if affine else feats.shape[2]
     return (nbytes(count, *outs) + int(walked.sum()) * ids.element_size()
-            + rows * feats.shape[2] * feats.element_size())
+            + rows * cols * feats.element_size())
 
 
 def k5_knife_edges(height=16, width=256, tile_h=8, tile_w=128, n_img=2,
@@ -3680,69 +3856,186 @@ def k5_knife_edges(height=16, width=256, tile_h=8, tile_w=128, n_img=2,
     return (dev(feats), dev(ids), dev(count), height, width, tile_h, tile_w)
 
 
-def phase_k5(inputs, depth_only):
-    """One K5 variant vs its plain version at the main path's shapes."""
+def k5_knife_edges_affine(height=16, width=256, tile_h=8, tile_w=128,
+                          n_img=2, n_rows=150, seed=0, device="cpu"):
+    """k5_knife_edges for K5's affine variant: screen-affine rows (w0, w1,
+    z forms, ok in column 9) written from half-integers and powers of two,
+    so that every form rounds exactly: w0 and w1 zero on pixel centres on
+    the warp rectangles' borders and the tiles' outer rows and columns,
+    w2 = (1 - w0) - w1 zero on diagonals through centres, z ranges that
+    cross -1 or 1 inside a tile, rows whose ok flag is 0 nearest the
+    camera, negative-zero coefficients and z ties (+0 against -0 among
+    them). Each tile walks its rows in its own seeded order; one tile
+    walks none."""
+    rng = np.random.default_rng(seed)
+    xs = sorted({0.5, width - 0.5} | {c + d for c in range(16, width, 16)
+                                      for d in (-0.5, 0.5)})
+    ys = sorted({0.5, height - 0.5} | {c + d for c in range(tile_h, height,
+                                                            tile_h)
+                                       for d in (-0.5, 0.5)})
+
+    def centre(edges, n):
+        if rng.random() < 0.7:
+            return float(rng.choice(edges))
+        return float(rng.integers(0, n)) + 0.5
+
+    def nz():
+        return -0.0 if rng.random() < 0.5 else 0.0
+
+    sc = 2.0 ** -9                      # w0, w1 < 1 over a 256-px image
+    feats = np.zeros((n_img, n_rows, 16), np.float32)
+    for b in range(n_img):
+        z_seen = []
+        for r in range(n_rows):
+            cx, cy = centre(xs, width), centre(ys, height)
+            sx, sy = rng.choice([-1.0, 1.0], 2) * sc
+            kind = int(rng.integers(0, 3))
+            if kind == 0:                  # a quadrant corner at (cx, cy)
+                w0, w1 = (sx, nz(), -sx * cx), (nz(), sy, -sy * cy)
+            elif kind == 1:                # w2 = 0 on a diagonal
+                d = 2.0 ** -int(rng.integers(3, 6))
+                w0, w1 = (d, nz(), -d * cx), (nz(), d, -d * cy)
+            else:                          # a vertical strip, w2 >= 0
+                w0 = (sx, nz(), -sx * cx)
+                w1 = (nz(), nz(), float(rng.choice([0.0, 0.25, 0.5])))
+            z0 = (float(rng.choice(z_seen)) if z_seen and rng.random() < 0.2
+                  else float(rng.choice([0.0, -0.0])) if rng.random() < 0.1
+                  else float(rng.uniform(-0.9, 0.9)))
+            if kind == 1 and rng.random() < 0.5:     # diagonals in front
+                z0 = float(rng.uniform(-0.98, -0.9))
+            z_seen.append(z0)
+            zr = (float(rng.choice([0.0, -0.0, 2.0 ** -10])), nz(), z0)
+            ok = 1.0
+            special = rng.random()
+            if special < 0.1:              # not ok, nearest, covering
+                ok, zr = 0.0, (0.0, 0.0, -0.99)
+            elif special < 0.25:           # z crosses -1 or 1 in the image
+                zr = (float(rng.choice([-1.0, 1.0])) * 2.0 ** -6, nz(),
+                      float(rng.choice([-1.0, 1.0])) - cx * 2.0 ** -6)
+            feats[b, r, :10] = (*w0, *w1, *zr, ok)
+    nt = (height // tile_h) * (width // tile_w)
+    k = -(-n_rows // 8) * 8
+    ids = np.zeros((n_img, nt, k), np.int32)
+    count = np.full((n_img, nt), n_rows, np.int32)
+    for b in range(n_img):
+        for t in range(nt):
+            ids[b, t, :n_rows] = rng.permutation(n_rows)
+            if rng.random() < 0.3:
+                count[b, t] = rng.integers(1, n_rows + 1)
+    count[0, 0] = 0
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return (dev(feats), dev(ids), dev(count), height, width, tile_h, tile_w)
+
+
+def k5_variant(depth_only, affine):
+    return ("K5clip " if affine else "K5") + ("depth" if depth_only
+                                              else "full")
+
+
+def hold_k5(label, calls):
+    """Every K5 call of `calls` (capture_k5_calls' (args, depth_only,
+    affine)) launched twice and held bit for bit against its plain version
+    on the same inputs (z, and idx, w0, w1 where full), each at the shape
+    the frame gave it. Returns the number of calls held."""
     from fyrox_tpu_torch.render import tile_raster
-    args = next(a for a, d in inputs if d == depth_only)
+    seen = []
+    for args, depth_only, affine in calls:
+        feats, ids, count, h, w, th, tw = args
+        name = k5_variant(depth_only, affine)
+        kw = dict(depth_only=depth_only, affine=affine)
+        got = tile_raster._visibility_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        parts, span = tile_raster.split_parts()
+        again = tile_raster._visibility_cuda(*args, **kw)
+        ref = tile_raster.visibility_plain(*args, **kw)
+        got, again, ref = ((x,) if depth_only else x
+                           for x in (got, again, ref))
+        shape = (f"{name} {feats.shape[0]} images of {h}x{w}, tiles "
+                 f"{th}x{tw}, {feats.shape[1]} rows, K={ids.shape[2]}, max "
+                 f"count {int(count.max())}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: {shape}: two launches on the same inputs differ")
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            diffs = [int((a != b).sum()) for a, b in zip(got, ref)]
+            fail(f"{label}: {shape}: kernel differs from its plain version "
+                 f"at {diffs} entries")
+        hit = float((got[0] < 1e8).float().mean())
+        if hit <= 0.0:
+            fail(f"{label}: {shape}: no pixel hit")
+        seen.append(f"{shape}, {int((count > span).sum())} tiles split into "
+                    f"{parts} parts, {hit:.3f} hit")
+    log(f"[{label}] {len(seen)} K5 calls bit-equal to plain, two launches "
+        f"each equal: " + "; ".join(seen))
+    return len(seen)
+
+
+def phase_k5(calls, depth_only, affine=False):
+    """One K5 variant vs its plain version at the main path's shapes: every
+    call of the variant among a frame's K5 calls (capture_k5_calls, held by
+    hold_k5) and the knife-edge inputs, bit for bit, twice; the first call
+    timed against its bound."""
+    from fyrox_tpu_torch.render import tile_raster
+    label = k5_variant(depth_only, affine)
+    mine = [c for c in calls if c[1] == depth_only and c[2] == affine]
+    hold_k5(label, mine)
+    args = mine[0][0]
     feats, ids, count, h, w, th, tw = args
-    label = "K5depth" if depth_only else "K5full"
     if not all_differ(feats):
         fail(f"{label}: the images' feature rows repeat")
 
-    def kernel():
-        return tile_raster._visibility_cuda(*args, depth_only=depth_only)
+    def kernel(a=args):
+        return tile_raster._visibility_cuda(*a, depth_only=depth_only,
+                                            affine=affine)
 
-    def plain():
-        return tile_raster.visibility_plain(*args, depth_only=depth_only)
+    def plain(a=args):
+        return tile_raster.visibility_plain(*a, depth_only=depth_only,
+                                            affine=affine)
 
-    got, again, ref = kernel(), kernel(), plain()
+    got = kernel()
     torch.cuda.synchronize()
     parts, span = tile_raster.split_parts()
     got = (got,) if depth_only else got
-    again = (again,) if depth_only else again
-    ref = (ref,) if depth_only else ref
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail(f"{label}: two launches on the same inputs differ")
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        diffs = [int((a != b).sum()) for a, b in zip(got, ref)]
-        fail(f"{label}: kernel differs from its plain version at {diffs} "
-             f"entries (z{'' if depth_only else ', idx, w0, w1'})")
     z = got[0]
     hit = float((z < 1e8).float().mean())
     if not (all_differ(z) and hit > 0.05):
         fail(f"{label}: images repeat, or {hit:.3f} of pixels hit")
-    edges = k5_knife_edges(device="cuda")
-    got_e = tile_raster._visibility_cuda(*edges, depth_only=depth_only)
-    ref_e = tile_raster.visibility_plain(*edges, depth_only=depth_only)
-    got_e = (got_e,) if depth_only else got_e
-    ref_e = (ref_e,) if depth_only else ref_e
+    edges = (k5_knife_edges_affine if affine else k5_knife_edges)(
+        device="cuda")
+    got_e, ref_e = ((x,) if depth_only else x
+                    for x in (kernel(edges), plain(edges)))
     if not all(torch.equal(a, b) for a, b in zip(got_e, ref_e)):
         fail(f"{label}: kernel differs from its plain version on the "
-             f"knife-edge inputs (k5_knife_edges)")
+             f"knife-edge inputs")
     ms_k = cuda_ms(kernel, 20)
     dev_k = device_ms(kernel, 20)
     ms_p = cuda_ms(plain, 2)
     walked = int(count.sum())
-    covered = k5_covered_pairs(*args)
-    moved = k5_bytes(feats, ids, count, got)
-    b_ms, b_by = bound_ms(moved, covered * K5_OPS)
-    old_ms, _ = bound_ms(0, walked * th * tw * K5_OPS)
+    covered = k5_covered_pairs(*args, affine=affine)
+    moved = k5_bytes(feats, ids, count, got, affine=affine)
+    ops = K5_OPS_AFFINE if affine else K5_OPS
+    b_ms, b_by = bound_ms(moved, covered * ops)
+    old_ms, _ = bound_ms(0, walked * th * tw * ops)
     cnt = count.flatten().float()
-    log(f"[{label}] tile_raster {'depth-only' if depth_only else 'full'} "
-        f"bit-equal to plain (z{'' if depth_only else ', idx, w0, w1'}) on "
-        f"{feats.shape[0]} distinct images of {h}x{w}, K={ids.shape[2]}, "
-        f"and on the knife-edge inputs; {walked} walked slots (per tile "
-        f"mean {float(cnt.mean()):.1f}, p99 "
+    log(f"[{label}] tile_raster {'affine ' if affine else ''}"
+        f"{'depth-only' if depth_only else 'full'} bit-equal to plain "
+        f"(z{'' if depth_only else ', idx, w0, w1'}) on its {len(mine)} "
+        f"calls (above) and on the knife-edge inputs; timed on the first, "
+        f"{feats.shape[0]} distinct images of {h}x{w} ({feats.shape[1]} "
+        f"rows), K={ids.shape[2]}: {walked} walked "
+        f"slots (per tile mean {float(cnt.mean()):.1f}, p99 "
         f"{float(cnt.quantile(0.99)):.0f}, max {int(cnt.max())}), "
         f"{covered} covered (pixel, slot) pairs of {walked * th * tw} "
         f"walked, {int((count > span).sum())} tiles above {span} slots "
-        f"split into {parts} parts, "
-        f"{hit:.3f} of pixels hit; two launches bit-equal; kernel "
-        f"{ms_k:.4f} ms (device time {dev_k:.4f}), plain {ms_p:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {moved} bytes moved, covered pairs "
-        f"x {K5_OPS} ops; walked pairs x {K5_OPS} ops would read "
-        f"{old_ms:.4f})")
-    return dict(name="tile_raster_depth" if depth_only else "tile_raster_full",
+        f"split into {parts} parts, {hit:.3f} of pixels hit; two launches "
+        f"bit-equal; kernel {ms_k:.4f} ms (device time {dev_k:.4f}), plain "
+        f"{ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {moved} bytes moved, "
+        f"covered pairs x {ops} ops; walked pairs x {ops} ops would read "
+        f"{old_ms:.4f}) on {CARD}")
+    return dict(name="tile_raster_" + ("depth" if depth_only else "full")
+                + ("_affine" if affine else ""),
                 route="cuda", source="fyrox_tpu_torch/csrc/tile_raster.cu",
                 replaces="fyrox_tpu/render/pallas_raster.py:352",
                 max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
@@ -3865,6 +4158,131 @@ def phase_render_profile(t, rt, st, cfg):
         + f" on {CARD}")
 
 
+def features_frame(n_worlds, device, size=RENDER_SIZE,
+                   features=FEATURES_FRAME, seed=0, **scene_kw):
+    """(template, render template, state, config) of the features frame:
+    features_scene at full width unless asked otherwise, W worlds whose
+    mesh nodes are jittered ±5 cm from `seed`, as render_scene's."""
+    from fyrox_tpu_torch.render import (CsmConfig, RenderConfig,
+                                        build_render_template)
+    from fyrox_tpu_torch.scene import NodeType, graph, init_state
+    lib = render_lib()
+    t = features_scene(lib, features, **scene_kw)
+    st = init_state(t, n_worlds, device=device)
+    mesh = torch.as_tensor(t.node_type == NodeType.MESH, device=device)
+    noise = np.random.default_rng(seed).uniform(
+        -0.05, 0.05, tuple(st.position.shape)).astype(np.float32)
+    st = st._replace(position=st.position + torch.as_tensor(
+        noise, device=device) * mesh[None, :, None].float())
+    st = graph.update_hierarchical_data(st, t)
+    kw = features_config(lib, features, size)
+    csm = CsmConfig() if size == RENDER_SIZE else CsmConfig(map_size=64)
+    return t, build_render_template(t), st, RenderConfig(csm=csm, **kw)
+
+
+def phase_render_features_small():
+    """W = 2 at 32 x 32: each feature alone and all together (both raster
+    modes), the card against the CPU from the same state, at the
+    whole-frame bar (99.9 % of the colour values within 1e-4, every value
+    within 2e-3) with the same caps."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.render import render_frame_demand
+    cases = [(f,) for f in FEATURES] + [tuple(FEATURES_FRAME),
+                                        tuple(FEATURES_FRAME) + ("clipped",)]
+    worst = 0.0
+    for feats in cases:
+        feats = frozenset(feats) | ({"occlusion"} if feats == ("clipped",)
+                                    else set())
+        t, rt, st, cfg = features_frame(2, "cpu", size=32, features=feats,
+                                        seed=3, n_obj=8, tex_size=32,
+                                        n_sprites=4)
+        gpu = convert.scene_state(convert.to_numpy(st), device="cuda")
+        cpu_color, _, caps = render_frame_demand(st, t, rt, cfg)
+        gpu_color, _, gpu_caps = render_frame_demand(gpu, t, rt, cfg)
+        err = (gpu_color.cpu() - cpu_color).abs()
+        frac = float((err <= 1e-4).float().mean())
+        if not (frac >= 0.999 and float(err.max()) <= 2e-3
+                and caps == gpu_caps and float(cpu_color.abs().sum()) > 0
+                and bool(torch.isfinite(gpu_color).all())):
+            fail(f"render-features-small {sorted(feats)}: card vs CPU "
+                 f"colours {float(err.max()):.3g} max, {frac:.5f} within "
+                 f"1e-4; caps {gpu_caps} vs {caps}")
+        worst = max(worst, float(err.max()))
+    log(f"[render-features-small] {len(cases)} frames (each of "
+        f"{len(FEATURES)} features alone, all together in both modes), 2 "
+        f"worlds, 32x32: card == CPU, colours max {worst:.3g}")
+
+
+def phase_render_features(t, rt, st, cfg):
+    """The full-width features frame in both raster modes: the bin-demand
+    audit (no pass at its cap), RENDER_FRAMES timed frames after a
+    warm-up with K5's launches by variant, then the profiler's device
+    events, device ms and busy share per frame. Returns the launches of
+    the clipped mode's timed frames."""
+    from torch.profiler import ProfilerActivity, profile
+    from fyrox_tpu_torch.render import (render_frame, render_frame_demand,
+                                        tile_raster)
+    out = {}
+    for mode in ("homogeneous", "clipped"):
+        c = cfg._replace(raster_mode=mode)
+        _, demand, caps = render_frame_demand(st, t, rt, c)
+        dmax = [int(d) for d in demand.max(0).values.tolist()]
+        over = [(p, d, k) for p, (d, k) in enumerate(zip(dmax, caps))
+                if d >= k]
+        if over or len(caps) != 12:
+            fail(f"render-features {mode}: bin overflow (pass, demand, cap) "
+                 f"{over} of {len(caps)} passes")
+        color, gbuf = render_frame(st, t, rt, c)              # warm-up
+        torch.cuda.synchronize()
+        tile_raster.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(RENDER_FRAMES):
+            color, gbuf = render_frame(st, t, rt, c)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        n = dict(tile_raster._LAUNCHES)
+        affine = mode == "clipped"
+        want = dict(full=0 if affine else 1, depth=3 if affine else 4,
+                    full_affine=1 if affine else 0,
+                    depth_affine=1 if affine else 0)
+        if n != {k: v * RENDER_FRAMES for k, v in want.items()}:
+            fail(f"render-features {mode}: K5 launches {n} in "
+                 f"{RENDER_FRAMES} frames, want {want} a frame")
+        cover = float(gbuf.mask.float().mean())
+        if not (tuple(color.shape) == (RENDER_WORLDS, RENDER_SIZE,
+                                       RENDER_SIZE, 3)
+                and bool(torch.isfinite(color).all()) and cover > 0.1
+                and all_differ(color)):
+            fail(f"render-features {mode}: colour {tuple(color.shape)}, "
+                 f"coverage {cover}, not finite or worlds equal")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(RENDER_PROFILED):
+                render_frame(st, t, rt, c)
+            torch.cuda.synchronize()
+        events, busy_us = device_events(prof)
+        frame_ms = elapsed * 1e3 / RENDER_FRAMES
+        fps = RENDER_WORLDS * RENDER_FRAMES / elapsed
+        busy_ms = busy_us / 1e3 / RENDER_PROFILED
+        top = sorted(((e.key, e.device_time_total / 1e3 / RENDER_PROFILED)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_time_total", 0) > 0),
+                     key=lambda kv: -kv[1])[:5]
+        log(f"[render-features] {mode}, T={rt.num_triangles} (+"
+            f"{2 * rt.sprite_node.shape[0]} sprite triangles), W="
+            f"{RENDER_WORLDS}, {RENDER_SIZE}x{RENDER_SIZE}: bin demand max "
+            f"/ cap per pass (prepass, camera, cascades 0-2, spot, point "
+            f"faces 0-5) {list(zip(dmax, caps))}; {fps:.1f} frames/s, "
+            f"{frame_ms:.3f} ms per frame of all worlds; K5 launches per "
+            f"frame {want}; {len(events) / RENDER_PROFILED:.1f} device "
+            f"events and {busy_ms:.3f} ms of device time per frame (busy "
+            f"share {busy_ms / frame_ms:.3f}); top device ms per frame: "
+            + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top)
+            + f"; coverage {cover:.3f} on {CARD}")
+        out[mode] = n
+    return out["clipped"]
+
+
 def main():
     phase_device()
     phase_build()
@@ -3939,27 +4357,41 @@ def main():
     k1b, n_big = phase_k1_big()
     k1m, n_many = phase_k1_many()
     scene = render_scene(RENDER_WORLDS, "cuda")
-    inputs = capture_k5_inputs(*scene)
-    k5f = phase_k5(inputs, depth_only=False)
-    k5d = phase_k5(inputs, depth_only=True)
-    del inputs
+    calls = capture_k5_calls(*scene)
+    k5f = phase_k5(calls, depth_only=False)
+    k5d = phase_k5(calls, depth_only=True)
+    del calls
     phase_render_audit(*scene)
     phase_render_cpu()
     n_render = phase_render(*scene)
     phase_render_profile(*scene)
+    del scene
+    phase_render_features_small()
+    feat = features_frame(RENDER_WORLDS, "cuda")
+    hold_k5("K5 features frame", capture_k5_calls(*feat))
+    calls = capture_k5_calls(*feat[:3], feat[3]._replace(
+        raster_mode="clipped"))
+    k5fa = phase_k5(calls, depth_only=False, affine=True)
+    k5da = phase_k5(calls, depth_only=True, affine=True)
+    hold_k5("K5 clipped features frame, 2DH maps",
+            [c for c in calls if not c[2]])
+    del calls
+    n_feat = phase_render_features(*feat)
     for k in (kbp, knc, k1):
         k["launches"] = n_fused[k["name"]]
     k4["launches"] = n_staged["plane_gather"]
     k5f["launches"] = n_render["full"]
     k5d["launches"] = n_render["depth"]
+    k5fa["launches"] = n_feat["full_affine"]
+    k5da["launches"] = n_feat["depth_affine"]
     k1j["launches"] = n_jointed["solve_tgs"]
     k4b["launches"] = n_reuse["plane_scatter"]
     k1b["launches"] = n_big["solve_tgs"]
     k1m["launches"] = n_many["solve_tgs"]
     kg_dense["launches"] = n_dense["plane_gather"]
     ks_dense["launches"] = n_dense["plane_scatter"]
-    records = [kbp, knc, k1, k4, k5f, k5d, k1j, k4b, k1b, k1m, kg_dense,
-               ks_dense] + terrain_recs
+    records = [kbp, knc, k1, k4, k5f, k5d, k5fa, k5da, k1j, k4b, k1b, k1m,
+               kg_dense, ks_dense] + terrain_recs
     print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Small helpers shared by the port's modules."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -24,6 +26,18 @@ def const(arr, device, dtype=None) -> torch.Tensor:
         t = t.to(dtype)
     _CONST_CACHE[key] = (arr, t)
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def _host_value(value, dtype):
+    return np.asarray(value, dtype)
+
+
+def value_const(value, device, dtype=np.float32) -> torch.Tensor:
+    """Device copy of a small constant given by value (a float or a tuple
+    of floats), made once per (value, dtype, device) as ``const`` makes
+    it: a frame that asks for it again copies nothing from the host."""
+    return const(_host_value(value, np.dtype(dtype).str), device)
 
 
 def resolve_device(device) -> torch.device:

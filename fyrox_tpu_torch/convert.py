@@ -6,7 +6,8 @@ that the caller turns into numpy, e.g.
 ``jax.tree_util.tree_map(np.asarray, engine_state)``. This module reads
 both by attribute — it never imports JAX — and rebuilds the port's
 templates and state on a given device, so both packages can step the same
-inputs.
+inputs. Textures, materials and skyboxes become the port's own, so the same
+template renders the same frame in both packages.
 """
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
 from fyrox_tpu_torch.render.mesh import MeshData
 from fyrox_tpu_torch.render.pipeline import RenderTemplate
+from fyrox_tpu_torch.render.skybox import SkyBox
+from fyrox_tpu_torch.render.texture import Material, Texture
 from fyrox_tpu_torch.scene.particles import ParticleState, ParticleTemplate
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
-__all__ = ["scene_template", "physics_template", "joint_set", "slab_config",
+__all__ = ["scene_template", "texture", "material", "skybox",
+           "physics_template", "joint_set", "slab_config",
            "animation_set", "blend_space", "machine_template",
            "layered_machine", "root_motion", "particle_template",
            "skin_template", "engine", "engine_state", "physics_state",
@@ -49,41 +53,74 @@ def _copy(src, cls, names):
     return cls(**{n: getattr(src, n) for n in names})
 
 
-def _mesh_data(m) -> MeshData:
-    """A JAX-package MeshData → the port's, field by field."""
-    return MeshData(**{f: getattr(m, f) for f in MeshData.__dataclass_fields__})
+def texture(tex, memo=None):
+    """A JAX-package Texture (numpy mips) → the port's; a numpy array or
+    None stays as it is. `memo` maps id(source) → the port's object, so
+    that a texture two meshes share stays one texture (one layer of the
+    texture array)."""
+    if tex is None or isinstance(tex, np.ndarray):
+        return tex
+    memo = {} if memo is None else memo
+    if id(tex) not in memo:
+        memo[id(tex)] = Texture([np.asarray(m, np.float32)
+                                 for m in tex.mips])
+    return memo[id(tex)]
+
+
+def material(m, memo=None) -> Material:
+    """A JAX-package Material → the port's, its texture bindings too."""
+    if m is None:
+        return None
+    memo = {} if memo is None else memo
+    if id(m) not in memo:
+        memo[id(m)] = Material(
+            name=m.name, albedo=tuple(m.albedo), metallic=m.metallic,
+            roughness=m.roughness, emission=tuple(m.emission),
+            textures={k: texture(v, memo) for k, v in m.textures.items()},
+            properties=dict(m.properties))
+    return memo[id(m)]
+
+
+def skybox(sky) -> SkyBox:
+    """A JAX-package SkyBox → the port's (its faces read as numpy)."""
+    return SkyBox(np.asarray(sky.faces))
+
+
+def _mesh_data(m, memo) -> MeshData:
+    """A JAX-package MeshData → the port's, field by field, its textures
+    and material converted."""
+    out = MeshData(**{f: getattr(m, f) for f in MeshData.__dataclass_fields__})
+    out.albedo_texture = texture(m.albedo_texture, memo)
+    out.mr_texture = texture(m.mr_texture, memo)
+    out.material = material(m.material, memo)
+    return out
 
 
 def scene_template(t) -> SceneTemplate:
-    """A JAX-package SceneTemplate → the port's; payload kinds the port
-    has no counterpart for (sprites, decals, rectangles, LOD groups)
-    raise."""
-    for kind in ("sprites", "decals", "rectangles"):
-        if len((getattr(t, kind, None) or {}).get("node", [])):
-            raise NotImplementedError(kind)
-    if (getattr(t, "extras", None) or {}).get("lod_groups"):
-        raise NotImplementedError("LOD groups")
+    """A JAX-package SceneTemplate → the port's: topology, payload
+    routing, cameras, lights, meshes, sprites, decals, rectangles (their
+    textures converted) and LOD groups."""
     names = ("parent", "node_type", "names", "levels", "depth", "payload",
              "init_position", "init_rotation", "init_scale",
              "init_visibility", "init_enabled", "init_lifetime",
              "init_pre_rotation", "init_post_rotation",
              "init_rotation_offset", "init_rotation_pivot",
              "init_scaling_offset", "init_scaling_pivot", "local_bbox_min",
-             "local_bbox_max", "cameras", "lights")
+             "local_bbox_max", "cameras", "lights", "sprites", "decals",
+             "rectangles")
     out = _copy(t, SceneTemplate, names)
-    out.meshes = [_mesh_data(m) for m in t.meshes]
+    memo = {}
+    out.meshes = [_mesh_data(m, memo) for m in t.meshes]
+    out.rect_textures = [texture(x, memo) for x in t.rect_textures]
+    lod = (getattr(t, "extras", None) or {}).get("lod_groups")
+    if lod:
+        out.extras = {"lod_groups": [list(levels) for levels in lod]}
     return out
 
 
 def render_template(rt) -> RenderTemplate:
-    """A JAX-package RenderTemplate → the port's (its numpy fields); the
-    parts off the port's slice (sprites, LOD groups, transparent
-    triangles, decals, textures) raise."""
-    for name in ("sprite_node", "lod_obj", "tr_tri", "decal_node"):
-        if getattr(rt, name, None) is not None and len(getattr(rt, name)):
-            raise NotImplementedError(name)
-    if getattr(rt, "tex_array", None) is not None:
-        raise NotImplementedError("texture-mapped materials")
+    """A JAX-package RenderTemplate → the port's (its numpy fields, the
+    packed texture array included)."""
     return RenderTemplate(**{f: getattr(rt, f)
                              for f in RenderTemplate.__dataclass_fields__})
 

@@ -1,18 +1,26 @@
-// K5: tile visibility of the binned 2DH rasterizer, full and depth-only.
+// K5: tile visibility of the binned rasterizer, full and depth-only, over
+// 2DH rows and (the affine variant) over screen-affine rows.
 //
 // Replaces fyrox_tpu/render/pallas_raster.py:352 _visibility_pallas (its
-// body _raster_kernel :230). Per image (a world's camera view, or one
-// (world, cascade) shadow map) and per tile of tile_h x tile_w pixels (8 x
-// 128 where the image allows), walk the tile's `count` binned feature rows
-// in slot order and keep a z-buffer: per pixel centre p = (x+.5, y+.5)
-// evaluate the affine forms E0, E1, S, Z, W (feature slots 0-14), take
-// e2 = S - E0 - E1, z = Z / W, and count the pixel as inside where e0, e1,
-// e2 >= 0, W > 1e-12, -1 <= z <= 1 and the row's ok flag (slot 15) is set.
+// body _raster_kernel :230, both its `homogeneous` branches). Per image (a
+// world's camera view or occlusion prepass, or one (world, map) shadow
+// map) and per tile of tile_h x tile_w pixels (8 x 128 where the image
+// allows), walk the tile's `count` binned feature rows in slot order and
+// keep a z-buffer. Per pixel centre p = (x+.5, y+.5):
+//  - 2DH rows: evaluate the affine forms E0, E1, S, Z, W (feature slots
+//    0-14), take e2 = S - E0 - E1, z = Z / W, and count the pixel as
+//    inside where e0, e1, e2 >= 0, W > 1e-12, -1 <= z <= 1 and the row's
+//    ok flag (slot 15) is set; the full variant's barycentrics are the
+//    perspective-correct w0 = E0 / S, w1 = E1 / S;
+//  - affine rows (AFFINE, :318-325): evaluate w0, w1 and z (slots 0-8),
+//    and count the pixel as inside where w0, w1 and (1 - w0) - w1 are
+//    >= 0, -1 <= z <= 1 and the ok flag (slot 9) is set; the full
+//    variant writes w0 and w1 as they are (the caller corrects them by
+//    1/w).
 // A strict `<` keeps the lowest slot on a tie, as on the TPU. The full
-// variant writes z, the winning slot (-1 where nothing is hit) and the
-// perspective-correct barycentrics w0 = E0 / S, w1 = E1 / S (0 where
-// nothing is hit); the depth-only variant writes z (1e9 where nothing is
-// hit).
+// variant writes z, the winning slot (-1 where nothing is hit) and w0, w1
+// (0 where nothing is hit); the depth-only variant writes z (1e9 where
+// nothing is hit).
 //
 // Bound: bytes, the walked ids and feature rows read once and the outputs
 // written once (under 0.01 ms at the bench frame); the function needs ~31
@@ -34,11 +42,18 @@
 //    and v: the rounded form at every pixel of the box is at most its
 //    rounded value at that corner. A NaN at the corner rejects nothing (the
 //    tests are `< 0` and `<= 1e-12`). E2 = S - E0 - E1 is not monotone in
-//    the pixel and is tested per pixel. A ballot gives the kept slots, which
-//    the warp walks in slot order;
-//  - a kept slot costs each lane E0, E1, S and e2 for its pixels; Z, W and
-//    the divide z = Z / W are taken only where e0, e1, e2 >= 0, and a warp
-//    skips that block when no lane has such a pixel (__any_sync);
+//    the pixel and is tested per pixel. Affine rows reject on more: w0,
+//    w1, w2 and z are all monotone forms or monotone in them. fl(1 - u) is
+//    non-increasing in u and fl(v - w) is non-decreasing in v and
+//    non-increasing in w, so w2 = fl(fl(1 - w0) - w1) at every pixel is at
+//    most fl(fl(1 - min w0) - min w1), the mins taken at the minimising
+//    corners; a slot goes where that is < 0, where max z < -1 or where
+//    min z > 1. A ballot gives the kept slots, which the warp walks in
+//    slot order;
+//  - a kept slot costs each lane E0, E1, S and e2 for its pixels (w0, w1
+//    and w2 for affine rows); Z, W and the divide z = Z / W (the z form)
+//    are taken only where they are all >= 0, and a warp skips that block
+//    when no lane has such a pixel (__any_sync);
 //  - the full variant keeps the winner's e0, e1 and S in registers and
 //    divides w0 = e0 / S, w1 = e1 / S once after the walk: the operands are
 //    the plain version's, so the bits are;
@@ -94,6 +109,36 @@ __device__ __forceinline__ float form_max(const float* f, float xlo,
                                           float xhi, float ylo, float yhi) {
   return form<kRows>(f, f[0] >= 0.0f ? xhi : xlo,
                      f[kRows] >= 0.0f ? yhi : ylo);
+}
+
+// The form at the corner that minimises it.
+__device__ __forceinline__ float form_min(const float* f, float xlo,
+                                          float xhi, float ylo, float yhi) {
+  return form<kRows>(f, f[0] >= 0.0f ? xlo : xhi,
+                     f[kRows] >= 0.0f ? ylo : yhi);
+}
+
+// Whether a warp may skip a chunk row (`c` at its slot in the staged
+// chunk) for its box: the row's ok flag fails, or some test of the plain
+// version fails at every pixel of the box.
+template <bool AFFINE>
+__device__ __forceinline__ bool rejected(const float* c, float xlo,
+                                         float xhi, float ylo, float yhi) {
+  if (AFFINE) {
+    const float w2 = __fsub_rn(
+        __fsub_rn(1.0f, form_min(c + 0 * kRows, xlo, xhi, ylo, yhi)),
+        form_min(c + 3 * kRows, xlo, xhi, ylo, yhi));
+    return !(c[9 * kRows] > 0.5f) ||
+           form_max(c + 0 * kRows, xlo, xhi, ylo, yhi) < 0.0f ||
+           form_max(c + 3 * kRows, xlo, xhi, ylo, yhi) < 0.0f ||
+           w2 < 0.0f || form_max(c + 6 * kRows, xlo, xhi, ylo, yhi) < -1.0f ||
+           form_min(c + 6 * kRows, xlo, xhi, ylo, yhi) > 1.0f;
+  }
+  const float e0c = form_max(c + 0 * kRows, xlo, xhi, ylo, yhi);
+  const float e1c = form_max(c + 3 * kRows, xlo, xhi, ylo, yhi);
+  const float wc = form_max(c + 12 * kRows, xlo, xhi, ylo, yhi);
+  return !(c[15 * kRows] > 0.5f) || e0c < 0.0f || e1c < 0.0f ||
+         wc <= 1e-12f;
 }
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -175,7 +220,8 @@ struct Pixels {
   }
 };
 
-// A lane's best hit per pixel so far: z, slot, and the winner's e0, e1, S.
+// A lane's best hit per pixel so far: z, slot, and the winner's e0, e1, S
+// (w0, w1 and 1 for affine rows).
 struct Best {
   float z[kPix], e0[kPix], e1[kPix], s[kPix];
   int slot[kPix];
@@ -191,10 +237,10 @@ struct Best {
 };
 
 // Walk slots [lo, hi) of a tile in slot order into `b`, keeping the
-// winners' slots where SLOT and their e0, e1, S where BARY. Every thread of
-// the CTA calls it with the same range; the caller synchronises the CTA
-// between two walks.
-template <bool SLOT, bool BARY>
+// winners' slots where SLOT and their e0, e1, S where BARY; AFFINE: the
+// rows are screen-affine. Every thread of the CTA calls it with the same
+// range; the caller synchronises the CTA between two walks.
+template <bool SLOT, bool BARY, bool AFFINE>
 __device__ __forceinline__ void walk(const Pixels& P, Best& b, float* rows,
                                      const int* tile_ids,
                                      const float* img_feats, int lo,
@@ -228,14 +274,8 @@ __device__ __forceinline__ void walk(const Pixels& P, Best& b, float* rows,
     for (int h = 0; h < m; h += 32) {
       // the warp's rejection of 32 slots at once, a lane per slot
       bool keep_s = false;
-      if (h + lane < m) {
-        const float* c = R + h + lane;
-        const float e0c = form_max(c + 0 * kRows, P.xlo, P.xhi, P.ylo, P.yhi);
-        const float e1c = form_max(c + 3 * kRows, P.xlo, P.xhi, P.ylo, P.yhi);
-        const float wc = form_max(c + 12 * kRows, P.xlo, P.xhi, P.ylo, P.yhi);
-        keep_s = c[15 * kRows] > 0.5f &&
-                 !(e0c < 0.0f || e1c < 0.0f || wc <= 1e-12f);
-      }
+      if (h + lane < m)
+        keep_s = !rejected<AFFINE>(R + h + lane, P.xlo, P.xhi, P.ylo, P.yhi);
       // the kept slots in slot order
       for (unsigned keep = __ballot_sync(0xffffffffu, keep_s); keep;
            keep &= keep - 1) {
@@ -248,8 +288,14 @@ __device__ __forceinline__ void walk(const Pixels& P, Best& b, float* rows,
         for (int j = 0; j < kPix; ++j) {
           e0[j] = form<kRows>(c + 0 * kRows, P.px[j], P.py[j]);
           e1[j] = form<kRows>(c + 3 * kRows, P.px[j], P.py[j]);
-          sf[j] = form<kRows>(c + 6 * kRows, P.px[j], P.py[j]);
-          const float e2 = __fsub_rn(__fsub_rn(sf[j], e0[j]), e1[j]);
+          float e2;
+          if (AFFINE) {
+            sf[j] = 1.0f;
+            e2 = __fsub_rn(__fsub_rn(1.0f, e0[j]), e1[j]);
+          } else {
+            sf[j] = form<kRows>(c + 6 * kRows, P.px[j], P.py[j]);
+            e2 = __fsub_rn(__fsub_rn(sf[j], e0[j]), e1[j]);
+          }
           cov[j] = P.live[j] && e0[j] >= 0.0f && e1[j] >= 0.0f && e2 >= 0.0f;
           any |= cov[j];
         }
@@ -257,10 +303,14 @@ __device__ __forceinline__ void walk(const Pixels& P, Best& b, float* rows,
 #pragma unroll
         for (int j = 0; j < kPix; ++j) {
           if (!cov[j]) continue;
-          const float wf = form<kRows>(c + 12 * kRows, P.px[j], P.py[j]);
-          if (!(wf > 1e-12f)) continue;
-          const float z =
-              __fdiv_rn(form<kRows>(c + 9 * kRows, P.px[j], P.py[j]), wf);
+          float z;
+          if (AFFINE) {
+            z = form<kRows>(c + 6 * kRows, P.px[j], P.py[j]);
+          } else {
+            const float wf = form<kRows>(c + 12 * kRows, P.px[j], P.py[j]);
+            if (!(wf > 1e-12f)) continue;
+            z = __fdiv_rn(form<kRows>(c + 9 * kRows, P.px[j], P.py[j]), wf);
+          }
           if (z >= -1.0f && z <= 1.0f && z < b.z[j]) {
             b.z[j] = z;
             if (SLOT) b.slot[j] = base + s;
@@ -276,7 +326,7 @@ __device__ __forceinline__ void walk(const Pixels& P, Best& b, float* rows,
   }
 }
 
-template <bool DEPTH_ONLY>
+template <bool DEPTH_ONLY, bool AFFINE>
 __device__ __forceinline__ void emit(size_t o, float z, int slot, float e0,
                                      float e1, float s, float* z_out,
                                      int* idx_out, float* w0_out,
@@ -286,8 +336,13 @@ __device__ __forceinline__ void emit(size_t o, float z, int slot, float e0,
     const bool hit = slot >= 0;
     const float s_safe = s == 0.0f ? 1.0f : s;
     idx_out[o] = slot;
-    w0_out[o] = hit ? __fdiv_rn(e0, s_safe) : 0.0f;
-    w1_out[o] = hit ? __fdiv_rn(e1, s_safe) : 0.0f;
+    if (AFFINE) {
+      w0_out[o] = hit ? e0 : 0.0f;
+      w1_out[o] = hit ? e1 : 0.0f;
+    } else {
+      w0_out[o] = hit ? __fdiv_rn(e0, s_safe) : 0.0f;
+      w1_out[o] = hit ? __fdiv_rn(e1, s_safe) : 0.0f;
+    }
   }
 }
 
@@ -350,7 +405,7 @@ tile_raster_plan(const int* __restrict__ count, int n_cells, int span0,
 // n_help + c is the tile of cell c (image c / n_tiles, tile c % n_tiles),
 // which returns at once where its tile was split (no plan: none is). The depth-only variant
 // fits 64 registers, 4 CTAs an SM; the full variant's 80 keep 3.
-template <bool DEPTH_ONLY>
+template <bool DEPTH_ONLY, bool AFFINE>
 __global__ void __launch_bounds__(kThreads, DEPTH_ONLY ? 4 : 3)
 tile_raster_kernel(const float* __restrict__ feats,
                    const int* __restrict__ ids,
@@ -368,13 +423,15 @@ tile_raster_kernel(const float* __restrict__ feats,
     if (plan != nullptr && n > plan[2]) return;
     const Pixels P(sh, cell);
     Best b;
-    walk<!DEPTH_ONLY, !DEPTH_ONLY>(P, b, rows, ids + (size_t)cell * sh.K,
-                     feats + (size_t)P.img * sh.T * kFeat, 0, n);
+    walk<!DEPTH_ONLY, !DEPTH_ONLY, AFFINE>(
+        P, b, rows, ids + (size_t)cell * sh.K,
+        feats + (size_t)P.img * sh.T * kFeat, 0, n);
 #pragma unroll
     for (int j = 0; j < kPix; ++j)
       if (P.live[j])
-        emit<DEPTH_ONLY>(P.out(sh, j), b.z[j], b.slot[j], b.e0[j], b.e1[j],
-                         b.s[j], z_out, idx_out, w0_out, w1_out);
+        emit<DEPTH_ONLY, AFFINE>(P.out(sh, j), b.z[j], b.slot[j], b.e0[j],
+                                 b.e1[j], b.s[j], z_out, idx_out, w0_out,
+                                 w1_out);
     return;
   }
   const int n_items = plan[0];
@@ -390,7 +447,7 @@ tile_raster_kernel(const float* __restrict__ feats,
     const int* tile_ids = ids + (size_t)cell * sh.K;
     const float* img_feats = feats + (size_t)P.img * sh.T * kFeat;
     Best b;                      // a part keeps its winning slots
-    walk<true, false>(P, b, rows, tile_ids, img_feats, it[1], it[2]);
+    walk<true, false, AFFINE>(P, b, rows, tile_ids, img_feats, it[1], it[2]);
 #pragma unroll
     for (int j = 0; j < kPix; ++j)
       if (P.live[j])
@@ -415,8 +472,8 @@ tile_raster_kernel(const float* __restrict__ feats,
         key = k < key ? k : key;
       }
       if (key == kNoHit) {
-        emit<DEPTH_ONLY>(P.out(sh, j), kBig, -1, 0.0f, 0.0f, 0.0f, z_out,
-                         idx_out, w0_out, w1_out);
+        emit<DEPTH_ONLY, AFFINE>(P.out(sh, j), kBig, -1, 0.0f, 0.0f, 0.0f,
+                                 z_out, idx_out, w0_out, w1_out);
         continue;
       }
       // the winner's row, evaluated as the walk did
@@ -424,10 +481,12 @@ tile_raster_kernel(const float* __restrict__ feats,
       const float* f = img_feats + (size_t)__ldg(tile_ids + slot) * kFeat;
       const float px = P.px[j], py = P.py[j];
       const float z =
-          __fdiv_rn(form<1>(f + 9, px, py), form<1>(f + 12, px, py));
-      emit<DEPTH_ONLY>(P.out(sh, j), z, slot, form<1>(f + 0, px, py),
-                       form<1>(f + 3, px, py), form<1>(f + 6, px, py),
-                       z_out, idx_out, w0_out, w1_out);
+          AFFINE ? form<1>(f + 6, px, py)
+                 : __fdiv_rn(form<1>(f + 9, px, py), form<1>(f + 12, px, py));
+      emit<DEPTH_ONLY, AFFINE>(
+          P.out(sh, j), z, slot, form<1>(f + 0, px, py),
+          form<1>(f + 3, px, py), AFFINE ? 1.0f : form<1>(f + 6, px, py),
+          z_out, idx_out, w0_out, w1_out);
     }
   }
 }
@@ -450,9 +509,10 @@ int rect_width(int tile_h, int tile_w) {
 
 }  // namespace
 
-// feats [B, T, 16] f32, ids [B, NT, K] i32, count [B, NT] i32 → z [B, H, W]
-// f32 and, unless depth_only, idx i32, w0, w1 f32 [B, H, W]. H and W are
-// multiples of the tile, tile_h * tile_w <= 1024, NT = (H/tile_h)(W/tile_w).
+// feats [B, T, 16] f32 (2DH rows, or screen-affine rows where affine), ids
+// [B, NT, K] i32, count [B, NT] i32 → z [B, H, W] f32 and, unless
+// depth_only, idx i32, w0, w1 f32 [B, H, W]. H and W are multiples of the
+// tile, tile_h * tile_w <= 1024, NT = (H/tile_h)(W/tile_w).
 // Tiles above `span` slots are split into at most `cap` parts in all.
 // Scratch: plan int32 [3 + 5 cap + B NT] (plan, parts, counters per tile),
 // slices int64 [cap, 1024]; where plan is null (K <= span, or cap 0: no
@@ -461,7 +521,8 @@ extern "C" int fyrox_tile_raster(const void* feats, const void* ids,
                                  const void* count, void* z, void* idx,
                                  void* w0, void* w1, int B, int T, int K,
                                  int H, int W, int tile_h, int tile_w,
-                                 int depth_only, int span, int cap,
+                                 int depth_only, int affine, int span,
+                                 int cap,
                                  void* plan, void* slices, void* stream) {
   if (tile_h * tile_w > kTilePix || H % tile_h || W % tile_w || span < 1 ||
       cap < 0)
@@ -482,7 +543,10 @@ extern "C" int fyrox_tile_raster(const void* feats, const void* ids,
     tile_raster_plan<<<1, 1024, (kSpans + 1) * sizeof(int), st>>>(
         (const int*)count, n_cells, span, cap, p, items, done);
   const int n_help = p ? min(cap, 4 * sms) : 0;
-  auto kern = depth_only ? tile_raster_kernel<true> : tile_raster_kernel<false>;
+  auto kern = depth_only ? (affine ? tile_raster_kernel<true, true>
+                                   : tile_raster_kernel<true, false>)
+                        : (affine ? tile_raster_kernel<false, true>
+                                  : tile_raster_kernel<false, false>);
   kern<<<n_help + n_cells, kThreads,
          2 * kRows * kFeat * sizeof(float) + 2 * sizeof(int), st>>>(
       (const float*)feats, (const int*)ids, (const int*)count, (float*)z,

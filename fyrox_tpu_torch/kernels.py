@@ -45,7 +45,7 @@ _SIGNATURES = {
     "fyrox_tgs_solve": [_VP] * 21 + [_I] * 12 + [_F] * 10 + [_VP],
     "fyrox_fused_bp": [_VP] * 12 + [_I] * 12 + [_F] * 5 + [_VP],
     "fyrox_narrow_compact": [_VP] * 11 + [_I] * 8 + [_F] * 2 + [_VP],
-    "fyrox_tile_raster": [_VP] * 7 + [_I] * 10 + [_VP] * 3,
+    "fyrox_tile_raster": [_VP] * 7 + [_I] * 11 + [_VP] * 3,
 }
 
 _LIB = None

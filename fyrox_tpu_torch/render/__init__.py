@@ -1,18 +1,26 @@
-"""Render layer: the deferred + CSM path of ``fyrox_tpu.render`` — mesh
-builders, the tiled 2DH rasterizer (K5, ``csrc/tile_raster.cu``), CSM
-shadows, deferred PBR lighting and the frame pipeline."""
-from fyrox_tpu_torch.render import (lighting, mesh, pipeline, raster,
-                                    shadows, tile_raster)
+"""Render layer: the port of ``fyrox_tpu.render``'s frame — mesh builders,
+the tiled rasterizer (K5, ``csrc/tile_raster.cu``: 2DH and near-clipped
+affine variants), CSM and spot / point shadow maps, HZB occlusion,
+textures and materials, deferred PBR lighting, light shafts, the skybox,
+the transparent forward pass and the frame pipeline."""
+from fyrox_tpu_torch.render import (lighting, mesh, occlusion, pipeline,
+                                    raster, shadows, skybox, texture,
+                                    tile_raster, transparent, volumetric)
 from fyrox_tpu_torch.render.mesh import (MeshData, make_cone, make_cube,
                                          make_plane, make_sphere)
 from fyrox_tpu_torch.render.pipeline import (RenderConfig, RenderTemplate,
                                              build_render_template,
                                              render_frame,
-                                             render_frame_demand)
+                                             render_frame_demand,
+                                             render_frames_chunked)
 from fyrox_tpu_torch.render.shadows import CsmConfig
+from fyrox_tpu_torch.render.skybox import SkyBox, gradient_faces
+from fyrox_tpu_torch.render.texture import Material, Texture, load_texture
 
-__all__ = ["lighting", "mesh", "pipeline", "raster", "shadows",
-           "tile_raster", "MeshData", "make_cube", "make_sphere",
-           "make_plane", "make_cone", "CsmConfig", "RenderConfig",
-           "RenderTemplate", "build_render_template", "render_frame",
-           "render_frame_demand"]
+__all__ = ["lighting", "mesh", "occlusion", "pipeline", "raster", "shadows",
+           "skybox", "texture", "tile_raster", "transparent", "volumetric",
+           "MeshData", "make_cube", "make_sphere", "make_plane", "make_cone",
+           "CsmConfig", "RenderConfig", "RenderTemplate",
+           "build_render_template", "render_frame", "render_frame_demand",
+           "render_frames_chunked", "SkyBox", "gradient_faces", "Material",
+           "Texture", "load_texture"]

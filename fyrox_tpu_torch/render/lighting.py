@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fyrox_tpu_torch._util import value_const
+
 __all__ = ["LightSet", "shade", "POINT", "SPOT", "DIRECTIONAL"]
 
 POINT, SPOT, DIRECTIONAL = 0, 1, 2
@@ -82,8 +84,7 @@ def shade(gbuf, lights: LightSet, camera_pos, ambient=(0.03, 0.03, 0.03),
     metallic = gbuf.material[..., 0]
     roughness = gbuf.material[..., 1]
 
-    color = torch.tensor(ambient, dtype=torch.float32,
-                         device=p.device) * albedo + gbuf.emission
+    color = value_const(tuple(ambient), p.device) * albedo + gbuf.emission
     ones = torch.ones(p.shape[:-1], dtype=torch.float32, device=p.device)
     for li in range(lights.kind.shape[0]):   # unrolled over the template's
         kind = int(lights.kind[li])

@@ -5,8 +5,8 @@ Equivalent of the reference's `SurfaceData` + procedural generators
 (fyrox-impl/src/scene/mesh/surface.rs:552 make_sphere, :616 make_cone,
 :863 make_cube) re-expressed as packed numpy arrays. Vertex layout is SoA:
 positions [V,3], normals [V,3], uvs [V,2]; triangles [T,3] int32. The
-texture and transparency fields are carried so that a template keeps its
-meshes whole; the port's renderer raises on them (off its slice).
+texture, material and transparency fields feed the renderer's textured and
+forward passes.
 """
 from __future__ import annotations
 

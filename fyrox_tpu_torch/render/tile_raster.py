@@ -3,19 +3,24 @@
 the XLA work around it in ``rasterize_pallas``.
 
 A pass rasterizes a batch of images at once: an image is one world's
-camera view or one (world, cascade) shadow map. Per image:
+camera view or occlusion prepass, or one (world, map) shadow map. Per
+image:
 
-  1. ``tri_features_h``: 2DH (homogeneous, Olano-Greer) per-triangle
-     constants, [T, 16] rows, and a conservative pixel bbox;
+  1. features, [T, 16] rows and a conservative pixel bbox per triangle:
+     ``tri_features_h``, 2DH (homogeneous, Olano-Greer) forms, in the
+     homogeneous mode; ``tri_features``, screen-affine forms of the
+     Sutherland-Hodgman-clipped triangles (``raster.clip_near``: 2T rows),
+     in the clipped mode;
   2. ``bin_triangles``: the first K triangle ids (by index) whose bbox
      overlaps each 8 x 128 tile, the tile's count, and the pass's true
      demand (the largest per-tile overlap before the K clamp);
-  3. ``visibility`` (K5): per tile, walk the tile's binned rows in slot
-     order and keep a z-buffer with the winning slot and its barycentrics.
-     CUDA tensors launch ``csrc/tile_raster.cu``; CPU tensors take
-     ``visibility_plain``;
+  3. ``visibility`` (K5, its 2DH or its affine variant): per tile, walk
+     the tile's binned rows in slot order and keep a z-buffer with the
+     winning slot and its barycentrics. CUDA tensors launch
+     ``csrc/tile_raster.cu``; CPU tensors take ``visibility_plain``;
   4. winner → triangle id and one joined attribute gather, interpolated
-     with the perspective-correct barycentrics.
+     with the perspective-correct barycentrics (the affine ones corrected
+     by 1/w).
 
 The binning takes the k-th set bit of a per-tile cumulative sum by
 ``torch.searchsorted``: the same integers as the JAX package's
@@ -26,9 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from fyrox_tpu_torch.render.raster import GBuffer
+from fyrox_tpu_torch._util import value_const
+from fyrox_tpu_torch.render.raster import GBuffer, clip_near
 
-__all__ = ["tri_features_h", "bin_triangles", "visibility",
+__all__ = ["tri_features_h", "tri_features", "bin_triangles", "visibility",
            "visibility_plain", "rasterize_tiled", "launches",
            "reset_launches", "split_parts", "BIG", "NFEAT"]
 
@@ -41,14 +47,14 @@ _CHUNK = 8          # the JAX kernel's chunk: K is padded to a multiple
 SPLIT_SPAN = 96
 SPLIT_CAP = 2048
 
-_LAUNCHES = {"full": 0, "depth": 0}
+_LAUNCHES = {"full": 0, "depth": 0, "full_affine": 0, "depth_affine": 0}
 _LAST_PLAN = []
 _SCRATCH = {}       # K5's plan and slices by (device, stream)
 
 
 def launches(variant: str) -> int:
-    """Kernel launches of one variant ("full" | "depth") since the last
-    reset_launches()."""
+    """Kernel launches of one variant since the last reset_launches():
+    "full" | "depth" (2DH forms), "full_affine" | "depth_affine"."""
     return _LAUNCHES[variant]
 
 
@@ -116,9 +122,58 @@ def tri_features_h(tri_clip, tri_valid, height, width, backface_cull=True):
     sx, sy = u / safe_w, v / safe_w
     proj = torch.stack([sx.amin(-1), sy.amin(-1), sx.amax(-1), sy.amax(-1)],
                        -1)
-    full = torch.tensor([0.0, 0.0, float(width), float(height)],
-                        dtype=proj.dtype, device=proj.device)
+    full = value_const((0.0, 0.0, float(width), float(height)),
+                       proj.device)
     bbox = torch.where(front[..., None], proj, full)
+    return feats, bbox, ok
+
+
+def tri_features(tri_clip, tri_valid, height, width, backface_cull=True):
+    """Screen-affine per-triangle constants (``pallas_raster.py:102``) of
+    triangles clipped to w > 0.
+
+    tri_clip [..., T, 3, 4], tri_valid [..., T] → feats [..., T, 16]: the
+    barycentrics w0, w1 as affine forms of the pixel centre (a0, b0, c0,
+    a1, b1, c1), the NDC z plane (za, zb, zc), the ok flag in column 9,
+    zeros to 16; bbox [..., T, 4] of the projected vertices; ok [..., T].
+    The forms are divided by the signed area, so the barycentrics do not
+    depend on the winding (backface_cull=False needs no fixup).
+    """
+    w_clip = tri_clip[..., 3]
+    degenerate = torch.any(w_clip <= 1e-6, -1)
+    safe_w = torch.where(w_clip <= 1e-6, torch.ones_like(w_clip), w_clip)
+    ndc = tri_clip[..., :3] / safe_w[..., None]
+    sx = (ndc[..., 0] * 0.5 + 0.5) * width
+    sy = (0.5 - ndc[..., 1] * 0.5) * height
+    sz = ndc[..., 2]
+    x0, x1, x2 = sx.unbind(-1)
+    y0, y1, y2 = sy.unbind(-1)
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    if backface_cull:
+        ok = tri_valid & (area < -1e-9) & ~degenerate
+    else:
+        ok = tri_valid & (torch.abs(area) > 1e-9) & ~degenerate
+    inv_area = 1.0 / torch.where(torch.abs(area) < 1e-9,
+                                 torch.ones_like(area), area)
+    # w0(p) = ((x2-x1)(py-y1) - (y2-y1)(px-x1)) / area
+    a0 = -(y2 - y1) * inv_area
+    b0 = (x2 - x1) * inv_area
+    c0 = ((y2 - y1) * x1 - (x2 - x1) * y1) * inv_area
+    # w1(p) = ((x0-x2)(py-y2) - (y0-y2)(px-x2)) / area
+    a1 = -(y0 - y2) * inv_area
+    b1 = (x0 - x2) * inv_area
+    c1 = ((y0 - y2) * x2 - (x0 - x2) * y2) * inv_area
+    # z(p) = w0 z0 + w1 z1 + (1 - w0 - w1) z2
+    z0, z1, z2 = sz.unbind(-1)
+    za = a0 * (z0 - z2) + a1 * (z1 - z2)
+    zb = b0 * (z0 - z2) + b1 * (z1 - z2)
+    zc = c0 * (z0 - z2) + c1 * (z1 - z2) + z2
+    feats = torch.stack([a0, b0, c0, a1, b1, c1, za, zb, zc,
+                         ok.to(torch.float32)], -1)
+    feats = torch.cat([feats, feats.new_zeros(feats.shape[:-1]
+                                              + (NFEAT - 10,))], -1)
+    bbox = torch.stack([sx.amin(-1), sy.amin(-1), sx.amax(-1), sy.amax(-1)],
+                       -1)
     return feats, bbox, ok
 
 
@@ -169,7 +224,7 @@ def _pixel_centres(nty, ntx, tile_h, tile_w, device):
 
 
 def visibility_plain(feats, ids, count, height, width, tile_h, tile_w,
-                     depth_only=False):
+                     depth_only=False, affine=False):
     """Plain PyTorch version of K5: the same function as
     ``csrc/tile_raster.cu``, with every float operation rounded in the
     kernel's order, as a loop over slots on [images, tiles, th, tw]
@@ -178,7 +233,10 @@ def visibility_plain(feats, ids, count, height, width, tile_h, tile_w,
     feats [B, Tn, 16] f32, ids [B, NT, K] int32, count [B, NT] int32 →
     z [B, H, W] (1e9 where nothing is hit), and unless depth_only the
     winning slot idx int32 (-1 where nothing is hit), w0 and w1 (0 there).
-    H and W are multiples of the tile.
+    H and W are multiples of the tile. The 2DH rows (``tri_features_h``)
+    give z = Z / W and w_i = E_i / S; the affine rows (``tri_features``,
+    ``affine=True``) give w0, w1 and z as they are, inside where w0, w1
+    and 1 - w0 - w1 are >= 0 (``pallas_raster.py:318-325``).
     """
     b = feats.shape[0]
     nty, ntx = height // tile_h, width // tile_w
@@ -203,21 +261,29 @@ def visibility_plain(feats, ids, count, height, width, tile_h, tile_w,
         def aff(i):
             return f[:, :, i] * px + f[:, :, i + 1] * py + f[:, :, i + 2]
 
-        e0, e1, s, zf, wf = aff(0), aff(3), aff(6), aff(9), aff(12)
-        e2 = s - e0 - e1
-        in_front = wf > 1e-12
-        z = zf / torch.where(in_front, wf, one)
-        inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & in_front
-                  & (z >= -1.0) & (z <= 1.0) & (f[:, :, 15] > 0.5)
-                  & (j < cnt))
+        if affine:
+            w0, w1, z = aff(0), aff(3), aff(6)
+            inside = ((w0 >= 0) & (w1 >= 0) & (1.0 - w0 - w1 >= 0)
+                      & (z >= -1.0) & (z <= 1.0) & (f[:, :, 9] > 0.5)
+                      & (j < cnt))
+        else:
+            e0, e1, s, zf, wf = aff(0), aff(3), aff(6), aff(9), aff(12)
+            e2 = s - e0 - e1
+            in_front = wf > 1e-12
+            z = zf / torch.where(in_front, wf, one)
+            inside = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & in_front
+                      & (z >= -1.0) & (z <= 1.0) & (f[:, :, 15] > 0.5)
+                      & (j < cnt))
         zm = torch.where(inside, z, big)
         better = zm < zb
         zb = torch.where(better, zm, zb)
         if not depth_only:
-            s_safe = torch.where(s == 0, one, s)
+            if not affine:
+                s_safe = torch.where(s == 0, one, s)
+                w0, w1 = e0 / s_safe, e1 / s_safe
             ib = torch.where(better, torch.full_like(ib, j), ib)
-            w0b = torch.where(better, e0 / s_safe, w0b)
-            w1b = torch.where(better, e1 / s_safe, w1b)
+            w0b = torch.where(better, w0, w0b)
+            w1b = torch.where(better, w1, w1b)
 
     def image(x):                    # [B, NT, th, tw] → [B, H, W]
         return x.reshape(b, nty, ntx, tile_h, tile_w).permute(
@@ -270,7 +336,7 @@ def _scratch(dev, stream, n_tiles):
 
 
 def _visibility_cuda(feats, ids, count, height, width, tile_h, tile_w,
-                     depth_only=False):
+                     depth_only=False, affine=False):
     from fyrox_tpu_torch import kernels
     _check_inputs(feats, ids, count, height, width, tile_h, tile_w)
     b, t = feats.shape[:2]
@@ -293,54 +359,69 @@ def _visibility_cuda(feats, ids, count, height, width, tile_h, tile_w,
             plan, slices = _scratch(dev, stream, count.numel())
         err = lib.fyrox_tile_raster(
             feats.data_ptr(), ids.data_ptr(), count.data_ptr(), *ptrs, b, t,
-            k, height, width, tile_h, tile_w, int(depth_only), SPLIT_SPAN,
-            SPLIT_CAP, plan if plan is None else plan.data_ptr(),
+            k, height, width, tile_h, tile_w, int(depth_only), int(affine),
+            SPLIT_SPAN, SPLIT_CAP, plan if plan is None else plan.data_ptr(),
             slices if slices is None else slices.data_ptr(), stream)
         kernels.check(err, "fyrox_tile_raster")
-        _LAUNCHES["depth" if depth_only else "full"] += 1
+        _LAUNCHES[("depth" if depth_only else "full")
+                  + ("_affine" if affine else "")] += 1
         _LAST_PLAN[:] = [] if plan is None else [plan]
     return z if depth_only else (z, idx, w0, w1)
 
 
 def visibility(feats, ids, count, height, width, tile_h, tile_w,
-               depth_only=False):
-    """Dispatch for K5: CPU tensors → ``visibility_plain``; CUDA tensors →
-    ``csrc/tile_raster.cu`` (which raises on anything it does not take)."""
+               depth_only=False, affine=False):
+    """Dispatch for K5 (2DH rows, or affine rows where `affine`): CPU
+    tensors → ``visibility_plain``; CUDA tensors → ``csrc/tile_raster.cu``
+    (which raises on anything it does not take)."""
     if feats.is_cuda:
         return _visibility_cuda(feats, ids, count, height, width, tile_h,
-                                tile_w, depth_only)
+                                tile_w, depth_only, affine)
     if feats.device.type != "cpu":
         raise ValueError(f"tile_raster: no kernel for {feats.device}")
     return visibility_plain(feats, ids, count, height, width, tile_h,
-                            tile_w, depth_only)
+                            tile_w, depth_only, affine)
 
 
 def rasterize_tiled(tri_clip, tri_attrs, height, width, tri_valid=None,
                     k_per_tile=256, depth_only=False, backface_cull=True,
-                    tile_h=8, tile_w=128, demand=None):
+                    tile_h=8, tile_w=128, demand=None, mode="homogeneous"):
     """A batch of images through features → binning → K5 → attributes
-    (``rasterize_pallas``, ``pallas_raster.py:401``, homogeneous mode).
+    (``rasterize_pallas``, ``pallas_raster.py:401``).
 
     tri_clip [B, T, 3, 4] clip-space triangles; tri_attrs maps a name to
     [B, T, 3, C] or [T, 3, C] per-vertex attributes (albedo, normal,
-    position, material, emission); tri_valid [B, T] bool. Returns a
-    GBuffer batch [B, H, W, ...], or with depth_only the depth [B, H, W]
-    (1e9 where empty). A size that is not a multiple of the tile is
-    rasterized into the next multiple and cropped: the viewport stays
-    (height, width), so the padding never receives fragments. Where
-    `demand` is a list, (per-image true demand [B], cap K) is appended.
+    position, material, emission, and uvt where the scene is textured);
+    tri_valid [B, T] bool. Returns a GBuffer batch [B, H, W, ...], or with
+    depth_only the depth [B, H, W] (1e9 where empty). mode "homogeneous"
+    rasterizes 2DH forms of the T triangles; "clipped" clips them at the
+    near plane first (``raster.clip_near``: 2T rows) and rasterizes
+    screen-affine forms through K5's affine variant. A size that is not a
+    multiple of the tile is rasterized into the next multiple and
+    cropped: the viewport stays (height, width), so the padding never
+    receives fragments. Where `demand` is a list, (per-image true demand
+    [B], cap K) is appended.
     """
+    if mode not in ("homogeneous", "clipped"):
+        raise ValueError(f"rasterize_tiled: mode {mode!r}")
+    affine = mode == "clipped"
     tile_h, tile_w = min(tile_h, height), min(tile_w, width)
     height_p = -(-height // tile_h) * tile_h
     width_p = -(-width // tile_w) * tile_w
-    b, t = tri_clip.shape[:2]
+    b = tri_clip.shape[0]
     dev = tri_clip.device
     if tri_valid is None:
-        tri_valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+        tri_valid = torch.ones(tri_clip.shape[:2], dtype=torch.bool,
+                               device=dev)
+    if affine:
+        tri_clip, tri_attrs, tri_valid = clip_near(tri_clip, tri_attrs,
+                                                   tri_valid)
+    t = tri_clip.shape[1]
     k = min(k_per_tile, t)
     k = -(-k // _CHUNK) * _CHUNK
-    feats, bbox, ok = tri_features_h(tri_clip, tri_valid, height, width,
-                                     backface_cull)
+    feat_fn = tri_features if affine else tri_features_h
+    feats, bbox, ok = feat_fn(tri_clip, tri_valid, height, width,
+                              backface_cull)
     if t < k:                                   # tiny scenes: pad rows
         pad = k - t
         feats = torch.cat([feats, feats.new_zeros((b, pad, NFEAT))], 1)
@@ -353,10 +434,10 @@ def rasterize_tiled(tri_clip, tri_attrs, height, width, tri_valid=None,
     feats = feats.contiguous()
     if depth_only:
         z = visibility(feats, ids, count, height_p, width_p, tile_h, tile_w,
-                       depth_only=True)
+                       depth_only=True, affine=affine)
         return z[:, :height, :width]
     z, local_idx, w0, w1 = visibility(feats, ids, count, height_p, width_p,
-                                      tile_h, tile_w)
+                                      tile_h, tile_w, affine=affine)
     z, local_idx = z[:, :height, :width], local_idx[:, :height, :width]
     w0, w1 = w0[:, :height, :width], w1[:, :height, :width]
 
@@ -369,9 +450,25 @@ def rasterize_tiled(tri_clip, tri_attrs, height, width, tri_valid=None,
             + local_idx.clamp(min=0).long())                 # [B, H, W]
     tri_id = torch.gather(ids.reshape(b, -1), 1, flat.reshape(b, -1)).long()
 
-    # the 2DH barycentrics E_i / S are perspective-correct already; every
-    # attribute comes from ONE row gather of a joined [B, T, 3*Ct] table
-    pw2 = 1.0 - w0 - w1
+    if affine:
+        # screen-space barycentrics need the 1/w correction
+        w_clip = tri_clip[..., 3]
+        iw = 1.0 / torch.where(w_clip <= 1e-6, torch.ones_like(w_clip),
+                               w_clip)                       # [B, T, 3]
+        iw_px = torch.gather(iw, 1, tri_id[..., None].expand(-1, -1, 3))
+        iw_px = iw_px.reshape(b, height, width, 3)
+        w2 = 1.0 - w0 - w1
+        pw0 = w0 * iw_px[..., 0]
+        pw1 = w1 * iw_px[..., 1]
+        pw2 = w2 * iw_px[..., 2]
+        denom = torch.clamp(pw0 + pw1 + pw2, min=1e-12)
+        pw0, pw1, pw2 = pw0 / denom, pw1 / denom, pw2 / denom
+    else:
+        # the 2DH barycentrics E_i / S are perspective-correct already
+        pw0, pw1 = w0, w1
+        pw2 = 1.0 - w0 - w1
+    # every attribute comes from ONE row gather of a joined [B, T, 3*Ct]
+    # table
     parts = [v.expand(b, *v.shape[-3:]) if v.dim() == 3 else v
              for v in tri_attrs.values()]
     joined = torch.cat([v.reshape(b, t, -1) for v in parts], -1)
@@ -383,10 +480,10 @@ def rasterize_tiled(tri_clip, tri_attrs, height, width, tri_valid=None,
         c = v.shape[-1]
         av = rows[..., off:off + 3 * c].reshape(b, height, width, 3, c)
         off += 3 * c
-        val = (w0[..., None] * av[..., 0, :] + w1[..., None] * av[..., 1, :]
+        val = (pw0[..., None] * av[..., 0, :] + pw1[..., None] * av[..., 1, :]
                + pw2[..., None] * av[..., 2, :])
         out[name] = torch.where(mask[..., None], val, torch.zeros_like(val))
     z = torch.where(mask, z, torch.full_like(z, BIG))
     return GBuffer(depth=z, albedo=out["albedo"], normal=out["normal"],
                    position=out["position"], material=out["material"],
-                   emission=out["emission"], mask=mask)
+                   emission=out["emission"], mask=mask, uvt=out.get("uvt"))

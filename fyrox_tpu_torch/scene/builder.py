@@ -1,7 +1,8 @@
 """Host-side scene construction (the port's copy of
 ``fyrox_tpu.scene.builder`` for the node kinds the port uses).
 
-Pivots, rigid-body nodes, cameras, lights and meshes are supported.
+Pivots, rigid-body nodes, cameras, lights, meshes, sprites, decals,
+rectangles and LOD groups are supported.
 """
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ class SceneBuilder:
                                   hotspot=[], falloff_delta=[], intensity=[],
                                   cast_shadows=[])
         self._meshes: list = []
+        self._sprites: dict = dict(node=[], size=[], color=[])
+        self._decals: dict = dict(node=[], color=[], strength=[])
+        self._rects: dict = dict(node=[], color=[], uv_rect=[], texture=[])
+        self._rect_textures: list = []
+        self.extras: dict = {}
 
     def add_node(self, name="node", parent=-1, node_type=NodeType.PIVOT,
                  position=(0, 0, 0), rotation=None, scale=(1, 1, 1),
@@ -102,6 +108,68 @@ class SceneBuilder:
         li["cast_shadows"].append(bool(cast_shadows))
         return idx
 
+    # -- sprite (billboard; sprite.rs) -------------------------------------
+    def add_sprite(self, name="sprite", parent=-1, size=0.5,
+                   color=(1.0, 1.0, 1.0), **kw) -> int:
+        if kw.get("bbox") is None:
+            kw["bbox"] = (np.full(3, -size, np.float32),
+                          np.full(3, size, np.float32))
+        idx = self.add_node(name, parent, NodeType.SPRITE, **kw)
+        self._nodes[idx].payload = len(self._sprites["node"])
+        self._sprites["node"].append(idx)
+        self._sprites["size"].append(float(size))
+        self._sprites["color"].append(np.asarray(color, np.float32))
+        return idx
+
+    def add_decal(self, name="decal", parent=-1, color=(1.0, 0.2, 0.2),
+                  strength=1.0, **kw) -> int:
+        """Decal node (scene/decal.rs:115): projects its colour onto the
+        geometry inside the node's unit-cube volume (scale the node to size
+        the box), applied to the G-buffer before lighting."""
+        idx = self.add_node(name, parent, NodeType.DECAL, **kw)
+        self._nodes[idx].payload = len(self._decals["node"])
+        d = self._decals
+        d["node"].append(idx)
+        d["color"].append(np.asarray(color, np.float32))
+        d["strength"].append(float(strength))
+        return idx
+
+    # -- Rectangle 2D (dim2/rectangle.rs) -----------------------------------
+    def add_rectangle(self, name="rectangle", parent=-1,
+                      color=(1.0, 1.0, 1.0), uv_rect=(0.0, 0.0, 1.0, 1.0),
+                      texture=None, **kw) -> int:
+        """Rectangle node (dim2/rectangle.rs): a coloured / textured unit
+        quad in the node's local XY plane that transforms with the node,
+        drawn double-sided and emissive; `uv_rect=(u0, v0, u1, v1)`
+        selects the texture's sub-region."""
+        if kw.get("bbox") is None:
+            kw["bbox"] = (np.asarray([-0.5, -0.5, -0.01], np.float32),
+                          np.asarray([0.5, 0.5, 0.01], np.float32))
+        idx = self.add_node(name, parent, NodeType.RECTANGLE, **kw)
+        self._nodes[idx].payload = len(self._rects["node"])
+        tex = -1
+        if texture is not None:
+            if isinstance(texture, (int, np.integer)):
+                tex = int(texture)
+            else:
+                self._rect_textures.append(texture)
+                tex = len(self._rect_textures) - 1
+        r = self._rects
+        r["node"].append(idx)
+        r["color"].append(np.asarray(color, np.float32))
+        r["uv_rect"].append(np.asarray(uv_rect, np.float32))
+        r["texture"].append(tex)
+        return idx
+
+    def add_lod_group(self, levels):
+        """Attach a LOD group (LodGroup, scene/base.rs:129): levels is a
+        list of (begin, end, [node indices]), begin / end the normalised
+        camera-distance range ((dist - z_near) / (z_far - z_near)) in which
+        the listed nodes and their subtrees are rendered."""
+        self.extras.setdefault("lod_groups", []).append(
+            [(float(b), float(e), [int(o) for o in objs])
+             for b, e, objs in levels])
+
     # -- mesh ----------------------------------------------------------------
     def add_mesh(self, mesh_data, name="mesh", parent=-1, **kw) -> int:
         """mesh_data: fyrox_tpu_torch.render.mesh.MeshData; its bbox becomes
@@ -146,4 +214,9 @@ class SceneBuilder:
             cameras={k: np.asarray(v) for k, v in self._cameras.items()},
             lights={k: np.asarray(v) for k, v in self._lights.items()},
             meshes=list(self._meshes),
+            sprites={k: np.asarray(v) for k, v in self._sprites.items()},
+            decals={k: np.asarray(v) for k, v in self._decals.items()},
+            rectangles={k: np.asarray(v) for k, v in self._rects.items()},
+            rect_textures=list(self._rect_textures),
+            extras=dict(self.extras),
         )

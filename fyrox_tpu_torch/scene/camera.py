@@ -12,15 +12,24 @@ otherwise, as the port's other entry points do.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from fyrox_tpu_torch._util import resolve_device
+from fyrox_tpu_torch._util import const, resolve_device
 
 __all__ = ["perspective", "orthographic", "look_at_rh", "view_matrix"]
 
 
 def perspective(fov_y, aspect, z_near, z_far, device="cuda"):
-    """[4, 4] RH perspective with [-1, 1] depth, computed in float32."""
+    """[4, 4] RH perspective with [-1, 1] depth, computed in float32 on
+    the host once per (parameters, device)."""
+    return const(_perspective(float(fov_y), float(aspect), float(z_near),
+                              float(z_far)), resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _perspective(fov_y, aspect, z_near, z_far):
     f32 = torch.float32
     fov_y, aspect, z_near, z_far = (torch.tensor(float(x), dtype=f32)
                                     for x in (fov_y, aspect, z_near, z_far))
@@ -31,12 +40,20 @@ def perspective(fov_y, aspect, z_near, z_far, device="cuda"):
     m[2, 2] = (z_far + z_near) / (z_near - z_far)
     m[2, 3] = 2.0 * z_far * z_near / (z_near - z_far)
     m[3, 2] = -1.0
-    return m.to(resolve_device(device))
+    return m.numpy()
 
 
 def orthographic(vertical_size, aspect, z_near, z_far, device="cuda"):
     """[4, 4] RH orthographic, symmetric about the view axis
-    (camera.rs:139-170), computed in float32."""
+    (camera.rs:139-170), computed in float32 on the host once per
+    (parameters, device)."""
+    return const(_orthographic(float(vertical_size), float(aspect),
+                               float(z_near), float(z_far)),
+                 resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _orthographic(vertical_size, aspect, z_near, z_far):
     f32 = torch.float32
     vs, aspect, z_near, z_far = (torch.tensor(float(x), dtype=f32)
                                  for x in (vertical_size, aspect, z_near,
@@ -47,7 +64,7 @@ def orthographic(vertical_size, aspect, z_near, z_far, device="cuda"):
     m[2, 2] = -2.0 / (z_far - z_near)
     m[2, 3] = -(z_far + z_near) / (z_far - z_near)
     m[3, 3] = 1.0
-    return m.to(resolve_device(device))
+    return m.numpy()
 
 
 def look_at_rh(eye, target, up):

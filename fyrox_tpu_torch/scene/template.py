@@ -1,7 +1,8 @@
 """Scene templates: the static, host-side half of a scene.
 
 Same layout as ``fyrox_tpu.scene.template`` (topology, node types, payload
-routing, initial local transforms, local bounding boxes), kept as numpy.
+routing, initial local transforms, local bounding boxes, the render
+payloads), kept as numpy.
 The port carries its own copy because the JAX package cannot be imported
 on a machine without JAX; a CPU test holds the two equal.
 """
@@ -71,6 +72,14 @@ class SceneTemplate:
     cameras: dict = field(default_factory=dict)
     lights: dict = field(default_factory=dict)     # SoA dict of light params
     meshes: list = field(default_factory=list)     # list of render.MeshData
+    sprites: dict = field(default_factory=dict)    # SoA node, size, color
+    decals: dict = field(default_factory=dict)     # SoA node, color, strength
+    # Rectangle 2D nodes (dim2/rectangle.rs): a coloured / textured unit
+    # quad in the node's local XY plane
+    rectangles: dict = field(default_factory=dict)  # SoA (node, color,
+    rect_textures: list = field(default_factory=list)  # uv_rect, texture)
+    # builder-attached extras; "lod_groups": [[(begin, end, [nodes])...]]
+    extras: dict = field(default_factory=dict)
 
     @property
     def num_nodes(self) -> int:

@@ -190,6 +190,8 @@ def test_port_imports_and_builds_without_jax():
         import sys
         sys.modules["jax"] = None          # any `import jax` now fails
         sys.modules["fyrox_tpu"] = None
+        import torch
+        torch.set_num_threads(2)           # as the test files run torch
         import fyrox_tpu_torch
         from fyrox_tpu_torch import convert, engine, kernels
         from fyrox_tpu_torch.models import build_flagship
@@ -245,6 +247,24 @@ def test_port_imports_and_builds_without_jax():
                                 csm=render.CsmConfig(map_size=32)))
         assert color.shape == (2, 32, 32, 3) and color.abs().sum() > 0
         assert tile_raster.launches("full") == 0
+        from fyrox_tpu_torch.render import (occlusion, skybox, texture,
+                                            transparent, volumetric)
+        lib = chip_smoke.render_lib()
+        ft = chip_smoke.features_scene(lib, n_obj=4, tex_size=16,
+                                       n_sprites=2)
+        fs = graph.update_hierarchical_data(init_state(ft, 2, device="cpu"),
+                                            ft)
+        frt = render.build_render_template(ft)
+        for mode in ("homogeneous", "clipped"):
+            kw = chip_smoke.features_config(lib, size=32)
+            kw.update(raster_mode=mode, spot_shadow_size=32,
+                      point_shadow_size=16, occlusion_size=16)
+            fcfg = render.RenderConfig(csm=render.CsmConfig(map_size=32),
+                                       **kw)
+            fc, _, caps = render.render_frame_demand(fs, ft, frt, fcfg)
+            assert fc.shape == (2, 32, 32, 3) and len(caps) == 12
+        cc, _ = render.render_frames_chunked(fs, ft, frt, fcfg, world_chunk=1)
+        assert cc.shape == fc.shape and tile_raster.launches("depth") == 0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

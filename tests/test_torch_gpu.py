@@ -767,6 +767,64 @@ def test_tile_raster_kernel_rejects_bad_inputs(cuda):
         tile_raster.visibility(feats, ids, count, 16, 128, 16, 128)
 
 
+@pytest.mark.parametrize("tiles,span", [
+    ((16, 256, 8, 128), None), ((16, 256, 8, 128), 40),
+    ((16, 128, 8, 64), None), ((12, 320, 6, 160), 40)],
+    ids=["8x128", "8x128-span40", "8x64", "6x160-span40"])
+def test_tile_raster_affine_kernel_on_knife_edges(cuda, monkeypatch, tiles,
+                                                  span):
+    """K5's affine variant on chip_smoke.k5_knife_edges_affine: forms zero
+    on pixel centres at the warps' rectangle borders, z ranges crossing
+    -1 and 1, ok = 0 rows nearest the camera, split tiles; full and
+    depth-only bit-equal to plain, twice."""
+    import chip_smoke
+    from fyrox_tpu_torch.render import tile_raster
+    if span:
+        monkeypatch.setattr(tile_raster, "SPLIT_SPAN", span)
+    args = chip_smoke.k5_knife_edges_affine(*tiles, seed=2, device=cuda)
+    got = tile_raster.visibility(*args, affine=True)
+    again = tile_raster.visibility(*args, affine=True)
+    ref = tile_raster.visibility_plain(*args, affine=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(tile_raster.visibility(*args, depth_only=True,
+                                              affine=True), ref[0])
+
+
+@pytest.mark.parametrize("mode", ["homogeneous", "clipped"])
+def test_features_frame_on_the_card_matches_the_cpu(cuda, mode):
+    """chip_smoke's features frame (every feature) at 2 worlds, 32 x 32:
+    the card's colour against the CPU's, the same caps and no pass at its
+    cap (the demand itself may differ by a few triangles: this scene's
+    zero-area and edge-on triangles round differently on the two
+    devices); K5's launches by variant (the prepass and camera pass
+    affine in clipped mode)."""
+    import chip_smoke
+    from fyrox_tpu_torch.render import (CsmConfig, RenderConfig,
+                                        build_render_template,
+                                        render_frame_demand, tile_raster)
+    from fyrox_tpu_torch.scene import graph, init_state
+    lib = chip_smoke.render_lib()
+    t = chip_smoke.features_scene(lib, n_obj=8, tex_size=32, n_sprites=4)
+    st = graph.update_hierarchical_data(init_state(t, 2, device="cpu"), t)
+    rt = build_render_template(t)
+    kw = chip_smoke.features_config(lib, size=32)
+    kw["raster_mode"] = mode
+    cfg = RenderConfig(csm=CsmConfig(map_size=64), **kw)
+    cpu, dem, caps = render_frame_demand(st, t, rt, cfg)
+    tile_raster.reset_launches()
+    gpu, gdem, gcaps = render_frame_demand(
+        convert.scene_state(convert.to_numpy(st), device=cuda), t, rt, cfg)
+    affine = mode == "clipped"
+    assert tile_raster._LAUNCHES == dict(
+        full=int(not affine), depth=3 + int(not affine),
+        full_affine=int(affine), depth_affine=int(affine))
+    err = (gpu.cpu() - cpu).abs()
+    assert (err <= 1e-4).float().mean() >= 0.999 and err.max() <= 2e-3
+    assert gcaps == caps and all(
+        int(d) < k for d, k in zip(gdem.amax(0).tolist(), gcaps))
+
+
 # ---- the animation breadth and the real-asset flagship ---------------------
 
 def test_real_asset_rollout_replays_equal_eager_steps(cuda):

@@ -573,3 +573,81 @@ def test_tile_raster_split_keeps_the_first_of_tied_zeros(on_cpu, monkeypatch):
     assert torch.equal(z.view(torch.int32), zp.view(torch.int32))
     assert (z[0, :, :128].view(torch.int32) == 0).all()          # +0
     assert (z[0, :, 128:].view(torch.int32) == -2 ** 31).all()   # -0
+
+
+def _raster_inputs_affine(size, n_img=3, t=300, seed=0, cull=True):
+    """Binned screen-affine feature rows (K5's affine variant) of seeded
+    random triangles, a fifth of them crossing the near plane (clipped
+    into two by raster.clip_near), in n_img different images."""
+    from fyrox_tpu_torch.render import raster, tile_raster
+    h, w = size
+    rng = np.random.default_rng(seed)
+    v = (rng.uniform(-1, 1, (n_img, t, 1, 2))
+         + rng.uniform(-0.4, 0.4, (n_img, t, 3, 2)))
+    depth = rng.uniform(-0.9, 0.9, (n_img, t, 1, 1))
+    wc = rng.uniform(0.5, 2.0, (n_img, t, 3, 1))
+    wc[:, ::5, 0] = -0.3                        # one vertex behind the eye
+    clip = np.concatenate([v * wc, np.broadcast_to(depth, (n_img, t, 3, 1))
+                           * wc, wc], -1)
+    clip, _, valid = raster.clip_near(
+        torch.as_tensor(clip.astype(np.float32)), {},
+        torch.ones((n_img, t), dtype=torch.bool))
+    tile_h, tile_w = min(8, h), min(128, w)
+    feats, bbox, ok = tile_raster.tri_features(clip, valid, h, w, cull)
+    ids, count, _ = tile_raster.bin_triangles(bbox, ok, h, w, tile_h, tile_w,
+                                              160)
+    assert int(count.max()) > 64
+    return feats.contiguous(), ids, count, h, w, tile_h, tile_w
+
+
+@pytest.mark.parametrize("size", [(16, 256), (64, 64)])
+def test_tile_raster_affine_matches_plain(on_cpu, size):
+    """K5's affine variant, full and depth-only, against visibility_plain
+    on clipped triangles; 64 x 64 runs on the 8 x 64 tiles of the
+    occlusion prepass and the point maps."""
+    from fyrox_tpu_torch.render import tile_raster
+    args = _raster_inputs_affine(size, n_img=2, t=200,
+                                 cull=size[0] != 64)
+    tile_raster.reset_launches()
+    z, idx, w0, w1 = tile_raster._visibility_cuda(*args, affine=True)
+    zp, idxp, w0p, w1p = tile_raster.visibility_plain(*args, affine=True)
+    assert (idxp >= 0).float().mean() > 0.3
+    assert not torch.equal(idxp[0], idxp[1])
+    assert torch.equal(idx, idxp)
+    for a, b in ((z, zp), (w0, w0p), (w1, w1p)):
+        assert (a - b).abs().max() <= 1e-6
+    zd = tile_raster._visibility_cuda(*args, depth_only=True, affine=True)
+    assert (zd - zp).abs().max() <= 1e-6
+    assert tile_raster.launches("full_affine") == 1
+    assert tile_raster.launches("depth_affine") == 1
+    assert tile_raster.launches("full") == tile_raster.launches("depth") == 0
+
+
+@pytest.mark.parametrize("tiles,span,cap", [
+    ("8x128", None, None), ("8x128", 40, None), ("6x160", 40, None)],
+    ids=["8x128", "8x128-span40", "6x160-span40"])
+def test_tile_raster_affine_on_knife_edges(on_cpu, monkeypatch, tiles, span,
+                                           cap):
+    """The affine variant's per-warp rejection (w0, w1, w2 and the z
+    range) may skip only what the plain version finds outside, on rows
+    whose forms are zero on pixel centres at the warps' rectangle borders
+    (chip_smoke.k5_knife_edges_affine), split tiles included."""
+    from fyrox_tpu_torch.render import tile_raster
+    span = span or tile_raster.SPLIT_SPAN
+    cap = tile_raster.SPLIT_CAP if cap is None else cap
+    monkeypatch.setattr(tile_raster, "SPLIT_SPAN", span)
+    monkeypatch.setattr(tile_raster, "SPLIT_CAP", cap)
+    h, w, th, tw = _KNIFE_TILES[tiles]
+    args = chip_smoke.k5_knife_edges_affine(h, w, th, tw, seed=len(tiles))
+    z, idx, w0, w1 = tile_raster._visibility_cuda(*args, affine=True)
+    assert tile_raster.split_parts() == _split_plan(
+        args[2], args[1].shape[2], span, cap)
+    zp, idxp, w0p, w1p = tile_raster.visibility_plain(*args, affine=True)
+    hit = idxp >= 0
+    assert 0.2 < hit.float().mean() < 0.98
+    assert ((w0p == 0) & hit).any() and ((w1p == 0) & hit).any()
+    assert torch.equal(idx, idxp)
+    for a, b in ((z, zp), (w0, w0p), (w1, w1p)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    zd = tile_raster._visibility_cuda(*args, depth_only=True, affine=True)
+    assert torch.equal(zd.view(torch.int32), zp.view(torch.int32))
