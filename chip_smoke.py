@@ -211,6 +211,38 @@ shafts and a skybox; W=16 at 256x256, caps FEATURES_CAPS):
              per frame by variant (homogeneous: full 1, depth 4; clipped:
              full_affine 1, depth_affine 1, depth 3), frames/s, and the
              profiler's device events, device ms and busy share.
+Then the audio mixer, the grid broadphase and the terrain brush:
+  audio-small — the small flagship with audio (8 bones, 4 bodies, W=4,
+             the character's root moved per world): 20 ticks each
+             followed by render_audio(128), card vs CPU from the same
+             state, blocks within 1e-5, playheads and `playing` equal;
+  audio    — build_flagship(100, 50,000, 1,000, with_audio=True), W
+             worlds: TICKS eager ticks (K3, K2, K1 once a tick, the audio
+             state carried unchanged), TICKS replayed ticks equal them bit
+             for bit, a replayed roll's kernels by name, device events and
+             device ms; env·steps/s through rollout; render_audio(513): ms,
+             device ms, device events and blocks/s; the blocks finite and
+             panned to the source's side;
+  bus-binaural — bus.process (a low-pass + reverb child bus under the
+             primary) over 3 blocks and render_block_binaural (model and a
+             measured ring), card vs CPU within 1e-5; the bus loop's ms a
+             513-sample block;
+  grid-small — a 64-body grid pile and a jointed stack (grid_pile,
+             jointed_stack) on broadphase="grid", W=4: each of 20 card
+             ticks against the same tick on the CPU from the card's state;
+             K4a and K4b grid_launches(t) times a tick;
+  grid     — the flagship's character and 1,000-body pile on the grid
+             broadphase (grid_engine), W worlds: the demand against every
+             cap and window with its drops, TICKS eager ticks (K4a and K4b
+             grid_launches(t) a tick, nothing else), TICKS replayed ticks
+             equal them bit for bit, a replayed roll's kernels, device
+             events and device ms, env·steps/s with skinning, the tick's
+             peak memory; then the tick's K4a and K4b calls bit-equal to
+             their plain versions and timed (hold_k4: the
+             plane_gather_grid and plane_scatter_grid records);
+  brush    — apply_stroke in each mode and shape on a 257² map, card vs
+             CPU within 1e-5, and add_chunked_terrain's 16-chunk scene
+             rendered card vs CPU.
 Then one JSON line describing the kernels, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Each kernel's `ms` (and
 `plain_ms`, `library_ms`) is CUDA-event time over a run of calls, which
@@ -2700,7 +2732,6 @@ def phase_dense_k4(engine, calls, tag="dense"):
     the kernel does, and the card's ascending-k float32 sums), two launches
     bit-equal; the tick's set of calls timed against its bound, its plain
     version and one PyTorch call a launch (torch.gather, scatter_add_)."""
-    from fyrox_tpu_torch.physics import plane_ops
     gathers, scatters = calls
     t = engine.physics
     k2, b = 2 * t.flat_layout()[1], t.num_bodies
@@ -2717,6 +2748,20 @@ def phase_dense_k4(engine, calls, tag="dense"):
         if (vals.shape[0], vals.shape[2], n, tuple(idx.shape)) != (
                 WORLDS, k2, b, (WORLDS, k2)):
             fail(f"{tag} K4b: shapes {tuple(vals.shape)} → {n} rows")
+    return hold_k4(tag, gathers, scatters,
+                   f"idx [{WORLDS},{k2}], {b} body rows")
+
+
+def hold_k4(tag, gathers, scatters, shapes):
+    """K4a and K4b on one tick's calls: each bit-equal to its plain version
+    (the gather's on the card; the scatter's on CPU copies, which sums in
+    ascending k as the kernel does, and the card's ascending-k float32
+    sums), two launches bit-equal; the tick's set of calls timed against
+    its bound, its plain version and one PyTorch call a launch
+    (torch.gather, scatter_add_). `shapes` describes the calls for the
+    log. Returns the two kernel records (plane_gather_<tag>,
+    plane_scatter_<tag>)."""
+    from fyrox_tpu_torch.physics import plane_ops
     if not all_differ(scatters[-1][0]):
         fail(f"{tag} K4b: the captured worlds repeat")
     # K4a: a gather moves values, bit-equal to torch.gather's
@@ -2724,7 +2769,7 @@ def phase_dense_k4(engine, calls, tag="dense"):
         got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
         if not (torch.equal(got, again) and torch.equal(
                 got, plane_ops.plane_gather_plain(planes, idx))):
-            fail("dense K4a: kernel differs from its plain version or "
+            fail(f"{tag} K4a: kernel differs from its plain version or "
                  "from itself")
     # K4b: sums of ~50-400 values a body in ascending k
     worst_rel = 0.0
@@ -2732,7 +2777,7 @@ def phase_dense_k4(engine, calls, tag="dense"):
         got, again = (plane_ops.plane_scatter(vals, idx, n) for _ in range(2))
         ref = plane_ops.plane_scatter_plain(vals.cpu(), idx.cpu(), n)
         if not (torch.equal(got, again) and torch.equal(got.cpu(), ref)):
-            fail(f"dense K4b: kernel differs from its plain version on CPU "
+            fail(f"{tag} K4b: kernel differs from its plain version on CPU "
                  f"copies at {int((got.cpu() != ref).sum())} entries, or "
                  f"from itself")
         rel = (plane_ops.plane_scatter_plain(vals, idx, n).double() - got
@@ -2742,9 +2787,9 @@ def phase_dense_k4(engine, calls, tag="dense"):
     vals, idx, n = max(scatters, key=lambda c: c[0].shape[1])
     if not torch.equal(plane_ops.plane_scatter(vals, idx, n),
                        scatter_in_order(vals, idx, n)):
-        fail("dense K4b: kernel differs from the card's ascending-k sums")
+        fail(f"{tag} K4b: kernel differs from the card's ascending-k sums")
     if not worst_rel <= 1.0:
-        fail(f"dense K4b: kernel vs the card's plain version (atomics) at "
+        fail(f"{tag} K4b: kernel vs the card's plain version (atomics) at "
              f"{worst_rel:.3g} of twice the float32 summation bound")
 
     def run(fn, cs):
@@ -2753,12 +2798,15 @@ def phase_dense_k4(engine, calls, tag="dense"):
     lib_g = [(planes, idx.long()[:, None, :].expand(
         planes.shape[0], planes.shape[1], idx.shape[1]))
         for planes, idx in gathers]
-    lib_s = [(vals, idx.long()[:, None, :].expand(vals.shape), n)
+    # an index K4b drops (below 0: a row past its body's window) goes to
+    # a spare column of the library call's output
+    lib_s = [(vals, torch.where(idx < 0, n, idx).long()[:, None, :].expand(
+        vals.shape), n + int(bool((idx < 0).any())))
              for vals, idx, n in scatters]
     for (planes, li), (planes2, idx) in zip(lib_g, gathers):
         if not torch.equal(torch.gather(planes, 2, li),
                            plane_ops.plane_gather(planes2, idx)):
-            fail("dense K4a: the torch.gather yardstick disagrees")
+            fail(f"{tag} K4a: the torch.gather yardstick disagrees")
 
     def lib_scatter(vals, li, n):
         return torch.zeros((vals.shape[0], vals.shape[1], n),
@@ -2774,8 +2822,11 @@ def phase_dense_k4(engine, calls, tag="dense"):
              sum(v.numel() for v, _, _ in scatters))):
         ms_k, ms_p = cuda_ms(run(kern, cs), 20), cuda_ms(run(plain, cs), 10)
         ms_lib = cuda_ms(run(lib_fn, lib), 20)
-        dev_k, dev_lib = device_ms(run(kern, cs), 20), device_ms(
-            run(lib_fn, lib), 20)
+        # at most ~600 launches queued behind the spin: a fuller launch
+        # queue blocks the host until the spin ends
+        reps = min(20, max(1, 600 // (2 * len(cs))))
+        dev_k, dev_lib = device_ms(run(kern, cs), reps), device_ms(
+            run(lib_fn, lib), reps)
         outs = [kern(*c) for c in cs]
         moved = sum(nbytes(c[0], c[1], o) for c, o in zip(cs, outs))
         b_ms, b_by = bound_ms(moved, ops)
@@ -2789,8 +2840,8 @@ def phase_dense_k4(engine, calls, tag="dense"):
                          bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
                          device_ms=dev_k, library_device_ms=dev_lib))
         log(f"[{tag}-K4] {name}: a {tag} tick's {len(cs)} calls "
-            f"(W={WORLDS} distinct worlds, idx [{WORLDS},{k2}], {b} body "
-            f"rows, attribute rows {sorted({c[0].shape[1] for c in cs})}) "
+            f"(W={WORLDS} distinct worlds, {shapes}, attribute rows "
+            f"{sorted({c[0].shape[1] for c in cs})}) "
             f"bit-equal to plain, two launches bit-equal; CUDA events over "
             f"the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
             f"{'torch.gather' if src == 'gather' else 'scatter_add_'} "
@@ -4283,6 +4334,595 @@ def phase_render_features(t, rt, st, cfg):
     return out["clipped"]
 
 
+# ---------------------------------------------------------------- audio
+# The audio mixer: the flagship with a hum on its first bone and a
+# listener on the camera. A tick carries the audio leaves unchanged; the
+# mixer runs in Engine.render_audio, outside the captured tick.
+AUDIO_SMALL = dict(n_bones=8, n_verts=128, n_bodies=4)
+AUDIO_SMALL_W = 4
+AUDIO_SMALL_BLOCK = 128
+AUDIO_RENDERS = 20     # timed render_audio(513) calls
+BUS_BLOCKS = 3         # 513-sample blocks through the bus graph
+
+
+def audio_worlds(engine, w, device, seed=0):
+    """distinct_worlds with the character's root pivot moved per world
+    along x (-8 .. 8 m) and z, and the playheads started apart, so that
+    each world's source sits elsewhere against the camera's ears."""
+    from fyrox_tpu_torch.scene import graph as graph_mod
+    st = distinct_worlds(engine, w, device, seed)
+    pos = st.scene.position.clone()
+    xs = torch.linspace(-8.0, 8.0, w, device=pos.device)
+    pos[:, 0, 0] = xs
+    pos[:, 0, 2] = 2.0 * torch.cos(xs)
+    scene = graph_mod.update_hierarchical_data(
+        st.scene._replace(position=pos), engine.template)
+    audio = st.audio._replace(playhead=torch.arange(
+        w, dtype=torch.float32, device=pos.device)[:, None].expand_as(
+        st.audio.playhead).contiguous() * 333.25)
+    return st._replace(scene=scene, audio=audio)
+
+
+def expected_pan(engine, state):
+    """Per world [W,S]: the listener-space pan the mixer should apply,
+    the source direction · the listener's +X axis from the globals."""
+    at = engine.audio_template()
+    g = state.scene.globals_
+    src = g[:, torch.as_tensor(at.src_node, device=g.device).long(), :3, 3]
+    lg = g[:, at.listener_node]
+    d = src - lg[:, None, :3, 3]
+    d = d / d.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+    right = lg[:, None, :3, 0] / lg[:, None, :3, 0].norm(dim=-1,
+                                                         keepdim=True)
+    return (d * right).sum(-1)
+
+
+def phase_audio_small():
+    """The small flagship with audio (W=4, worlds apart): 20 ticks, each
+    followed by render_audio(block_len=128), on the card and on the CPU
+    from the same state: every block within 1e-5, `playing` and the
+    playheads equal."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.models import build_flagship
+    engine, _ = build_flagship(**AUDIO_SMALL, with_audio=True)
+    cpu = audio_worlds(engine, AUDIO_SMALL_W, "cpu", seed=5)
+    gpu = convert.engine_state(convert.to_numpy(cpu), device="cuda")
+    worst = loud = 0.0
+    for _ in range(TICKS):
+        cpu, gpu = engine.step(cpu), engine.step(gpu)
+        bc, cpu = engine.render_audio(cpu, block_len=AUDIO_SMALL_BLOCK)
+        bg, gpu = engine.render_audio(gpu, block_len=AUDIO_SMALL_BLOCK)
+        worst = max(worst, (bg.cpu() - bc).abs().max().item())
+        loud = max(loud, bc.abs().max().item())
+        if not (torch.equal(gpu.audio.playing.cpu(), cpu.audio.playing)
+                and torch.equal(gpu.audio.playhead.cpu(),
+                                cpu.audio.playhead)):
+            fail("audio-small: playheads or `playing` differ card vs CPU")
+    if not (worst <= 1e-5 and loud > 1e-3 and all_differ(bc)):
+        fail(f"audio-small: blocks card vs CPU {worst:.3g} (bound 1e-5), "
+             f"loudest {loud:.3g}, worlds distinct {all_differ(bc)}")
+    log(f"[audio-small] flagship with audio ({AUDIO_SMALL}, W="
+        f"{AUDIO_SMALL_W} distinct worlds): {TICKS} ticks, each followed by "
+        f"render_audio({AUDIO_SMALL_BLOCK}); blocks card vs CPU within "
+        f"{worst:.3g} (bound 1e-5, loudest sample {loud:.3f}); playheads "
+        f"and `playing` equal")
+
+
+def phase_audio():
+    """The full-width flagship with audio (100 bones, 50,000 vertices,
+    1,000 bodies), W worlds: TICKS eager ticks (K3, K2, K1 once a tick);
+    TICKS replayed ticks equal them bit for bit, audio leaves carried; a
+    replayed roll's kernels by the profiler's names, device events and
+    device ms; env·steps/s through rollout; render_audio(513): ms and
+    device ms a call, blocks/s; the blocks finite and panned to the
+    source's side in every world. Returns the eager launches."""
+    from fyrox_tpu_torch.models import build_flagship
+    t0 = time.perf_counter()
+    engine, skin = build_flagship(n_bones=100, n_verts=50_000,
+                                  n_bodies=1000, with_audio=True)
+    build_s = time.perf_counter() - t0
+    at = engine.audio_template()
+    if at is None or at.src_node.size != 1:
+        fail("audio: the flagship has no sound source")
+    state0 = audio_worlds(engine, WORLDS, "cuda", seed=29)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eager = state0
+    for _ in range(TICKS):
+        eager = engine.step(eager)
+    torch.cuda.synchronize()
+    n = all_launches()
+    want = dict(fused_bp=TICKS, narrow_compact=TICKS, solve_tgs=TICKS,
+                plane_gather=0, plane_scatter=0)
+    if n != want:
+        fail(f"audio: launches of {TICKS} eager ticks {n}, want {want}")
+    for a, b in zip(eager.audio, state0.audio):
+        if not torch.equal(a, b):
+            fail("audio: a tick changed the audio state")
+    rolled = engine.rollout(state0, TICKS)
+    n_leaves = same_state("audio rollout", rolled, eager)
+    kn, events, dev_ms = profiled(lambda: engine.rollout(rolled, TICKS),
+                                  TICKS)
+    if kn != want:
+        fail(f"audio: kernels of a replayed roll {kn}, want {want}")
+    st = engine.rollout(rolled, TICKS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CALLS):
+        st = engine.rollout(st, TICKS)
+    torch.cuda.synchronize()
+    rate = WORLDS * TICKS * CALLS / (time.perf_counter() - t0)
+    block, after = engine.render_audio(rolled, block_len=513)
+    if not (tuple(block.shape) == (WORLDS, 513, 2)
+            and bool(torch.isfinite(block).all())):
+        fail(f"audio: blocks {tuple(block.shape)}, finite "
+             f"{bool(torch.isfinite(block).all())}")
+    pan = expected_pan(engine, rolled)[:, 0]
+    side = (block[..., 1] ** 2).mean(1) - (block[..., 0] ** 2).mean(1)
+    clear = pan.abs() > 0.2
+    wrong = int((clear & (torch.sign(side) != torch.sign(pan))).sum())
+    if wrong or int(clear.sum()) < WORLDS // 4:
+        fail(f"audio: the pan follows the source in "
+             f"{int(clear.sum()) - wrong} of {int(clear.sum())} worlds")
+    if not torch.equal(after.audio.playhead,
+                       torch.remainder(rolled.audio.playhead + 513.0,
+                                       float(at.buffers.lengths[0]))):
+        fail("audio: render_audio did not advance the playheads by 513")
+    ms = cuda_ms(lambda: engine.render_audio(rolled, block_len=513),
+                 AUDIO_RENDERS)
+    _, a_events, a_dev = profiled(
+        lambda: engine.render_audio(rolled, block_len=513), 1)
+    # at most ~600 launches queued behind device_ms's spin
+    dms = device_ms(lambda: engine.render_audio(rolled, block_len=513),
+                    max(1, min(AUDIO_RENDERS, int(600 // a_events))))
+    log(f"[audio] flagship with audio (100 bones, 50,000 vertices, 1,000 "
+        f"bodies; a {at.buffers.lengths[0]}-sample hum on bone 0, ears on "
+        f"the camera; built in {build_s:.1f} s), W={WORLDS}: {TICKS} eager "
+        f"ticks launch K3, K2, K1 once a tick and leave the audio state "
+        f"as it was; {TICKS} replayed ticks equal them bit for bit "
+        f"({n_leaves} state tensors, audio leaves carried); replayed "
+        f"roll's kernels {kn}; replayed tick: {events:.1f} device events, "
+        f"{dev_ms:.3f} ms of device time; {rate:.1f} env·steps/s through "
+        f"rollout ({CALLS} x {TICKS} ticks, no skinning); render_audio(513):"
+        f" {ms:.4f} ms a call (CUDA events), {dms:.4f} ms of device time "
+        f"({a_dev:.4f} by the profiler), {a_events:.0f} device events, "
+        f"{WORLDS / ms * 1e3:.0f} blocks/s; "
+        f"blocks finite, the pan on the source's side in all "
+        f"{int(clear.sum())} worlds with |pan| > 0.2 on {CARD}")
+    return n
+
+
+def phase_bus_binaural():
+    """bus.process (a low-pass and reverb child bus under the primary bus)
+    over BUS_BLOCKS 513-sample blocks and render_block_binaural (8
+    sources; the spherical-head model and a measured ring) on the card
+    against the CPU, within 1e-5; the bus loop's ms a block."""
+    from fyrox_tpu_torch.sound import binaural, bus
+    rng = np.random.default_rng(13)
+    g = bus.BusGraph.build([
+        dict(parent=-1, gain=0.9),
+        dict(parent=0, gain=0.7, effects=[
+            ("biquad", bus.biquad_coeffs("lowpass", 800.0)),
+            ("reverb", 0.5)])])
+    sg, sc = bus.init_state(g, device="cuda"), bus.init_state(g, device="cpu")
+    worst = 0.0
+    for _ in range(BUS_BLOCKS):
+        blk = torch.as_tensor(rng.normal(0, 0.3, (2, 513, 2)).astype(
+            np.float32))
+        og, sg = bus.process(g, blk.cuda(), sg)
+        oc, sc = bus.process(g, blk, sc)
+        worst = max(worst, (og.cpu() - oc).abs().max().item())
+        for a, b in zip(sg, sc):
+            worst = max(worst, (a.cpu().float() - b.float()).abs().max()
+                        .item())
+    blk = blk.cuda()
+    ms_bus = cuda_ms(lambda: bus.process(g, blk, sg), 2)
+    mono = rng.normal(0, 0.5, (8, 513)).astype(np.float32)
+    az = rng.uniform(-np.pi, np.pi, 8).astype(np.float32)
+    gains = rng.uniform(0.2, 1.0, 8).astype(np.float32)
+    ring = binaural.HrirSphere(np.linspace(0, 2 * np.pi, 12, endpoint=False),
+                               rng.normal(size=(12, 2, 32)))
+    worst_b = 0.0
+    for sph in (None, ring):
+        outs = [binaural.render_block_binaural(
+            torch.as_tensor(mono, device=d), torch.as_tensor(az, device=d),
+            torch.as_tensor(gains, device=d), hrir_sphere=sph)
+            for d in ("cuda", "cpu")]
+        worst_b = max(worst_b, (outs[0].cpu() - outs[1]).abs().max().item())
+    args = [torch.as_tensor(x, device="cuda") for x in (mono, az, gains)]
+    ms_bin = cuda_ms(lambda: binaural.render_block_binaural(*args), 10)
+    if not (worst <= 1e-5 and worst_b <= 1e-5):
+        fail(f"bus-binaural: card vs CPU bus {worst:.3g}, binaural "
+             f"{worst_b:.3g} (bound 1e-5)")
+    log(f"[bus-binaural] bus.process (primary ← low-pass 800 Hz + reverb "
+        f"child), {BUS_BLOCKS} blocks of 513 samples: card == CPU within "
+        f"{worst:.3g} (block and state; bound 1e-5); the per-sample loop "
+        f"{ms_bus:.1f} ms a block on the card (CUDA events); "
+        f"render_block_binaural (8 sources, model and 12-direction ring): "
+        f"card == CPU within {worst_b:.3g}, {ms_bin:.3f} ms a call on {CARD}")
+
+
+# ---------------------------------------------------------------- grid
+# The grid broadphase: the hash-grid walk with a global per-class
+# compaction into directed pair lists, the per-class narrowphase and the
+# directed TGS solve, whose gathers run on K4a and whose windowed segment
+# sums run on K4b (one launch a class segment each time).
+GRID_SMALL_TICKS = 20
+GRID_PROFILED = 3
+
+
+def grid_pile(lib, n=24, seed=1):
+    """n bodies (balls, cuboids, capsules in turn) in a loose lattice over
+    a halfspace (restitution 0.2); lib: either package's physics names.
+    Returns the PhysicsBuilder."""
+    rng = np.random.default_rng(seed)
+    pb = lib.PhysicsBuilder()
+    g = pb.add_body(body_type=lib.BodyType.STATIC)
+    pb.add_collider(g, lib.HALFSPACE, [], friction=0.6, restitution=0.2)
+    side = max(int(np.ceil(n ** (1.0 / 3.0))), 1)
+    for i in range(n):
+        gx, gy, gz = i % side, (i // side) % side, i // (side * side)
+        pos = ((gx - side / 2) * 0.7 + rng.uniform(-0.05, 0.05),
+               0.6 + gy * 0.7,
+               (gz - side / 2) * 0.7 + rng.uniform(-0.05, 0.05))
+        b = pb.add_body(position=pos)
+        if i % 3 == 0:
+            pb.add_collider(b, lib.BALL, [0.25], friction=0.5,
+                            restitution=0.1)
+        elif i % 3 == 1:
+            pb.add_collider(b, lib.CUBOID, [0.22, 0.22, 0.22], friction=0.5)
+        else:
+            pb.add_collider(b, lib.CAPSULE, [0.2, 0.15], friction=0.5)
+    return pb
+
+
+def jointed_stack(lib):
+    """Four 0.6 m boxes stacked on a halfspace, ball-jointed corner to
+    corner, a capsule pendulum on a revolute joint off the top box and a
+    collider offset (a centre-of-mass offset) on the second box. Returns
+    the PhysicsBuilder."""
+    pb = lib.PhysicsBuilder()
+    g = pb.add_body(body_type=lib.BodyType.STATIC)
+    pb.add_collider(g, lib.HALFSPACE, [], friction=0.8)
+    boxes = []
+    for k in range(4):
+        b = pb.add_body(position=(0.05 * k, 0.31 + 0.62 * k, 0.0))
+        pb.add_collider(b, lib.CUBOID, [0.3, 0.3, 0.3], friction=0.7,
+                        offset=(0.05, 0.0, 0.0) if k == 1 else (0, 0, 0))
+        boxes.append(b)
+    for a, b in zip(boxes, boxes[1:]):
+        pb.add_joint(lib.JointKind.BALL, a, b, anchor_a=(0.3, 0.31, 0.3),
+                     anchor_b=(0.3, -0.31, 0.3))
+    pend = pb.add_body(position=(0.9, 2.2, 0.0))
+    pb.add_collider(pend, lib.CAPSULE, [0.2, 0.1], friction=0.5)
+    pb.add_joint(lib.JointKind.REVOLUTE, boxes[-1], pend,
+                 anchor_a=(0.35, 0.0, 0.0), anchor_b=(-0.4, 0.0, 0.0),
+                 axis=(0.0, 0.0, 1.0))
+    return pb
+
+
+def grid_launches(t):
+    """(K4a, K4b) launches of one grid tick (physics/solver.py
+    solve_tgs_directed), per class segment: the prep's count scatter and
+    gather, the restitution target's gather; per substep the warm start's
+    scatter, per PGS pass a gather and a scatter, the end-of-substep
+    gather; the restitution's gather and scatter; per stabilisation pass a
+    scatter and a gather (not after the last). Joints add dense_launches'
+    joint passes."""
+    segs = sum(1 for c in t.grid.caps if c > 0)
+    sub, pgs, stab = t.n_substeps, t.n_pgs, t.n_stabilization
+    gathers = segs * (2 + sub * (pgs + 1) + 1 + max(stab - 1, 0))
+    scatters = segs * (1 + sub * (1 + pgs) + 1 + stab)
+    if t.joints is not None and t.joints.num_joints:
+        gathers += 2 * sub + stab
+        scatters += 2 * sub + stab
+    return gathers, scatters
+
+
+def grid_engine(n_bodies=1000):
+    """The flagship's character (100 bones, 50,000 vertices) and its
+    n_bodies pile as build_flagship builds them, the pile on
+    broadphase="grid" (build_flagship takes no broadphase). Returns
+    (Engine, SkinTemplate)."""
+    from fyrox_tpu_torch.models import character
+    sb, aset, mt, bones, skin_data = character.build_character_scene(
+        n_bones=100, n_verts=50_000, seed=0)
+    pb, _ = character.build_pile_scene(sb, n_bodies=n_bodies, seed=1)
+    return character.assemble_flagship(sb, pb.build(broadphase="grid"), aset,
+                                       mt, bones, skin_data)
+
+
+def phase_grid_small():
+    """A 64-body pile (balls, cuboids, capsules) and the jointed stack on
+    the grid broadphase at W=4 distinct worlds: each of GRID_SMALL_TICKS
+    card ticks held against the same tick on the CPU from the card's state
+    (card_vs_cpu_steps); K4a and K4b launched grid_launches(t) times a
+    tick, no other kernel."""
+    from fyrox_tpu_torch.physics import world as phys_mod
+    lib = port_lib()
+    for label, pb in (("pile", grid_pile(lib, n=64)),
+                      ("jointed stack", jointed_stack(lib))):
+        t = pb.build(broadphase="grid")
+        cpu = jitter(phys_mod.init_physics_state(pb, t, 4, device="cpu"), t,
+                     "cpu", seed=6)
+        reset_all_launches()
+        dp, dv, live = card_vs_cpu_steps(
+            f"grid-small {label}", t, cpu, GRID_SMALL_TICKS,
+            lambda s: phys_mod.step_physics(s, t, 1.0 / 60.0))
+        g, sc = grid_launches(t)
+        want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                    plane_gather=g * GRID_SMALL_TICKS,
+                    plane_scatter=sc * GRID_SMALL_TICKS)
+        n = all_launches()
+        if n != want:
+            fail(f"grid-small {label}: launches {n}, want {want}")
+        log(f"[grid-small] {label} ({t.num_colliders} colliders, caps "
+            f"{t.grid.caps}, "
+            f"{0 if t.joints is None else t.joints.num_joints} joints): card "
+            f"== CPU on each of {GRID_SMALL_TICKS} ticks from the card's "
+            f"state (W=4 distinct worlds, {live} live pairs): worst dp "
+            f"{dp:.3g} (bound 5e-4), dv {dv:.3g} (bound 5e-3); K4a {g} and "
+            f"K4b {sc} launches a tick")
+
+
+def grid_demand(t, physics):
+    """The grid's demand against every cap and window on `physics`:
+    broadphase_stats (pairs a class against its cap, pairs a body against
+    windows_body) and the walk (candidates in a collider's nine ranges
+    against the window). Returns (stats, walk max, colliders past the
+    window summed over the worlds, a text line)."""
+    from fyrox_tpu_torch.physics import broadphase as bp_mod
+    from fyrox_tpu_torch.physics import world as phys_mod
+    stats = bp_mod.broadphase_stats(t, physics)
+    amin, amax, _, _ = phys_mod.grid_aabbs(physics, t)
+    col_body = np.asarray(t.col_body)
+    _, walk = bp_mod.grid_candidates(
+        t.grid, col_body, np.asarray(t.body_type)[col_body] == 0, amin,
+        amax, return_demand=True)
+    walk_max, over = int(walk.max()), int((walk > t.grid.window).sum())
+    parts = [f"walk {walk_max} of window {t.grid.window} ({over} collider "
+             f"walks past it, their extra candidates dropped)"]
+    for cls, d in stats.items():
+        if d["cap"] == 0:
+            continue
+        parts.append(
+            f"class {cls}: {d['needed']} pairs of cap {d['cap']}"
+            f"{' (DROPS)' if d['needed'] > d['cap'] else ''}, "
+            f"{d['max_pairs_per_body']} a body of window "
+            f"{d['window_body']}"
+            f"{' (DROPS)' if d['max_pairs_per_body'] > d['window_body'] else ''}")
+    return stats, walk_max, over, "; ".join(parts)
+
+
+def grid_stages(engine, state, reps=2):
+    """Device ms and device events (profiler) of the grid tick's stages
+    from `state`, per call over `reps` calls after a warm-up: the whole
+    eager tick, its physics step, the broadphase + narrowphase
+    (world.grid_contacts) and the candidate walk and compaction alone
+    (grid_aabbs + grid_candidates); the narrowphase, the solve and the
+    rest of the tick are the differences."""
+    from fyrox_tpu_torch.physics import broadphase as bp_mod
+    from fyrox_tpu_torch.physics import world as phys_mod
+    t, dt = engine.physics, engine.dt
+    col_body = np.asarray(t.col_body)
+    dyn = np.asarray(t.body_type)[col_body] == 0
+
+    def candidates():
+        amin, amax, _, _ = phys_mod.grid_aabbs(state.physics, t)
+        return bp_mod.grid_candidates(t.grid, col_body, dyn, amin, amax)
+
+    fns = dict(tick=lambda: engine.step(state),
+               physics=lambda: phys_mod.step_physics(state.physics, t, dt),
+               contacts=lambda: phys_mod.grid_contacts(state.physics, t),
+               candidates=candidates)
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        _, events, dev = profiled(lambda: [fn() for _ in range(reps)], reps)
+        out[name] = (dev, events)
+    out["narrowphase"] = tuple(a - b for a, b in zip(out["contacts"],
+                                                     out["candidates"]))
+    out["solve"] = tuple(a - b for a, b in zip(out["physics"],
+                                               out["contacts"]))
+    out["rest"] = tuple(a - b for a, b in zip(out["tick"], out["physics"]))
+    return out
+
+
+def phase_grid(engine, skin):
+    """The grid flagship (grid_engine), W distinct worlds: TICKS eager ticks
+    with the launches counted (K4a and K4b grid_launches(t) a tick, no
+    other kernel); the demand against every cap and window, printed with
+    its drops; TICKS replayed ticks equal them bit for bit; a replayed
+    roll's kernels, device events and device ms (profiler); env·steps/s
+    with skinning of eager and captured rolls; the device time of the
+    tick's stages (grid_stages); the peak memory of a tick. Returns (eager
+    launches, the rolled state)."""
+    from fyrox_tpu_torch.animation import skinning
+    from fyrox_tpu_torch.physics.broadphase import GridConfig
+    t = engine.physics
+    if not isinstance(t.grid, GridConfig):
+        fail("grid: the flagship did not take the grid broadphase")
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=31)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    eager = state0
+    t0 = time.perf_counter()
+    for _ in range(TICKS):
+        eager = engine.step(eager)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / TICKS
+    n = all_launches()
+    g, sc = grid_launches(t)
+    want = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                plane_gather=g * TICKS, plane_scatter=sc * TICKS)
+    if n != want:
+        fail(f"grid: launches of {TICKS} eager ticks {n}, want {want}")
+    _, _, _, demand = grid_demand(t, eager.physics)
+    rolled = engine.rollout(state0, TICKS)
+    n_leaves = same_state("grid rollout", rolled, eager)
+    tick = engine.captured_tick(state0)
+    want_prof = dict(fused_bp=0, narrow_compact=0, solve_tgs=0,
+                     plane_gather=g * GRID_PROFILED,
+                     plane_scatter=sc * GRID_PROFILED)
+    kn, events, dev_ms = profiled(
+        lambda: engine.rollout(rolled, GRID_PROFILED), GRID_PROFILED)
+    if kn != want_prof:
+        fail(f"grid: kernels of a replayed roll {kn}, want {want_prof}")
+    rates = {}
+    for kind in ("eager", "rollout"):
+        def roll(st, kind=kind):
+            if kind == "rollout":
+                return engine.rollout(st, TICKS)
+            for _ in range(TICKS):
+                st = engine.step(st)
+            return st
+
+        st = roll(rolled)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = roll(st)
+        verts = skinning.skin_positions_dense(
+            skinning.bone_matrices(st.scene.globals_, skin), skin)
+        torch.cuda.synchronize()
+        rates[kind] = WORLDS * TICKS / (time.perf_counter() - t0)
+        check_state(st, verts, skin)
+    live = int((rolled.physics.warm_pair >= 0).sum())
+    if live == 0:
+        fail("grid: no live pair")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.step(rolled)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    stages = grid_stages(engine, rolled)
+    log(f"[grid] demand after {TICKS} ticks (W={WORLDS}): {demand}")
+    log(f"[grid] stages of an eager tick from the rolled state, device ms "
+        f"(profiler) / device events per call: " + ", ".join(
+            f"{k} {v[0]:.3f} / {v[1]:.0f}" for k, v in stages.items())
+        + f" on {CARD}")
+    log(f"[grid] grid flagship (100 bones, 50,000 vertices, {t.num_bodies - 1}"
+        f" bodies on broadphase=\"grid\": cell {t.grid.cell:.3f} m, caps "
+        f"{t.grid.caps}, windows {t.grid.window} / {t.grid.windows_body}), "
+        f"W={WORLDS}: {TICKS} eager ticks launch K4a {g} and K4b {sc} times a "
+        f"tick and no other kernel ({eager_ms:.3f} ms a tick); {TICKS} "
+        f"replayed ticks equal them bit for bit ({n_leaves} state tensors);"
+        f" replayed roll's kernels {kn} over {GRID_PROFILED} ticks; "
+        f"replayed tick: {events:.1f} device events, {dev_ms:.3f} ms of "
+        f"device time; env·steps/s with skinning ({TICKS} ticks): eager "
+        f"{rates['eager']:.1f}, rollout {rates['rollout']:.1f}; {live} "
+        f"live pairs; peak memory of an eager tick above the state "
+        f"{peak:.2f} GiB; capture {tick.capture_seconds:.3f} s, graph pool "
+        f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
+    return n, rolled
+
+
+def phase_grid_k4(engine, state):
+    """K4a and K4b on one grid flagship tick's calls (a rolled state, W
+    distinct worlds): the shapes each class segment gives them (idx [W,2P]
+    and [W,P], B body rows), then hold_k4's checks and timings. Returns
+    the plane_gather_grid and plane_scatter_grid records."""
+    gathers, scatters = capture_dense_calls(engine, state)
+    t = engine.physics
+    b = t.num_bodies
+    ng, ns = grid_launches(t)
+    if (len(gathers), len(scatters)) != (ng, ns):
+        fail(f"grid K4: {len(gathers)} gathers and {len(scatters)} scatters "
+             f"in a tick, want {ng} and {ns}")
+    caps = {c for c in t.grid.caps if c > 0}
+    for planes, idx in gathers:
+        if not (planes.shape[0] == WORLDS and planes.shape[2] == b
+                and idx.shape[0] == WORLDS and idx.shape[1] // 2 in caps):
+            fail(f"grid K4a: shapes {tuple(planes.shape)} x "
+                 f"{tuple(idx.shape)}")
+    for vals, idx, n in scatters:
+        if not (vals.shape[0] == WORLDS and n == b
+                and idx.shape[1] in caps and vals.shape[2] == idx.shape[1]):
+            fail(f"grid K4b: shapes {tuple(vals.shape)} → {n} rows")
+    return hold_k4("grid", gathers, scatters,
+                   f"idx [{WORLDS}, 2 x cap] / [{WORLDS}, cap] for caps "
+                   f"{sorted(caps)}, {b} body rows")
+
+
+# ---------------------------------------------------------------- brush
+BRUSH_RES = 257
+BRUSH_STAMPS = 16
+
+
+def chunked_scene(lib, res=65):
+    """A res x res hill map (64 m) split by add_chunked_terrain into 4 x 4
+    chunks, a directional light and a camera under it looking up (the
+    terrain mesh faces down, as the JAX package's does); lib: a namespace
+    with SceneBuilder and terrain."""
+    sb = lib.SceneBuilder()
+    terr = lib.terrain.Terrain(hills(res, 64.0), 64.0, 64.0,
+                               (-32.0, 0.0, -32.0))
+    pairs = lib.terrain.add_chunked_terrain(sb, terr, chunks=(4, 4),
+                                            lod_split=0.2, decimate=4)
+    sb.add_light("directional", rotation=(0.5, 0.0, 0.0, 0.866))
+    sb.add_camera("cam", position=(0.0, -6.0, -30.0),
+                  rotation=(-0.2, 0.0, 0.0, 0.98), z_near=0.1, z_far=100.0)
+    return pairs, sb.build()
+
+
+def phase_brush():
+    """apply_stroke in each mode (circle and transformed rectangle, a
+    BRUSH_STAMPS-stamp stroke on a BRUSH_RES² map) on the card against the
+    CPU, within 1e-5; add_chunked_terrain's scene (16 chunks, hi and lo
+    meshes switched by LOD groups) rendered on the card against the CPU
+    (W=2, 64²: 99.9 % of the colours within 1e-4, all within 2e-3)."""
+    import types
+    from fyrox_tpu_torch import render
+    from fyrox_tpu_torch.scene import SceneBuilder, brush, graph, init_state
+    from fyrox_tpu_torch.scene import terrain
+    rng = np.random.default_rng(17)
+    h = rng.normal(0, 1, (BRUSH_RES, BRUSH_RES)).astype(np.float32)
+    pts = np.cumsum(rng.uniform(0.5, 3.0, (BRUSH_STAMPS, 2)), 0) + 20.0
+    worst, ms = 0.0, {}
+    for mode in ("raise", "assign", "flatten", "smooth"):
+        for shape in ("circle", "rect"):
+            b = brush.Brush(shape=shape, radius=12.0, width=20.0, length=6.0,
+                            mode=mode, amount=1.5, value=-2.0,
+                            kernel_radius=3, hardness=0.3, alpha=0.8,
+                            transform=((0.8, -0.6), (0.6, 0.8)))
+            hc = torch.as_tensor(h)
+            hg = hc.cuda()
+            got = brush.apply_stroke(hg, b, pts, cell_size=0.5)
+            want = brush.apply_stroke(hc, b, pts, cell_size=0.5)
+            worst = max(worst, (got.cpu() - want).abs().max().item())
+            if (want - hc).abs().max().item() < 0.1:
+                fail(f"brush: the {mode} {shape} stroke changed nothing")
+            if shape == "circle":
+                ms[mode] = cuda_ms(lambda: brush.apply_stroke(
+                    hg, b, pts, cell_size=0.5), 5)
+    if worst > 1e-5:
+        fail(f"brush: apply_stroke card vs CPU {worst:.3g} (bound 1e-5)")
+    lib = types.SimpleNamespace(SceneBuilder=SceneBuilder, terrain=terrain)
+    pairs, t = chunked_scene(lib)
+    rt = render.build_render_template(t)
+    cfg = render.RenderConfig(width=64, height=64, shadows=False)
+    frames = []
+    for dev in ("cuda", "cpu"):
+        st = graph.update_hierarchical_data(init_state(t, 2, device=dev), t)
+        frames.append(render.render_frame(st, t, rt, cfg)[0].cpu())
+    d = (frames[0] - frames[1]).abs()
+    near = float((d <= 1e-4).float().mean())
+    lit = float((frames[1].sum(-1) > 0).float().mean())
+    if not (near >= 0.999 and d.max().item() <= 2e-3 and lit > 0.2):
+        fail(f"brush: the chunked terrain frame card vs CPU: {near:.4f} "
+             f"within 1e-4, max {d.max().item():.3g}, lit {lit:.3f}")
+    log(f"[brush] apply_stroke (raise, assign, flatten, smooth; circle and "
+        f"transformed rectangle; {BRUSH_STAMPS} stamps on {BRUSH_RES}²): "
+        f"card == CPU within {worst:.3g} (bound 1e-5); ms a stroke "
+        f"(circle): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; add_chunked_terrain: {len(pairs)} chunks, {len(t.meshes)} "
+        f"meshes, {len(rt.lod_obj)} LOD entries; its 64² frame (W=2) on "
+        f"the card == CPU for {near * 100:.2f} % of the colours within "
+        f"1e-4, max {d.max().item():.3g}; {lit * 100:.1f} % of the pixels "
+        f"lit on {CARD}")
+
+
 def main():
     phase_device()
     phase_build()
@@ -4377,6 +5017,19 @@ def main():
             [c for c in calls if not c[2]])
     del calls
     n_feat = phase_render_features(*feat)
+    del feat
+    phase_audio_small()
+    n_audio = phase_audio()
+    phase_bus_binaural()
+    phase_grid_small()
+    t0 = time.perf_counter()
+    engine, skin = grid_engine()
+    log(f"[setup] grid flagship templates built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_grid, rolled = phase_grid(engine, skin)
+    kg_grid, ks_grid = phase_grid_k4(engine, rolled)
+    del engine, skin, rolled
+    phase_brush()
     for k in (kbp, knc, k1):
         k["launches"] = n_fused[k["name"]]
     k4["launches"] = n_staged["plane_gather"]
@@ -4390,8 +5043,12 @@ def main():
     k1m["launches"] = n_many["solve_tgs"]
     kg_dense["launches"] = n_dense["plane_gather"]
     ks_dense["launches"] = n_dense["plane_scatter"]
+    kg_grid["launches"] = n_grid["plane_gather"]
+    ks_grid["launches"] = n_grid["plane_scatter"]
+    if n_audio["solve_tgs"] != TICKS:
+        fail(f"audio: K1 launches {n_audio}")
     records = [kbp, knc, k1, k4, k5f, k5d, k5fa, k5da, k1j, k4b, k1b, k1m,
-               kg_dense, ks_dense] + terrain_recs
+               kg_dense, ks_dense] + terrain_recs + [kg_grid, ks_grid]
     print(json.dumps({"kernels": records}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

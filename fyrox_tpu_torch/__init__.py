@@ -5,7 +5,10 @@ lives here as ``fyrox_tpu_torch/scene/graph.py``. It imports ``torch`` and
 numpy only — never ``jax`` and never ``fyrox_tpu`` — so it runs on a machine
 that has no JAX installed.
 
-Host-side templates (scene topology, physics layout, animation curves) are
+The package also carries the engine's audio (``sound/``: the mixer,
+Sound and Listener nodes, the bus graph and the binaural path;
+``Engine.render_audio``). Host-side templates (scene topology, physics
+layout, animation curves) are
 numpy, built by the port's own builders; per-world state is ``torch``
 tensors with a leading world axis ``W`` on an explicit device. The
 hand-written CUDA kernels (the physics step's, and the renderer's tile

@@ -25,7 +25,8 @@ from fyrox_tpu_torch.animation.skinning import SkinTemplate
 from fyrox_tpu_torch.animation.track import AnimationSet, AnimationState
 from fyrox_tpu_torch.core.curve import CurveSet
 from fyrox_tpu_torch.engine import AnimState, Engine, EngineState
-from fyrox_tpu_torch.physics.broadphase import SlabCandidates, SlabConfig
+from fyrox_tpu_torch.physics.broadphase import (GridConfig, SlabCandidates,
+                                                SlabConfig)
 from fyrox_tpu_torch.physics.convex import ConvexSet
 from fyrox_tpu_torch.physics.joints import JointSet
 from fyrox_tpu_torch.physics.world import PhysicsState, PhysicsTemplate
@@ -36,9 +37,11 @@ from fyrox_tpu_torch.render.texture import Material, Texture
 from fyrox_tpu_torch.scene.particles import ParticleState, ParticleTemplate
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
+from fyrox_tpu_torch.sound.engine import SourceState
 
 __all__ = ["scene_template", "texture", "material", "skybox",
-           "physics_template", "joint_set", "slab_config",
+           "physics_template", "joint_set", "slab_config", "grid_config",
+           "broadphase_config",
            "animation_set", "blend_space", "machine_template",
            "layered_machine", "root_motion", "particle_template",
            "skin_template", "engine", "engine_state", "physics_state",
@@ -99,7 +102,8 @@ def _mesh_data(m, memo) -> MeshData:
 def scene_template(t) -> SceneTemplate:
     """A JAX-package SceneTemplate → the port's: topology, payload
     routing, cameras, lights, meshes, sprites, decals, rectangles (their
-    textures converted) and LOD groups."""
+    textures converted), sound sources, listeners, sound buffers and LOD
+    groups."""
     names = ("parent", "node_type", "names", "levels", "depth", "payload",
              "init_position", "init_rotation", "init_scale",
              "init_visibility", "init_enabled", "init_lifetime",
@@ -107,11 +111,13 @@ def scene_template(t) -> SceneTemplate:
              "init_rotation_offset", "init_rotation_pivot",
              "init_scaling_offset", "init_scaling_pivot", "local_bbox_min",
              "local_bbox_max", "cameras", "lights", "sprites", "decals",
-             "rectangles")
+             "rectangles", "sounds", "listeners")
     out = _copy(t, SceneTemplate, names)
     memo = {}
     out.meshes = [_mesh_data(m, memo) for m in t.meshes]
     out.rect_textures = [texture(x, memo) for x in t.rect_textures]
+    out.sound_buffers = [np.asarray(b, np.float32)
+                         for b in getattr(t, "sound_buffers", None) or []]
     lod = (getattr(t, "extras", None) or {}).get("lod_groups")
     if lod:
         out.extras = {"lod_groups": [list(levels) for levels in lod]}
@@ -126,14 +132,24 @@ def render_template(rt) -> RenderTemplate:
 
 
 def slab_config(sc) -> SlabConfig:
-    if not hasattr(sc, "s_class"):
-        raise NotImplementedError(
-            f"{type(sc).__name__}: the torch port has the slab broadphase "
-            "only")
+    """A JAX-package SlabConfig → the port's (host fields)."""
     names = ("grid_cols", "big_cols", "cell", "s_class", "kinds", "cls_tab",
              "present", "sweep_cap", "num_colliders", "num_bodies", "s_walk",
              "s_active")
     return _copy(sc, SlabConfig, names)
+
+
+def grid_config(gc) -> GridConfig:
+    """A JAX-package GridConfig → the port's (host fields)."""
+    names = ("grid_cols", "big_cols", "cell", "window", "caps",
+             "windows_body", "cls_tab", "slot_i", "_kinds", "_kind_i",
+             "_num_colliders")
+    return GridConfig(**{n: getattr(gc, n) for n in names})
+
+
+def broadphase_config(cfg):
+    """A JAX-package SlabConfig or GridConfig → the port's."""
+    return slab_config(cfg) if hasattr(cfg, "s_class") else grid_config(cfg)
 
 
 def joint_set(j) -> JointSet:
@@ -144,9 +160,9 @@ def joint_set(j) -> JointSet:
 
 def physics_template(t) -> PhysicsTemplate:
     """A JAX-package PhysicsTemplate → the port's: a slab template with its
-    SlabConfig, a dense one with its pair list, kind ranges and compaction
-    width; joints, centre-of-mass offsets, convex hulls and heightfield /
-    trimesh scenery come along; the grid broadphase raises."""
+    SlabConfig, a grid one with its GridConfig, a dense one with its pair
+    list, kind ranges and compaction width; joints, centre-of-mass
+    offsets, convex hulls and heightfield / trimesh scenery come along."""
     names = ("body_node", "body_type", "inv_mass", "inv_inertia_local",
              "com_local", "lin_damping", "ang_damping", "gravity_scale",
              "col_body", "col_shape", "col_params", "col_pos", "col_rot",
@@ -160,7 +176,7 @@ def physics_template(t) -> PhysicsTemplate:
              "hf_heights", "hf_size", "col_hf", "tm_tris", "tm_mask",
              "col_tm")
     out = _copy(t, PhysicsTemplate, names)
-    out.grid = None if t.grid is None else slab_config(t.grid)
+    out.grid = None if t.grid is None else broadphase_config(t.grid)
     if getattr(t, "joints", None) is not None:
         out.joints = joint_set(t.joints)
     if getattr(t, "hulls", None) is not None:
@@ -286,10 +302,9 @@ def scene_state(s, device="cuda") -> WorldState:
 
 def engine_state(s, device="cuda") -> EngineState:
     """A JAX-package EngineState with numpy leaves → the port's state (on
-    the card unless `device` says otherwise); audio raises."""
+    the card unless `device` says otherwise), its audio mixer state
+    included."""
     device = resolve_device(device)
-    if s.audio is not None:
-        raise NotImplementedError("audio")
     scene = scene_state(s.scene, device)
     phys = None if s.physics is None else physics_state(s.physics, device)
     anim = None
@@ -304,8 +319,10 @@ def engine_state(s, device="cuda") -> EngineState:
                          rootmotion=opt(a.rootmotion, RootMotionState))
     parts = (None if s.particles is None
              else _tuple(s.particles, ParticleState, device))
+    audio = (None if s.audio is None
+             else _tuple(s.audio, SourceState, device))
     return EngineState(scene=scene, physics=phys, animation=anim,
-                       particles=parts)
+                       particles=parts, audio=audio)
 
 
 def to_numpy(x):

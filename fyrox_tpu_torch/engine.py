@@ -13,11 +13,13 @@
     5. hierarchy refresh so consumers see post-physics globals
     6. particle systems (ParticleSystem::update)
 
+A tick carries the audio state (the Sound nodes' mixer state) unchanged:
+its playheads advance per rendered block (``Engine.render_audio``), not
+per tick, the reference's audio-thread cadence.
+
 ``Engine.rollout`` runs N ticks; on the card it replays one captured CUDA
 graph of a tick (the JAX package's one ``lax.scan`` dispatch).
 ``world_health`` / ``restore_unhealthy`` find and reset diverged worlds.
-Audio (the JAX package's ``Engine.render_audio``) is not ported and
-raises.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from fyrox_tpu_torch.scene import graph as graph_mod
 from fyrox_tpu_torch.scene import particles as particles_mod
 from fyrox_tpu_torch.scene.state import WorldState, init_state
 from fyrox_tpu_torch.scene.template import SceneTemplate
+from fyrox_tpu_torch.sound import scene as sound_scene
+from fyrox_tpu_torch.sound.engine import DistanceModel
 
 __all__ = ["Engine", "EngineState", "AnimState", "DEFAULT_DT",
            "world_health", "restore_unhealthy"]
@@ -59,6 +63,8 @@ class EngineState(NamedTuple):
     physics: Optional[phys_mod.PhysicsState] = None
     animation: Optional[AnimState] = None
     particles: Optional[particles_mod.ParticleState] = None
+    # the Sound nodes' mixer state (sound.engine.SourceState, [W,S]);
+    # playheads advance per rendered block
     audio: Optional[NamedTuple] = None
 
 
@@ -118,8 +124,37 @@ class Engine:
         parts = (particles_mod.init_particles(self.particles, num_worlds,
                                               device)
                  if self.particles is not None else None)
+        at = self.audio_template()
+        audio = (sound_scene.init_audio_state(at, num_worlds, device)
+                 if at is not None else None)
         return EngineState(scene=scene, physics=phys, animation=anim,
-                           particles=parts)
+                           particles=parts, audio=audio)
+
+    def audio_template(self):
+        """The packed Sound / Listener layout (sound.scene.AudioTemplate),
+        built once; None where the scene has no Sound node."""
+        if not hasattr(self, "_audio_template"):
+            self._audio_template = sound_scene.build_audio_template(
+                self.template)
+        return self._audio_template
+
+    def render_audio(self, state: EngineState, block_len: int = 513,
+                     distance_model=None):
+        """Mix one stereo block per world from the CURRENT scene state
+        (scene/sound/mod.rs sync + fyrox-sound SoundContext::render).
+        Returns (block [W, block_len, 2], the state with advanced
+        playheads); the state given is not written. Runs outside a
+        captured tick: ``rollout`` carries the audio leaves unchanged."""
+        at = self.audio_template()
+        if at is None or state.audio is None:
+            raise ValueError("scene has no Sound nodes (SceneBuilder"
+                             ".add_sound): nothing to render")
+        dm = (DistanceModel.INVERSE if distance_model is None
+              else distance_model)
+        block, audio = sound_scene.render_scene_audio(
+            at, state.audio, state.scene.globals_, block_len=block_len,
+            distance_model=dm)
+        return block, state._replace(audio=audio)
 
     def step(self, state: EngineState, machine_params=None,
              dt: Optional[float] = None, fused=True,
@@ -130,8 +165,6 @@ class Engine:
         dt = self.dt if dt is None else dt
         scene = state.scene
         anim = state.animation
-        if state.audio is not None:
-            raise NotImplementedError("audio")
 
         # ---- 1. animation ----
         rm_delta = None
@@ -186,7 +219,7 @@ class Engine:
         if parts is not None and self.particles is not None:
             parts = particles_mod.step_particles(parts, self.particles, dt)
         return EngineState(scene=scene, physics=phys, animation=anim,
-                           particles=parts)
+                           particles=parts, audio=state.audio)
 
     def _drive_root_body(self, phys, rm_delta, dt):
         """The character body's x and z velocity from the root delta
@@ -208,10 +241,10 @@ class Engine:
 
         CPU tensors take the plain loop. On the card, a template whose
         broadphase rebuilds every tick (period 1: the K3, K2, staged and
-        jointed routes; the dense broadphase) replays one captured CUDA graph of a tick
-        num_steps times; the graph is captured on first use and kept on
-        the engine per (device, W, machine-params shape, dt, fused,
-        bp_rank). A template with temporal broadphase reuse (period > 1)
+        jointed routes; the dense and grid broadphases) replays one
+        captured CUDA graph of a tick num_steps times; the graph is
+        captured on first use and kept on the engine per (device, W,
+        machine-params shape, dt, fused, bp_rank). A template with temporal broadphase reuse (period > 1)
         steps eagerly on the card: its rebuild-or-reuse decision is a host
         read of one scalar a tick, which a captured graph cannot hold.
         The caller's state is never written: a roll on the card returns
@@ -249,8 +282,10 @@ class Engine:
     def _capturable(self) -> bool:
         """Whether a tick holds no host read: every template but a slab
         one with temporal broadphase reuse (slab2.reuse_candidates). The
-        dense broadphase has no reuse and always captures."""
-        return (self.physics is None or self.physics.grid is None
+        dense and grid broadphases have no reuse and always capture."""
+        from fyrox_tpu_torch.physics.broadphase import SlabConfig
+        return (self.physics is None
+                or not isinstance(self.physics.grid, SlabConfig)
                 or int(getattr(self.physics, "broadphase_period", 1)
                        or 1) == 1)
 

@@ -7,7 +7,8 @@ as the JAX package's default does; ``n_bodies=1000`` is the bench
 configuration (100 bones / 50k vertices / 1000 bodies) on the slab
 broadphase, which every pile of 192 bodies or more takes. With
 ``real_asset`` the character is an imported FBX (``models.assets``
-writes one) on the plain AnimationPlayer.
+writes one) on the plain AnimationPlayer; ``with_audio`` adds a sound
+source on the character and a listener on the camera.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from fyrox_tpu_torch.physics import (BALL, CUBOID, HALFSPACE, BodyType,
 from fyrox_tpu_torch.scene import NodeType, SceneBuilder
 from fyrox_tpu_torch.scene import graph as graph_mod
 from fyrox_tpu_torch.scene import init_state
+from fyrox_tpu_torch.sound.engine import SAMPLE_RATE
 
 __all__ = ["build_flagship", "build_character_scene", "build_pile_scene",
            "assemble_flagship"]
@@ -128,7 +130,7 @@ def build_pile_scene(sb: SceneBuilder, n_bodies=64, seed=1):
 
 def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
                    max_active_pairs=None, seed=0, broadphase_period=1,
-                   real_asset=None):
+                   real_asset=None, with_audio=False):
     """Character + pile + camera. Returns (Engine, SkinTemplate).
 
     A pile of 192 bodies or more takes the slab broadphase;
@@ -142,7 +144,12 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
     → skin clusters → animation curves) and plays on the plain
     AnimationPlayer (no machine); n_bones, n_verts, max_active_pairs and
     broadphase_period are then unused, as in the JAX package.
-    ``models.assets.make_character_fbx()`` writes one."""
+    ``models.assets.make_character_fbx()`` writes one.
+
+    with_audio: a 160 Hz hum (a fifth of a second, looping) on the first
+    bone and a listener on the camera (scene/sound/mod.rs per-frame sync;
+    ``Engine.render_audio`` mixes it beside the ticks); unused with
+    real_asset, as in the JAX package."""
     if real_asset is not None:
         return _build_flagship_real(real_asset, n_bodies=n_bodies, seed=seed)
     sb, aset, mt, bones, skin_data = build_character_scene(
@@ -158,15 +165,23 @@ def build_flagship(n_bones=100, n_verts=50_000, n_bodies=64,
     else:
         pt = pb.build(max_active_pairs=max_active_pairs or 0,
                       broadphase="dense")
-    return assemble_flagship(sb, pt, aset, mt, bones, skin_data)
+    return assemble_flagship(sb, pt, aset, mt, bones, skin_data,
+                             with_audio=with_audio)
 
 
-def assemble_flagship(sb, pt, aset, mt, bones, skin_data):
-    """The flagship's tail: a camera, the scene template, the skin's
-    inverse bind poses from the initial hierarchy and the Engine. Returns
+def assemble_flagship(sb, pt, aset, mt, bones, skin_data, with_audio=False):
+    """The flagship's tail: a camera (with_audio: the listener on it and
+    the hum on the first bone), the scene template, the skin's inverse
+    bind poses from the initial hierarchy and the Engine. Returns
     (Engine, SkinTemplate)."""
     verts, idx4, w4 = skin_data
-    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    cam = sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    if with_audio:
+        t = np.arange(SAMPLE_RATE // 5) / SAMPLE_RATE
+        hum = (0.3 * np.sin(2 * np.pi * 160 * t)).astype(np.float32)
+        sb.add_listener("ears", parent=cam)
+        sb.add_sound(hum, name="character_hum", parent=bones[0],
+                     radius=1.0, max_distance=40.0)
     template = sb.build()
     st = graph_mod.update_hierarchical_data(
         init_state(template, 1, device="cpu"), template)

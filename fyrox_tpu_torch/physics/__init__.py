@@ -1,8 +1,9 @@
 """Physics layer: batched rigid bodies on the slab pipeline (fused route
 where the scene allows it, else staged; joints, centre-of-mass offsets,
-convex hulls and scenery take the staged route) or, under 192 colliders,
-the dense broadphase with its kind-grouped narrowphase and Jacobi TGS
-solver; ray and shape queries on either."""
+convex hulls and scenery take the staged route), under 192 colliders the
+dense broadphase with its kind-grouped narrowphase and Jacobi TGS solver,
+or on request the grid broadphase with its per-class narrowphase and
+directed TGS solver; ray and shape queries on each."""
 from fyrox_tpu_torch.physics import (broadphase, convex, dim2, fused_step,
                                      joints, narrowphase, np_planes,
                                      plane_ops, queries, scenery, shapes,

@@ -1,5 +1,10 @@
-"""Slab broadphase: hash-grid walk into static per-collider candidate
-windows (``fyrox_tpu.physics.broadphase`` slab path).
+"""Slab and grid broadphases: a hash-grid walk into static per-collider
+candidate windows (``fyrox_tpu.physics.broadphase`` slab path), or into a
+global per-class compaction (its grid path, ``grid_candidates``: the
+walk's survivors compact into ``GridConfig.caps[c]`` directed pairs a
+world, the first in slot order kept and the rest dropped).
+
+The slab path:
 
 1. quantize each grid collider's fat-AABB min corner to coarse x/y cells
    and a fine z grid, pack (x, y, z) into one int key and order the
@@ -35,7 +40,9 @@ from fyrox_tpu_torch.physics.plane_ops import (gather_rows, rank_rows,
 
 __all__ = ["CLASS_NPTS", "KIND_POINTS", "pair_class_table", "SlabConfig",
            "build_slab_config", "SlabCandidates", "class_windows",
-           "slab_candidates", "compact_slots", "RANKS"]
+           "slab_candidates", "compact_slots", "RANKS", "GridConfig",
+           "build_grid_config", "CandidateSet", "grid_candidates",
+           "broadphase_stats"]
 
 RANKS = ("sort", "count")
 
@@ -448,4 +455,274 @@ def slab_candidates(sc: SlabConfig, col_body, dyn_col, amin, amax,
                                   swap=swap, pid=pid))
     if return_demand:
         return out, demand
+    return out
+
+
+# --------------------------------------------------------------------------
+# grid broadphase: hash-grid walk + global per-class stream compaction
+# (fyrox_tpu/physics/broadphase.py:93-330)
+# --------------------------------------------------------------------------
+
+@dataclass
+class GridConfig:
+    """Host-side static layout of the grid broadphase (hangs off
+    PhysicsTemplate.grid): every grid collider walks a window of `window`
+    candidate slots, plus one slot per big collider; the survivors of each
+    manifold class compact into `caps[c]` directed pairs a world."""
+    grid_cols: np.ndarray          # [Cg] collider indices in the grid
+    big_cols: np.ndarray           # [Nbig] oversized / unbounded colliders
+    cell: float                    # grid cell size
+    window: int                    # S: neighbour candidate slots a collider
+    caps: Tuple[int, int, int]     # compaction width per manifold class
+    windows_body: Tuple[int, int, int]   # Mw: max pairs a body per class
+    cls_tab: np.ndarray            # [9,9] manifold class per kind pair
+    slot_i: np.ndarray = None      # [Cg*(S+Nbig)] scanning collider a slot
+    _kinds: np.ndarray = None      # [C] effective kind
+    _kind_i: np.ndarray = None     # [Cg*(S+Nbig)]
+    _num_colliders: int = 0
+
+    @property
+    def n_slots(self):
+        return int(self.slot_i.shape[0])
+
+
+def build_grid_config(col_shape, col_params, col_body, body_type,
+                      margin, window=48, caps=None, windows_body=None,
+                      big_factor=8.0):
+    """Cell size, big colliders and the static slot map; None where no
+    collider is grid-eligible. Halfspaces, hulls and scenery are big (and
+    must be static): the grid step runs no hull routine."""
+    nc = int(col_shape.shape[0])
+    if nc == 0:
+        return None
+    bound = np.zeros(nc, np.float64)
+    for i in range(nc):
+        t = int(col_shape[i])
+        p = np.asarray(col_params[i], np.float64)
+        if t == sh.BALL:
+            bound[i] = p[0]
+        elif t == sh.CUBOID:
+            bound[i] = float(np.linalg.norm(p[:3]))
+        elif t in (sh.CAPSULE, sh.CYLINDER, sh.CONE):
+            bound[i] = p[0] + p[1]
+        else:                       # halfspace, hulls and scenery
+            bound[i] = np.inf
+    finite = np.isfinite(bound)
+    med = np.median(bound[finite]) if finite.any() else 1.0
+    big = ~finite | (bound > big_factor * max(med, 1e-6))
+    dyn = body_type[col_body] == 0
+    if np.any(big & dyn):
+        raise ValueError("dynamic colliders cannot be broadphase-big "
+                         "(unbounded or oversized shapes must be static)")
+    grid_cols = np.flatnonzero(~big).astype(np.int32)
+    big_cols = np.flatnonzero(big).astype(np.int32)
+    if grid_cols.size == 0:
+        return None
+    cell = float(2.0 * bound[grid_cols].max() + 2.0 * margin)
+    cls_tab = pair_class_table()
+    kinds = np.asarray([_eff_kind(int(k)) for k in col_shape], np.int32)
+    present = np.zeros(3, bool)
+    for ka in np.unique(kinds[grid_cols]):
+        for kb in np.unique(kinds):
+            present[cls_tab[ka, kb]] = True
+    if caps is None:
+        # ~12 directed grid partners a collider plus the big-pair slots,
+        # split across the classes that can occur
+        cg = int(grid_cols.size)
+        base = 12 * cg + 4 * cg * big_cols.size
+        npresent = max(int(present.sum()), 1)
+        caps = tuple(-(-base // npresent) if present[c] else 0
+                     for c in range(3))
+    else:
+        caps = tuple(int(c) if present[k] else 0 for k, c in enumerate(caps))
+    if windows_body is None:
+        windows_body = (48, 16, 32)
+    nslot = window + big_cols.size
+    slot_i = np.repeat(grid_cols, nslot)
+    return GridConfig(grid_cols=grid_cols, big_cols=big_cols, cell=cell,
+                      window=int(window), caps=tuple(int(c) for c in caps),
+                      windows_body=tuple(int(m) for m in windows_body),
+                      cls_tab=cls_tab, slot_i=slot_i, _kinds=kinds,
+                      _kind_i=kinds[slot_i], _num_colliders=nc)
+
+
+class CandidateSet(NamedTuple):
+    """One manifold class's compacted directed pair list [W,P]."""
+    ia: torch.Tensor       # scanning collider (ascending within a row)
+    ib: torch.Tensor       # partner collider
+    valid: torch.Tensor    # bool
+    pid: torch.Tensor      # int32 ia*C+ib (warm-start identity), -1 invalid
+
+
+def _grid_statics(gb: GridConfig, col_body, dyn_col):
+    """Per-config host tables, cached on the config."""
+    st = getattr(gb, "_torch_statics", None)
+    if st is None:
+        i_static = gb.slot_i.astype(np.int64)
+        st = dict(
+            cell=np.float32(gb.cell), zfine=np.float32(gb.cell / _ZFINE),
+            gcols=gb.grid_cols.astype(np.int64),
+            i_static=i_static, i_static32=gb.slot_i.astype(np.int32),
+            body_i=col_body[i_static].astype(np.int32),
+            dyn_i=dyn_col[i_static].astype(bool),
+            col_body=col_body.astype(np.int32),
+            dyn_col=dyn_col.astype(bool),
+            big_cols=gb.big_cols.astype(np.int64),
+            kind_i=gb._kind_i.astype(np.int64),
+            kinds=gb._kinds.astype(np.int64),
+            cls_tab=gb.cls_tab.astype(np.int32),
+            m=np.arange(gb.window, dtype=np.int64))
+        st["targets"] = [np.arange(1, cap + 1, dtype=np.int64)
+                         for cap in gb.caps]
+        gb._torch_statics = st
+    return st
+
+
+def grid_candidates(gb: GridConfig, col_body, dyn_col, amin, amax,
+                    return_demand=False) -> List[CandidateSet]:
+    """Directed candidate pairs per manifold class.
+
+    col_body [C] and dyn_col [C] are host arrays; amin / amax [W,C,3] fat
+    world AABBs. Returns one CandidateSet per class (a cap of zero gives
+    an empty set); with return_demand also the walk's demand [W,Cg] (the
+    candidates in each collider's nine ranges, of which `window` fit)."""
+    col_body = np.asarray(col_body)
+    dyn_col = np.asarray(dyn_col)
+    st = _grid_statics(gb, col_body, dyn_col)
+    dev = amin.device
+    w = amin.shape[0]
+    cg = int(gb.grid_cols.size)
+    s_grid = gb.window
+    nbig = int(gb.big_cols.size)
+    gcols = const(st["gcols"], dev)
+    cell = const(st["cell"], dev)
+    zfine = const(st["zfine"], dev)
+
+    gmin = amin[:, gcols]
+    gmax = amax[:, gcols]
+    qx = _floor_i32(gmin[..., 0] / cell)                        # [W,Cg]
+    qy = _floor_i32(gmin[..., 1] / cell)
+    qz = _floor_i32(gmin[..., 2] / zfine)
+    key = _pack_xyz(qx, qy, qz)
+    order = torch.argsort(key, dim=1, stable=True)
+    skey = torch.gather(key, 1, order)
+
+    # nine (dx, dy) column ranges over the exact z-interval: a z-overlapping
+    # partner j is registered at min_j in [min_i - cell, max_i]
+    qz_lo = _floor_i32((gmin[..., 2] - gb.cell) / zfine)
+    qz_hi = _floor_i32(gmax[..., 2] / zfine)
+    q_lo, q_hi = [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            q_lo.append(_pack_xyz(qx + dx, qy + dy, qz_lo))
+            q_hi.append(_pack_xyz(qx + dx, qy + dy, qz_hi))
+    lo9 = torch.searchsorted(skey, torch.stack(q_lo, -1).reshape(w, -1)
+                             ).reshape(w, cg, 9)
+    hi9 = torch.searchsorted(skey, torch.stack(q_hi, -1).reshape(w, -1),
+                             right=True).reshape(w, cg, 9)
+    cnt9 = hi9 - lo9
+    pfx9 = torch.cumsum(cnt9, dim=-1)            # inclusive prefix
+    pfx_ex = pfx9 - cnt9
+    total = pfx9[..., -1]                        # [W,Cg]
+
+    # the window walk: slot m lies in the range r with pfx_ex[r] <= m <
+    # pfx9[r], the first r whose inclusive prefix passes m (a search over
+    # the 9 prefixes in place of the JAX package's [W,Cg,S,9] mask: the
+    # same integers); slots past the demand read position 0
+    m = const(st["m"], dev).expand(w, cg, s_grid).contiguous()
+    r = torch.clamp(torch.searchsorted(pfx9.contiguous(), m, right=True),
+                    max=8)
+    pos = torch.gather(lo9, 2, r) + m - torch.gather(pfx_ex, 2, r)
+    in_window = m < torch.clamp(total, max=s_grid)[..., None]
+    pos = torch.clamp(torch.where(in_window, pos, torch.zeros_like(pos)),
+                      0, max(cg - 1, 0))
+    jg = torch.gather(order, 1, pos.reshape(w, -1))
+    j = gcols[jg].reshape(w, cg, s_grid)                        # collider
+    if nbig:
+        jbig = const(st["big_cols"], dev)[None, None].expand(w, cg, nbig)
+        j = torch.cat([j, jbig], dim=2)
+        in_window = torch.cat([in_window, torch.ones(
+            (w, cg, nbig), dtype=torch.bool, device=dev)], dim=2)
+    jf = j.reshape(w, -1)                                       # [W,slots]
+
+    i_static = const(st["i_static"], dev)
+    body_j = const(st["col_body"], dev)[jf]
+    dyn_j = const(st["dyn_col"], dev)[jf]
+    valid = (in_window.reshape(w, -1) & (jf != i_static[None])
+             & (body_j != const(st["body_i"], dev)[None])
+             & (const(st["dyn_i"], dev)[None] | dyn_j))
+    # fat-AABB overlap (i side static-indexed, j side gathered)
+    amin_i, amax_i = amin[:, i_static], amax[:, i_static]
+    rows = torch.arange(w, device=dev)[:, None]
+    amin_j, amax_j = amin[rows, jf], amax[rows, jf]
+    valid = valid & torch.all((amin_i <= amax_j) & (amax_i >= amin_j), -1)
+    sets = _compact_classes(gb, st, jf, valid, w)
+    if return_demand:
+        return sets, total
+    return sets
+
+
+def _compact_classes(gb: GridConfig, st, jf, valid, w):
+    """Split the candidate slots by manifold class and stream-compact each
+    into its cap: the first `cap` valid slots in slot order; the rest
+    drop."""
+    dev = jf.device
+    kind_j = const(st["kinds"], dev)[jf]                        # [W,slots]
+    cls = const(st["cls_tab"], dev)[const(st["kind_i"], dev)[None], kind_j]
+    i_static = const(st["i_static32"], dev)
+    c_total = int(gb._num_colliders)
+    n_slots = jf.shape[1]
+    out = []
+    for c, cap in enumerate(gb.caps):
+        if cap <= 0:
+            z = torch.zeros((w, 0), dtype=torch.int32, device=dev)
+            out.append(CandidateSet(z, z, torch.zeros(
+                (w, 0), dtype=torch.bool, device=dev), z))
+            continue
+        mask = valid & (cls == c)
+        csum = torch.cumsum(mask.to(torch.int32), dim=1)        # [W,slots]
+        targets = const(st["targets"][c], dev)[None].expand(w, cap)
+        pos = torch.searchsorted(csum, targets.contiguous())
+        sel_valid = targets <= csum[:, -1:]
+        pos = torch.clamp(pos, 0, n_slots - 1)
+        ia = i_static[pos]                                       # [W,cap]
+        ib = torch.gather(jf, 1, pos).to(torch.int32)
+        pid = torch.where(sel_valid, ia * c_total + ib,
+                          torch.full_like(ia, -1))
+        out.append(CandidateSet(ia=ia, ib=ib, valid=sel_valid, pid=pid))
+    return out
+
+
+def broadphase_stats(t, state):
+    """Diagnostic: per-class candidate demand of the CURRENT state of a
+    grid template (fyrox_tpu's broadphase_stats): per manifold class the
+    pairs needed (max over worlds) against the configured cap, and the
+    most pairs a body holds against windows_body. Overflow drops contacts
+    without a word; size the caps and windows from this."""
+    from fyrox_tpu_torch.physics import world as wm
+    gb = t.grid
+    dev = state.position.device
+    cpos, crot = wm._collider_world(state, t)
+    ctype = const(t.col_shape, dev)
+    cparams = const(t.col_params, dev)
+    margin = t.allowed_linear_error + 0.05
+    he = sh.shape_aabb_half_extents(ctype[None], cparams[None], crot) + margin
+    amin, amax = cpos - he, cpos + he
+    col_body = np.asarray(t.col_body)
+    dyn_col = np.asarray(t.body_type)[col_body] == 0
+    sets = grid_candidates(gb, col_body, dyn_col, amin, amax)
+    out = {}
+    b = int(np.asarray(t.body_type).shape[0])
+    for cls, cs in enumerate(sets):
+        if cs.ia.shape[1] == 0:
+            out[cls] = dict(needed=0, cap=gb.caps[cls])
+            continue
+        v = cs.valid.cpu().numpy()
+        bs = col_body[cs.ia.cpu().numpy()]
+        per_body = np.zeros((v.shape[0], b), np.int64)
+        for wi in range(v.shape[0]):
+            np.add.at(per_body[wi], bs[wi][v[wi]], 1)
+        out[cls] = dict(needed=int(v.sum(axis=1).max()), cap=gb.caps[cls],
+                        max_pairs_per_body=int(per_body.max()),
+                        window_body=gb.windows_body[cls])
     return out

@@ -1,5 +1,6 @@
-"""Contact generation (narrowphase) of the dense broadphase path, batched
-over candidate pairs: the port of ``fyrox_tpu/physics/narrowphase.py``.
+"""Contact generation (narrowphase) of the dense and grid broadphase
+paths, batched over candidate pairs: the port of
+``fyrox_tpu/physics/narrowphase.py``.
 
 Each pair routine takes pair-aligned collider world poses and params and
 emits a fixed 4-point manifold:
@@ -15,7 +16,9 @@ template's pair list is sorted by kind, so ``generate_contacts_flat`` runs
 each routine on its own contiguous slice and emits the compact layout
 (``KIND_POINTS`` slots a pair); compacted mode (``max_active_pairs`` > 0)
 has pairs of any kind in its slots and runs every routine on every slot,
-selecting by kind (``generate_contacts``).
+selecting by kind (``generate_contacts``); the grid broadphase's
+per-class pair lists run only their class's routines
+(``generate_contacts_class``).
 
 Convex hulls (CONVEX, and cylinders / cones with their registered 12-gon
 hulls) go through the SAT routines of physics/convex.py, and pairs with a
@@ -42,7 +45,8 @@ from fyrox_tpu_torch.physics import shapes as sh
 
 __all__ = ["Manifold", "generate_contacts", "generate_contacts_flat",
            "flat_contact_layout", "effective_kind", "KIND_POINTS",
-           "KIND_KERNELS", "CLASS_COMBOS_CONVEX", "convex_pair",
+           "KIND_KERNELS", "CLASS_COMBOS", "CLASS_COMBOS_CONVEX",
+           "generate_contacts_class", "convex_pair",
            "scenery_pair", "CHUNK_SLOTS"]
 
 _EPS = 1e-9
@@ -705,6 +709,41 @@ def _sel(cond, m_true: Manifold, m_false: Manifold) -> Manifold:
                     torch.where(c2, m_true.points, m_false.points),
                     torch.where(c1, m_true.depth, m_false.depth),
                     torch.where(c1, m_true.active, m_false.active))
+
+
+# primitive kind combos per manifold-size class (canonical effective
+# order); class 0 = 1 point, 1 = 2 points, 2 = 4 points (CLASS_NPTS)
+CLASS_COMBOS = {
+    0: [(sh.BALL, sh.BALL), (sh.BALL, sh.CUBOID), (sh.BALL, sh.CAPSULE),
+        (sh.BALL, sh.HALFSPACE), (sh.CAPSULE, sh.CAPSULE)],
+    1: [(sh.CUBOID, sh.CAPSULE), (sh.CAPSULE, sh.HALFSPACE)],
+    2: [(sh.CUBOID, sh.CUBOID), (sh.CUBOID, sh.HALFSPACE)],
+}
+
+
+def generate_contacts_class(cls, type_a, params_a, pos_a, rot_a,
+                            type_b, params_b, pos_b, rot_b, pred):
+    """Manifolds of canonically ordered pairs known to lie in one
+    manifold-size class (the grid broadphase compacts its candidates per
+    class): only that class's primitive routines run, each on every slot,
+    and the pair's effective kinds select. Inputs as generate_contacts;
+    the point axis is cut to the class's size. The grid step carries no
+    hull arrays, so hull and scenery pairs get no contact, as in the JAX
+    package's grid path."""
+    npts = {0: 1, 1: 2, 2: 4}[cls]
+
+    def eff(t):
+        return torch.where((t == sh.CYLINDER) | (t == sh.CONE), sh.CAPSULE, t)
+
+    eff_a, eff_b = eff(type_a), eff(type_b)
+    out = _empty_like(pos_a)
+    for ka, kb in CLASS_COMBOS[cls]:
+        m = KIND_KERNELS[(ka, kb)](params_a, pos_a, rot_a, params_b, pos_b,
+                                   rot_b, pred)
+        out = _sel((eff_a == ka) & (eff_b == kb), m, out)
+    return Manifold(normal=out.normal, points=out.points[..., :npts, :],
+                    depth=out.depth[..., :npts],
+                    active=out.active[..., :npts])
 
 
 def generate_contacts(type_a, params_a, pos_a, rot_a,

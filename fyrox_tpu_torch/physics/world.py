@@ -1,8 +1,9 @@
 """Batched rigid-body world: template, state, builder and the step head
 (PhysicsWorld::update, fyrox-impl scene/graph/physics/mod.rs:1151).
 
-Two broadphases, chosen at build time as the JAX package chooses them
-(``broadphase="auto"``: slab at 192 colliders or more, dense below):
+Three broadphases, chosen at build time as the JAX package chooses them
+(``broadphase="auto"``: slab at 192 colliders or more, dense below;
+``broadphase="grid"`` on request):
 
 - slab (``slab2.step_slab2``): hash-grid broadphase → plane narrowphase →
   per-collider compaction → TGS-soft solve, on the fused route
@@ -15,12 +16,18 @@ Two broadphases, chosen at build time as the JAX package chooses them
   (physics/narrowphase.py) into the compact contact layout, or with
   ``max_active_pairs`` > 0 a top-k compaction of the overlapping pairs,
   then the Jacobi TGS solver with its joint passes (physics/solver.py),
-  whose gathers and scatters run on K4a / K4b.
+  whose gathers and scatters run on K4a / K4b;
+- grid (``_step_grid``): the hash-grid walk with a global per-class
+  stream compaction (``broadphase.grid_candidates``) into directed pair
+  lists, the per-class narrowphase (``generate_contacts_class``) and the
+  directed TGS solve (``solver.solve_tgs_directed``), whose gathers run on
+  K4a and whose windowed segment sums run on K4b.
 
-Every collider kind of the JAX package's builder steps on both: balls,
-cuboids, capsules, cylinders, cones, halfspaces, convex hulls,
-heightfields and trimeshes (segments and triangles lower at build time).
-The grid broadphase raises NotImplementedError.
+Every collider kind of the JAX package's builder steps on the slab and
+dense paths: balls, cuboids, capsules, cylinders, cones, halfspaces,
+convex hulls, heightfields and trimeshes (segments and triangles lower at
+build time). On the grid path, as in the JAX package, hulls and scenery
+are static "big" colliders that get no contact (a dynamic hull raises).
 """
 from __future__ import annotations
 
@@ -36,7 +43,8 @@ from fyrox_tpu_torch.physics import shapes as sh
 from fyrox_tpu_torch.physics.joints import JointBuilder
 
 __all__ = ["BodyType", "PhysicsTemplate", "PhysicsBuilder", "PhysicsState",
-           "init_physics_state", "step_physics", "SPECULATIVE_MARGIN",
+           "init_physics_state", "step_physics", "dense_contacts",
+           "grid_aabbs", "grid_contacts", "SPECULATIVE_MARGIN",
            "PREDICTION_DISTANCE"]
 
 DYNAMIC, STATIC, KINEMATIC = 0, 1, 2
@@ -79,7 +87,8 @@ class PhysicsTemplate:
     lin_lock: np.ndarray = None    # [B,3] 1 = free, 0 = locked
     ang_lock: np.ndarray = None    # [B,3]
     max_active_pairs: int = 0      # dense compaction width (0 = all P)
-    grid: object = None            # broadphase.SlabConfig (None: dense)
+    # broadphase.SlabConfig or GridConfig (None: dense)
+    grid: object = None
     joints: object = None          # joints.JointSet (joint.rs:775)
     init_body_pos: np.ndarray = None
     init_body_rot: np.ndarray = None
@@ -164,12 +173,13 @@ class PhysicsState(NamedTuple):
     force: torch.Tensor        # [W,B,3]
     torque: torch.Tensor       # [W,B,3]
     # slab: [W,Cg*s_active] point slots; dense: [W,K] compact-layout
-    # slots (or [W,cap*4] compacted)
+    # slots (or [W,cap*4] compacted); grid: [W,Σ caps[c]·npts[c]], the
+    # classes' pair slots in turn
     warm_n: Optional[torch.Tensor] = None
     warm_t1: Optional[torch.Tensor] = None
     warm_t2: Optional[torch.Tensor] = None
     # slab: [W,Cg*s_active] point identity; dense: [W,P] pair id of each
-    # pair slot (or [W,cap]); int32
+    # pair slot (or [W,cap]); grid: [W,Σ caps] pair ids; int32
     warm_pair: Optional[torch.Tensor] = None
     # temporal broadphase reuse (broadphase_period > 1): (per-class
     # SlabCandidates, positions at the rebuild [W,B,3], coverage budgets
@@ -366,22 +376,25 @@ class PhysicsBuilder:
         return out
 
     def build(self, max_active_pairs=0, broadphase="auto",
+              grid_window=48, grid_caps=None, grid_windows_body=None,
               slab_window=(12, 8, 10), slab_active=16, slab_walk=48,
               broadphase_period=1, **solver_kw) -> PhysicsTemplate:
         """broadphase: "dense" = the static all-pairs candidate list
         (small scenes; max_active_pairs > 0 compacts the overlapping pairs
         into that many slots a step), "slab" = hash-grid into static
-        per-collider candidate windows (large collider counts), "auto"
-        picks slab at >= 192 colliders, as the JAX package does. The JAX
-        package's "grid" broadphase is not ported."""
+        per-collider candidate windows (large collider counts), "grid" =
+        hash-grid + global per-class stream compaction (grid_window walk
+        slots a collider, grid_caps pairs a class, grid_windows_body pairs
+        a body's sum takes; broadphase.build_grid_config's defaults where
+        None), "auto" picks slab at >= 192 colliders, as the JAX package
+        does."""
         nb = len(self._bodies)
         nc = len(self._colliders)
         if broadphase == "auto":
             broadphase = "slab" if nc >= 192 else "dense"
-        if broadphase not in ("slab", "dense"):
-            raise NotImplementedError(
-                f"broadphase={broadphase!r}: the torch port has the slab "
-                "and dense broadphases")
+        if broadphase not in ("slab", "dense", "grid"):
+            raise ValueError(f"broadphase={broadphase!r}: want auto, "
+                             "dense, slab or grid")
         inv_mass = np.zeros(nb, np.float32)
         inv_inertia = np.zeros((nb, 3, 3), np.float32)
         com = np.zeros((nb, 3), np.float32)
@@ -436,6 +449,13 @@ class PhysicsBuilder:
         if broadphase == "dense":
             pa, pb, kind_ranges = _dense_pairs(col_shape, col_body,
                                                body_type, col_hull)
+        elif broadphase == "grid" and nc:
+            from fyrox_tpu_torch.physics.broadphase import build_grid_config
+            margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
+            grid_cfg = build_grid_config(
+                col_shape, col_params, col_body, body_type, margin=margin,
+                window=grid_window, caps=grid_caps,
+                windows_body=grid_windows_body)
         elif nc:
             from fyrox_tpu_torch.physics.broadphase import build_slab_config
             margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
@@ -556,7 +576,12 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         pos, rot = builder_or_pose
     w, b = num_worlds, template.num_bodies
     f32 = torch.float32
-    if template.grid is not None:
+    if _is_grid(template):
+        from fyrox_tpu_torch.physics.broadphase import CLASS_NPTS
+        caps = template.grid.caps
+        kk = sum(c * n for c, n in zip(caps, CLASS_NPTS))
+        cap = sum(caps)
+    elif template.grid is not None:
         kk = cap = int(template.grid.grid_cols.size) * int(
             template.grid.s_active)
     else:
@@ -572,7 +597,7 @@ def init_physics_state(builder_or_pose, template: PhysicsTemplate,
         return torch.full(shape, fill, dtype=dtype, device=device)
 
     bp = {}
-    if (template.grid is not None
+    if (template.grid is not None and not _is_grid(template)
             and int(getattr(template, "broadphase_period", 1) or 1) > 1):
         from fyrox_tpu_torch.physics.broadphase import SlabCandidates
         sc = template.grid
@@ -605,13 +630,21 @@ def step_physics(state: PhysicsState, t: PhysicsTemplate, dt,
     it; fused=False keeps the staged path; bp_rank "sort" or "count" is
     how the slab broadphase orders its keys where it runs in PyTorch, the
     JAX package's FYROX_BP_RANK) or the dense path, which takes neither
-    option."""
+    option; so does the grid path."""
     accel, angvel = external_accelerations(state, t, dt)
     if t.grid is None:
         return _step_dense(state, t, dt, accel, angvel)
+    if _is_grid(t):
+        return _step_grid(state, t, dt, accel, angvel)
     from fyrox_tpu_torch.physics import slab2
     return slab2.step_slab2(state, t, dt, accel, angvel, fused=fused,
                             bp_rank=bp_rank)
+
+
+def _is_grid(t: PhysicsTemplate) -> bool:
+    """Whether the template takes the grid broadphase."""
+    from fyrox_tpu_torch.physics.broadphase import GridConfig
+    return isinstance(t.grid, GridConfig)
 
 
 def _collider_world(state: PhysicsState, t: PhysicsTemplate):
@@ -774,6 +807,135 @@ def _step_dense(state: PhysicsState, t: PhysicsTemplate, dt, accel,
                         torque=torch.zeros_like(state.torque),
                         warm_n=warm_n, warm_t1=warm_t1, warm_t2=warm_t2,
                         warm_pair=warm_pair)
+
+
+def grid_aabbs(state: PhysicsState, t: PhysicsTemplate):
+    """The grid step's fat AABBs [W,C,3] (amin, amax) and collider poses:
+    shape bounds plus the speculative margin (no CCD sweep, as the JAX
+    package's grid step), a halfspace's box its half-volume. Returns
+    (amin, amax, cpos, crot)."""
+    dev = state.position.device
+    cpos, crot = _collider_world(state, t)
+    ctype = const(t.col_shape, dev)
+    cparams = const(t.col_params, dev)
+    margin = t.allowed_linear_error + SPECULATIVE_MARGIN
+    he = sh.shape_aabb_half_extents(ctype[None], cparams[None], crot) + margin
+    amin, amax = cpos - he, cpos + he
+    is_hs = (ctype == sh.HALFSPACE)[None, :, None]
+    n_hs = crot[..., :, 1]
+    amax = torch.where(is_hs, cpos + sh._HUGE * (1.0 - n_hs) + margin, amax)
+    amin = torch.where(is_hs, cpos - sh._HUGE * (1.0 + n_hs) - margin, amin)
+    return amin, amax, cpos, crot
+
+
+def grid_contacts(state: PhysicsState, t: PhysicsTemplate):
+    """The grid step's broadphase and narrowphase
+    (fyrox_tpu/physics/world.py:1111-1192): directed candidate sets per
+    manifold class → each class's narrowphase on canonically ordered pairs
+    (twin slots compute the same manifold) → one solver.DirectedSeg a
+    class with a nonzero cap, and its warm start: the stored impulses of
+    the slots still holding the same pair id, from the class's slice of
+    the flat warm arrays. Returns (segs, warm per seg, pair ids per
+    seg)."""
+    from fyrox_tpu_torch._util import sqrt_rn, value_const
+    from fyrox_tpu_torch.physics import broadphase as bp_mod
+    from fyrox_tpu_torch.physics import narrowphase as np_mod
+    from fyrox_tpu_torch.physics import solver as solver_mod
+    w, b = state.position.shape[:2]
+    dev = state.position.device
+    dtype = state.position.dtype
+    gb = t.grid
+    amin, amax, cpos, crot = grid_aabbs(state, t)
+    col_body_np = np.asarray(t.col_body)
+    dyn_col = np.asarray(t.body_type)[col_body_np] == DYNAMIC
+    sets = bp_mod.grid_candidates(gb, col_body_np, dyn_col, amin, amax)
+    ctype = const(t.col_shape, dev)
+    cparams = const(t.col_params, dev)
+    kinds = const(gb._kinds, dev)
+    cb = const(t.col_body, dev)
+    fric = const(t.col_friction, dev)
+    rest = const(t.col_restitution, dev)
+    pred = value_const(t.allowed_linear_error + SPECULATIVE_MARGIN, dev)
+    rows = torch.arange(w, device=dev)[:, None]
+    segs, warm_in, pids = [], [], []
+    koff = poff = 0
+    for cls, cs in enumerate(sets):
+        cap = cs.ia.shape[1]
+        if cap == 0:
+            continue
+        npts = bp_mod.CLASS_NPTS[cls]
+        ia, ib, valid = cs.ia.long(), cs.ib.long(), cs.valid
+        ek_a, ek_b = kinds[ia], kinds[ib]
+        swap = (ek_a > ek_b) | ((ek_a == ek_b) & (ia > ib))
+        i_a = torch.where(swap, ib, ia)
+        i_b = torch.where(swap, ia, ib)
+        m = np_mod.generate_contacts_class(
+            cls, ctype[i_a], cparams[i_a], cpos[rows, i_a], crot[rows, i_a],
+            ctype[i_b], cparams[i_b], cpos[rows, i_b], crot[rows, i_b],
+            pred)
+        body_self = cb[ia]
+        segs.append(solver_mod.DirectedSeg(
+            body_a=cb[i_a], body_b=cb[i_b],
+            sigma=torch.where(swap, -1.0, 1.0).to(dtype),
+            body_self=body_self,
+            bounds=solver_mod.segment_bounds(body_self, b),
+            normal=m.normal, point=m.points, depth=m.depth,
+            active=m.active & valid[..., None],
+            friction=sqrt_rn(fric[ia] * fric[ib]),
+            restitution=torch.maximum(rest[ia], rest[ib]),
+            window=gb.windows_body[cls]))
+        same = (state.warm_pair[:, poff:poff + cap] == cs.pid) & valid
+        same_k = np_mod.repeat_slots(same, npts)
+        kk = cap * npts
+        warm_in.append(tuple(
+            (arr[:, koff:koff + kk] * same_k).reshape(w, cap, npts)
+            for arr in (state.warm_n, state.warm_t1, state.warm_t2)))
+        pids.append(cs.pid)
+        koff += kk
+        poff += cap
+    return segs, warm_in, pids
+
+
+def _step_grid(state: PhysicsState, t: PhysicsTemplate, dt, accel,
+               angvel) -> PhysicsState:
+    """The grid broadphase step (fyrox_tpu/physics/world.py:1111-1231):
+    grid_contacts, solve_tgs_directed, axis locks and damping, and the
+    flat warm bookkeeping. Holds no host read, so a CUDA graph captures
+    it."""
+    from fyrox_tpu_torch.physics import solver as solver_mod
+    w, b = state.position.shape[:2]
+    inv_mass = const(t.inv_mass, state.position.device)[None].expand(w, b)
+    segs, warm_in, pids = grid_contacts(state, t)
+    sp = solver_mod.SolverParams(
+        dt=dt, erp=t.erp, allowed_linear_error=t.allowed_linear_error,
+        max_corrective_velocity=t.max_corrective_velocity,
+        restitution_threshold=t.restitution_threshold,
+        n_substeps=t.n_substeps, n_pgs=t.n_pgs,
+        n_stabilization=t.n_stabilization,
+        warmstart_coefficient=t.warmstart_coefficient,
+        mass_split_pow=t.mass_split_pow)
+    position, rotation, linvel, angvel, lam_out = \
+        solver_mod.solve_tgs_directed(
+            state.position, state.rotation, state.linvel, angvel,
+            t.com_local, inv_mass, t.inv_inertia_local, accel, segs, sp,
+            warm=warm_in or None, joints=t.joints)
+    position, rotation, linvel, angvel = _apply_locks_damping(
+        state, t, dt, position, rotation, linvel, angvel)
+    if lam_out:
+        warm_n, warm_t1, warm_t2 = (
+            torch.cat([lam[i].reshape(w, -1) for lam in lam_out], 1)
+            for i in range(3))
+        warm_pair = torch.cat(pids, 1)
+    else:
+        warm_n, warm_t1, warm_t2 = state.warm_n, state.warm_t1, state.warm_t2
+        warm_pair = state.warm_pair
+    return PhysicsState(position=position, rotation=rotation,
+                        linvel=linvel, angvel=angvel,
+                        force=torch.zeros_like(state.force),
+                        torque=torch.zeros_like(state.torque),
+                        warm_n=warm_n, warm_t1=warm_t1, warm_t2=warm_t2,
+                        warm_pair=warm_pair, bp_cache=state.bp_cache,
+                        bp_age=state.bp_age)
 
 
 def _arange(t: PhysicsTemplate) -> np.ndarray:

@@ -2,7 +2,8 @@
 ``fyrox_tpu.scene.builder`` for the node kinds the port uses).
 
 Pivots, rigid-body nodes, cameras, lights, meshes, sprites, decals,
-rectangles and LOD groups are supported.
+rectangles, sound sources, listeners and LOD groups are supported, and
+``instantiate`` copies one builder's nodes into another.
 """
 from __future__ import annotations
 
@@ -47,6 +48,11 @@ class SceneBuilder:
         self._meshes: list = []
         self._sprites: dict = dict(node=[], size=[], color=[])
         self._decals: dict = dict(node=[], color=[], strength=[])
+        self._sounds: dict = dict(node=[], buffer=[], gain=[], pitch=[],
+                                  looping=[], playing=[], radius=[],
+                                  max_distance=[], rolloff=[])
+        self._sound_buffers: list = []
+        self._listeners: dict = dict(node=[])
         self._rects: dict = dict(node=[], color=[], uv_rect=[], texture=[])
         self._rect_textures: list = []
         self.extras: dict = {}
@@ -134,6 +140,40 @@ class SceneBuilder:
         d["strength"].append(float(strength))
         return idx
 
+    # -- sound source + listener (scene/sound/mod.rs, listener.rs) ----------
+    def add_sound(self, buffer, name="sound", parent=-1, gain=1.0,
+                  pitch=1.0, looping=True, playing=True, radius=1.0,
+                  max_distance=25.0, rolloff=1.0, **kw) -> int:
+        """Spatial sound source node (scene/sound/mod.rs): its world
+        position drives the mixer's source every rendered block
+        (Engine.render_audio). `buffer`: mono float32 samples, or the int
+        index of a buffer added before."""
+        idx = self.add_node(name, parent, NodeType.SOUND, **kw)
+        if not isinstance(buffer, (int, np.integer)):
+            self._sound_buffers.append(np.asarray(buffer, np.float32))
+            buffer = len(self._sound_buffers) - 1
+        self._nodes[idx].payload = len(self._sounds["node"])
+        s = self._sounds
+        s["node"].append(idx)
+        s["buffer"].append(int(buffer))
+        s["gain"].append(float(gain))
+        s["pitch"].append(float(pitch))
+        s["looping"].append(bool(looping))
+        s["playing"].append(bool(playing))
+        s["radius"].append(float(radius))
+        s["max_distance"].append(float(max_distance))
+        s["rolloff"].append(float(rolloff))
+        return idx
+
+    def add_listener(self, name="listener", parent=-1, **kw) -> int:
+        """Listener node (scene/sound/listener.rs): its global pose is the
+        mixer's ear position and orientation; the first listener wins, the
+        reference's single active listener."""
+        idx = self.add_node(name, parent, NodeType.LISTENER, **kw)
+        self._nodes[idx].payload = len(self._listeners["node"])
+        self._listeners["node"].append(idx)
+        return idx
+
     # -- Rectangle 2D (dim2/rectangle.rs) -----------------------------------
     def add_rectangle(self, name="rectangle", parent=-1,
                       color=(1.0, 1.0, 1.0), uv_rect=(0.0, 0.0, 1.0, 1.0),
@@ -181,6 +221,62 @@ class SceneBuilder:
         self._meshes.append(mesh_data)
         return idx
 
+    # -- prefab instantiation ---------------------------------------------
+    def instantiate(self, prefab: "SceneBuilder", parent=-1, position=None,
+                    rotation=None, scale=None, name_prefix="") -> int:
+        """Copy another builder's nodes into this scene with their handles
+        remapped (Model::instantiate, resource/model/mod.rs:354) under an
+        inserted pivot that takes the optional transform; returns the
+        pivot. Camera, light, mesh, sprite, sound, listener and rectangle
+        payloads are remapped (sound buffers and rectangle textures
+        too), as the JAX package's ``instantiate`` does."""
+        import copy
+        kw = {k: v for k, v in (("position", position),
+                                ("rotation", rotation), ("scale", scale))
+              if v is not None}
+        root = self.add_pivot(name_prefix + "instance", parent=parent, **kw)
+        offset = len(self._nodes)
+        payload_off = {
+            NodeType.CAMERA: len(self._cameras["node"]),
+            NodeType.POINT_LIGHT: len(self._lights["node"]),
+            NodeType.SPOT_LIGHT: len(self._lights["node"]),
+            NodeType.DIRECTIONAL_LIGHT: len(self._lights["node"]),
+            NodeType.MESH: len(self._meshes),
+            NodeType.SOUND: len(self._sounds["node"]),
+            NodeType.LISTENER: len(self._listeners["node"]),
+            NodeType.RECTANGLE: len(self._rects["node"])}
+        buf_off = len(self._sound_buffers)
+        rtex_off = len(self._rect_textures)
+        for rec in prefab._nodes:
+            rec2 = copy.deepcopy(rec)
+            rec2.name = name_prefix + rec2.name
+            rec2.parent = rec2.parent + offset if rec2.parent >= 0 else root
+            if rec2.payload >= 0:
+                rec2.payload += payload_off.get(rec2.node_type, 0)
+            self._nodes.append(rec2)
+
+        def extend(dst, src, remap=None):
+            for k in dst:
+                vals = list(src[k])
+                if k == "node":
+                    vals = [v + offset for v in vals]
+                elif remap is not None and k in remap:
+                    vals = [remap[k](v) for v in vals]
+                dst[k].extend(vals)
+
+        extend(self._cameras, prefab._cameras)
+        extend(self._lights, prefab._lights)
+        self._meshes.extend(prefab._meshes)
+        extend(self._sprites, prefab._sprites)
+        extend(self._sounds, prefab._sounds,
+               {"buffer": lambda v: v + buf_off})
+        self._sound_buffers.extend(prefab._sound_buffers)
+        extend(self._listeners, prefab._listeners)
+        extend(self._rects, prefab._rects,
+               {"texture": lambda v: v + rtex_off if v >= 0 else v})
+        self._rect_textures.extend(prefab._rect_textures)
+        return root
+
     def build(self) -> SceneTemplate:
         n = len(self._nodes)
         parent = np.array([r.parent for r in self._nodes], np.int32)
@@ -216,6 +312,10 @@ class SceneBuilder:
             meshes=list(self._meshes),
             sprites={k: np.asarray(v) for k, v in self._sprites.items()},
             decals={k: np.asarray(v) for k, v in self._decals.items()},
+            sounds={k: np.asarray(v) for k, v in self._sounds.items()},
+            listeners={k: np.asarray(v)
+                       for k, v in self._listeners.items()},
+            sound_buffers=list(self._sound_buffers),
             rectangles={k: np.asarray(v) for k, v in self._rects.items()},
             rect_textures=list(self._rect_textures),
             extras=dict(self.extras),

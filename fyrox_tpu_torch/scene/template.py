@@ -2,7 +2,7 @@
 
 Same layout as ``fyrox_tpu.scene.template`` (topology, node types, payload
 routing, initial local transforms, local bounding boxes, the render
-payloads), kept as numpy.
+and sound payloads), kept as numpy.
 The port carries its own copy because the JAX package cannot be imported
 on a machine without JAX; a CPU test holds the two equal.
 """
@@ -74,6 +74,12 @@ class SceneTemplate:
     meshes: list = field(default_factory=list)     # list of render.MeshData
     sprites: dict = field(default_factory=dict)    # SoA node, size, color
     decals: dict = field(default_factory=dict)     # SoA node, color, strength
+    # sound sources and listeners (scene/sound/mod.rs, listener.rs): the
+    # sources' static parameters; positions come from the node globals
+    # every rendered block (sound/scene.py)
+    sounds: dict = field(default_factory=dict)     # SoA of source params
+    listeners: dict = field(default_factory=dict)  # SoA (node)
+    sound_buffers: list = field(default_factory=list)  # mono f32 arrays
     # Rectangle 2D nodes (dim2/rectangle.rs): a coloured / textured unit
     # quad in the node's local XY plane
     rectangles: dict = field(default_factory=dict)  # SoA (node, color,

@@ -5,9 +5,11 @@ Terrain node, fyrox-impl/src/scene/terrain/, one chunk).
 A terrain steps in physics as a HEIGHTFIELD collider
 (``PhysicsBuilder.add_collider(..., shapes.HEIGHTFIELD, heights=...,
 size=...)``); this module samples the same heights for game code on the
-device of the query's tensors. Chunked terrain with per-chunk LOD
-(``add_chunked_terrain``) needs LOD groups, which the port's renderer
-does not have.
+device of the query's tensors. ``add_chunked_terrain`` splits a terrain
+into chunks with a full-resolution and a decimated mesh each, switched by
+the renderer's LOD groups (the reference's chunked height map with its
+per-chunk quadtree LOD); brush strokes that edit the heights are
+``scene.brush``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from fyrox_tpu_torch.render.mesh import MeshData
 
 __all__ = ["Terrain", "sample_height", "terrain_normal",
-           "terrain_ball_contacts"]
+           "terrain_ball_contacts", "add_chunked_terrain"]
 
 
 @dataclass
@@ -104,3 +106,41 @@ def terrain_ball_contacts(terrain: Terrain, centers, radii, pred=0.002):
     dist = torch.sum((centers - plane_pt) * n, -1)
     depth = radii - dist
     return -n, centers - n * dist[..., None], depth, depth > -pred
+
+
+def add_chunked_terrain(sb, terrain: Terrain, chunks=(2, 2), lod_split=0.25,
+                        decimate=4, parent=-1, albedo=(0.4, 0.5, 0.3)):
+    """Chunked terrain with per-chunk LOD (fyrox-impl scene/terrain/
+    :126-135 and quadtree.rs, through the renderer's LOD groups): the
+    heightmap splits into `chunks` tiles; each gets a full-resolution mesh
+    shown within `lod_split` of normalised camera distance and a
+    `decimate`-times coarser mesh beyond it. Host code on a SceneBuilder;
+    returns [(hi_node, lo_node)] a chunk."""
+    h = np.asarray(terrain.heights, np.float32)
+    hz, hx = h.shape
+    cx, cz = chunks
+    out = []
+    for jz in range(cz):
+        for jx in range(cx):
+            x0 = jx * (hx - 1) // cx
+            x1 = (jx + 1) * (hx - 1) // cx + 1
+            z0 = jz * (hz - 1) // cz
+            z1 = (jz + 1) * (hz - 1) // cz + 1
+            sub = h[z0:z1, x0:x1]
+            size_x = terrain.size_x * (x1 - 1 - x0) / (hx - 1)
+            size_z = terrain.size_z * (z1 - 1 - z0) / (hz - 1)
+            origin = (terrain.origin[0] + terrain.size_x * x0 / (hx - 1),
+                      terrain.origin[1],
+                      terrain.origin[2] + terrain.size_z * z0 / (hz - 1))
+            hi = Terrain(sub, size_x, size_z, origin)
+            lo = Terrain(sub[::decimate, ::decimate].copy()
+                         if min(sub.shape) > decimate else sub,
+                         size_x, size_z, origin)
+            n_hi = sb.add_mesh(hi.to_mesh(albedo),
+                               name=f"terrain_{jx}_{jz}_hi", parent=parent)
+            n_lo = sb.add_mesh(lo.to_mesh(albedo),
+                               name=f"terrain_{jx}_{jz}_lo", parent=parent)
+            sb.add_lod_group([(0.0, lod_split, [n_hi]),
+                              (lod_split, 1.0, [n_lo])])
+            out.append((n_hi, n_lo))
+    return out

@@ -265,6 +265,41 @@ def test_port_imports_and_builds_without_jax():
             assert fc.shape == (2, 32, 32, 3) and len(caps) == 12
         cc, _ = render.render_frames_chunked(fs, ft, frt, fcfg, world_chunk=1)
         assert cc.shape == fc.shape and tile_raster.launches("depth") == 0
+        import numpy as np
+        from fyrox_tpu_torch.core import color
+        from fyrox_tpu_torch.physics import (PhysicsBuilder, broadphase,
+                                             init_physics_state,
+                                             step_physics)
+        from fyrox_tpu_torch.scene import brush, terrain
+        from fyrox_tpu_torch.sound import binaural, bus
+        ae, _ = build_flagship(n_bones=4, n_verts=40, n_bodies=4,
+                               with_audio=True)
+        aus = ae.rollout(ae.init_state(2, device="cpu"), 2)
+        block, aus = ae.render_audio(aus, block_len=64)
+        assert block.shape == (2, 64, 2) and bool(aus.audio.playing.all())
+        gpb = PhysicsBuilder()
+        gpb.add_collider(gpb.add_body(body_type=1), 5, [])
+        for i in range(6):
+            gpb.add_collider(gpb.add_body(position=(0.3 * i, 1.0, 0.0)), 0,
+                             [0.2])
+        gt = gpb.build(broadphase="grid")
+        gs = init_physics_state(gpb, gt, 2, device="cpu")
+        gs = step_physics(step_physics(gs, gt, 1 / 60), gt, 1 / 60)
+        assert broadphase.broadphase_stats(gt, gs)[0]["cap"] > 0
+        g = bus.BusGraph.build([dict(parent=-1), dict(
+            parent=0, effects=[("reverb", 0.5)])])
+        out, _ = bus.process(g, torch.zeros(2, 8, 2),
+                             bus.init_state(g, device="cpu"))
+        assert out.shape == (8, 2)
+        assert binaural.render_block_binaural(
+            torch.ones(1, 32), torch.zeros(1), torch.ones(1),
+            block_len=32).shape == (32, 2)
+        assert color.to_rgba8(torch.ones(4)).tolist() == [255] * 4
+        assert brush.apply_stroke(torch.zeros(8, 8), brush.Brush(),
+                                  [(4.0, 4.0)]).max() > 0
+        assert len(terrain.add_chunked_terrain(
+            SceneBuilder(), terrain.Terrain(np.zeros((9, 9), np.float32)),
+            chunks=(2, 1))) == 2
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad
@@ -311,12 +346,12 @@ def test_out_of_scope_features_raise(case):
     """What the port does not run raises. Joints and centre-of-mass
     offsets run on the staged route, any number of joints (the "joint"
     case: 129 joints, past the TPU kernel's 128, step); still out of scope
-    are COM offsets on the fused kernels' own entry point and the JAX
-    package's grid broadphase. Every collider kind is in scope (the
-    "shape" case: a hull builds, and one without its points raises the
-    JAX package's ValueError). The slab cases ask for the slab
-    broadphase: this four-collider scene would take the dense one by
-    default."""
+    are COM offsets on the fused kernels' own entry point. The JAX
+    package's grid broadphase is ported (the "grid" case: the template
+    builds and steps). Every collider kind is in scope (the "shape" case:
+    a hull builds, and one without its points raises the JAX package's
+    ValueError). The slab cases ask for the slab broadphase: this
+    four-collider scene would take the dense one by default."""
     pb = PhysicsBuilder()
     g = pb.add_body(body_type=1)
     pb.add_collider(g, HALFSPACE, [])
@@ -333,6 +368,17 @@ def test_out_of_scope_features_raise(case):
         assert t.joints.num_joints == 129
         assert torch.isfinite(st.position).all()
         return
+    if case == "grid":
+        from fyrox_tpu_torch.physics.broadphase import GridConfig
+        t = pb.build(broadphase="grid")
+        st = init_physics_state(pb.initial_pose(), t, 2, device="cpu")
+        for _ in range(3):
+            st = step_physics(st, t, 1 / 60)
+        assert isinstance(t.grid, GridConfig)
+        assert st.warm_pair.shape == (2, sum(t.grid.caps))
+        assert torch.isfinite(st.position).all()
+        assert (st.position[:, 1:, 1] < 1.0).all()      # the bodies fall
+        return
     if case == "shape":
         pb.add_collider(g, 6, points=np.eye(3).tolist() + [[0, 0, 0]])
         with pytest.raises(ValueError):
@@ -345,8 +391,6 @@ def test_out_of_scope_features_raise(case):
             st = init_physics_state(pb.initial_pose(), t, 1, device="cpu")
             zero = torch.zeros_like(st.linvel)
             fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
-        elif case == "grid":
-            pb.build(broadphase="grid")
         else:
             pb.build(broadphase="slab")
 

@@ -871,3 +871,94 @@ def test_anim_breadth_on_the_card_matches_the_cpu(cuda):
     gather skinning, sprite sheets and particles, card against CPU."""
     import chip_smoke
     chip_smoke.phase_anim_small()
+
+
+# ---- the grid broadphase and the audio mixer ---------------------------------
+
+@pytest.mark.parametrize("scene", ["pile", "jointed"])
+def test_grid_rollout_replays_equal_eager_steps(cuda, scene):
+    """Engine.rollout on a grid template (chip_smoke's 64-body grid pile,
+    or its jointed stack, with scene nodes): 20 replays equal 20
+    Engine.step ticks bit for bit from 4 jittered worlds; the eager ticks
+    launch K4a and K4b chip_smoke.grid_launches(t) times each and no other
+    kernel; pairs live."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import Engine, _leaves
+    from fyrox_tpu_torch.scene import SceneBuilder
+    lib = chip_smoke.port_lib()
+    pb = (chip_smoke.grid_pile(lib, n=64) if scene == "pile"
+          else chip_smoke.jointed_stack(lib))
+    sb = SceneBuilder()
+    for body in pb._bodies:
+        if body["body_type"] == BodyType.DYNAMIC:
+            body["node"] = sb.add_node("b", node_type=7,
+                                       position=body["position"])
+    engine = Engine(template=sb.build(), physics=pb.build(broadphase="grid"))
+    state = chip_smoke.distinct_worlds(engine, 4, cuda, seed=2)
+    chip_smoke.reset_all_launches()
+    eager = state
+    for _ in range(20):
+        eager = engine.step(eager)
+    g, s = chip_smoke.grid_launches(engine.physics)
+    assert chip_smoke.all_launches() == dict(
+        fused_bp=0, narrow_compact=0, solve_tgs=0, plane_gather=20 * g,
+        plane_scatter=20 * s)
+    rolled = engine.rollout(state, 20)
+    assert len(engine._captured) == 1
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+    assert int((eager.physics.warm_pair >= 0).sum()) > 0
+
+
+def test_grid_k4_kernels_equal_plain(cuda):
+    """K4a and K4b on one tick's calls of a 300-body grid flagship (10-bone
+    character; 25 settling ticks, 8 distinct worlds): bit-equal to their
+    plain versions (the scatter's on CPU copies, which sums in ascending
+    k as the kernel does), rows past a body's window dropped by both."""
+    import chip_smoke
+    from fyrox_tpu_torch.models import character
+    sb, aset, mt, bones, skin = character.build_character_scene(
+        n_bones=10, n_verts=300)
+    pb, _ = character.build_pile_scene(sb, n_bodies=300, seed=1)
+    engine, _ = character.assemble_flagship(
+        sb, pb.build(broadphase="grid"), aset, mt, bones, skin)
+    state = chip_smoke.distinct_worlds(engine, 8, cuda, seed=5)
+    for _ in range(25):
+        state = engine.step(state)
+    gathers, scatters = chip_smoke.capture_dense_calls(engine, state)
+    assert (len(gathers), len(scatters)) == chip_smoke.grid_launches(
+        engine.physics)
+    for planes, idx in gathers:
+        assert torch.equal(plane_ops.plane_gather(planes, idx),
+                           plane_ops.plane_gather_plain(planes, idx))
+    assert any(bool((idx < 0).any()) for _, idx, _ in scatters)
+    for vals, idx, n in scatters:
+        assert n == engine.physics.num_bodies
+        assert torch.equal(plane_ops.plane_scatter(vals, idx, n).cpu(),
+                           plane_ops.plane_scatter_plain(vals.cpu(),
+                                                         idx.cpu(), n))
+
+
+def test_audio_flagship_replays_with_audio_leaves_carried(cuda):
+    """The small flagship with audio (chip_smoke.audio_worlds, W=4): 15
+    replays of Engine.rollout equal 15 Engine.step ticks bit for bit, the
+    audio leaves carried unchanged; render_audio after the roll on the
+    card equals it on the CPU from the same state within 1e-5."""
+    import chip_smoke
+    from fyrox_tpu_torch.engine import _leaves
+    engine, _ = build_flagship(**chip_smoke.AUDIO_SMALL, with_audio=True)
+    state = chip_smoke.audio_worlds(engine, 4, cuda, seed=3)
+    eager = state
+    for _ in range(15):
+        eager = engine.step(eager)
+    rolled = engine.rollout(state, 15)
+    for got, want in zip(_leaves(rolled), _leaves(eager)):
+        assert torch.equal(got, want)
+    for got, want in zip(rolled.audio, state.audio):
+        assert torch.equal(got, want)
+    block, _ = engine.render_audio(rolled, block_len=256)
+    cpu_block, _ = engine.render_audio(
+        convert.engine_state(convert.to_numpy(rolled), device="cpu"),
+        block_len=256)
+    assert (block.cpu() - cpu_block).abs().max() <= 1e-5
+    assert bool(torch.isfinite(block).all()) and block.abs().max() > 1e-3

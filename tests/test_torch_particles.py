@@ -278,11 +278,28 @@ def test_ticks_after_the_first_copy_nothing_from_the_host(engines):
 
 
 def test_audio_still_raises(engines):
-    """Audio (the JAX package's Engine.render_audio mixer) is not ported:
-    a state that carries it raises in the port's step and conversion."""
+    """Audio is ported (it raised before the port had the mixer): a JAX
+    state that carries a mixer state converts into the port's SourceState,
+    and the port's step carries it through unchanged while the rest of
+    the tick equals the tick without it."""
+    from fyrox_tpu.sound import engine as jsnd
+    from fyrox_tpu_torch.sound import engine as tsnd
     je, te, js, ts = engines
-    with pytest.raises(NotImplementedError):
-        te.step(ts._replace(audio=(torch.zeros(2),)))
-    jn = jax.tree_util.tree_map(np.asarray, js)
-    with pytest.raises(NotImplementedError):
-        convert.engine_state(jn._replace(audio=(np.zeros(2),)), device="cpu")
+    src = jsnd.init_sources([0, 0], [[1.0, 0.0, 0.0], [0.0, 2.0, 0.0]],
+                            pitch=1.5)
+    audio = jax.tree_util.tree_map(
+        lambda x: np.broadcast_to(np.asarray(x)[None],
+                                  (2,) + np.shape(x)).copy(), src)
+    jn = jax.tree_util.tree_map(np.asarray, js)._replace(audio=audio)
+    conv = convert.engine_state(jn, device="cpu")
+    assert isinstance(conv.audio, tsnd.SourceState)
+    for f in tsnd.SourceState._fields:
+        np.testing.assert_array_equal(getattr(conv.audio, f).numpy(),
+                                      getattr(audio, f), err_msg=f)
+    stepped = te.step(conv)
+    plain = te.step(ts)
+    for a, b in zip(stepped.audio, conv.audio):
+        assert torch.equal(a, b)
+    for a, b in zip(tengine._leaves(stepped._replace(audio=None)),
+                    tengine._leaves(plain)):
+        assert torch.equal(a, b)
