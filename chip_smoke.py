@@ -211,6 +211,25 @@ shafts and a skybox; W=16 at 256x256, caps FEATURES_CAPS):
              per frame by variant (homogeneous: full 1, depth 4; clipped:
              full_affine 1, depth_affine 1, depth 3), frames/s, and the
              profiler's device events, device ms and busy share.
+  render-captured — render.CapturedFrame (one CUDA graph a frame) on the
+             bench frame and the features frame in both raster modes, W
+             worlds: K5 counted at its warm-up and capture (2 x a frame's
+             launches), replays equal eager render_frame bit for bit
+             (colour and every G-buffer field) from that state and from
+             another; a replayed frame's device events, device ms and K5
+             launches by variant (profiler); frames/s of replays against
+             eager frames in turns; the capture's seconds and graph pool;
+             then the bench frame's graph freed and captured again while
+             the others live, every graph replaying bit-equal to eager, and
+             each graph owning a K5 scratch no other holds;
+  render-extras-small — the streaming rasterizer (both cull modes, near
+             clip), a probe capture with its irradiance, ambient, prefilter
+             and specular terms, post_process (bloom, LUT, FXAA) and SSAO,
+             card vs CPU on seeded inputs;
+  unbinned — slab and grid builds of scenes no collider of which can
+             enter their broadphase (a halfspace under bodies with no
+             collider, and no collider at all): the dense pairs, 20 ticks
+             card vs CPU.
 Then the audio mixer, the grid broadphase and the terrain brush:
   audio-small — the small flagship with audio (8 bones, 4 bodies, W=4,
              the character's root moved per world): 20 ticks each
@@ -4334,6 +4353,310 @@ def phase_render_features(t, rt, st, cfg):
     return out["clipped"]
 
 
+# ---------------------------------------------------------------- captured
+# render.CapturedFrame: one CUDA graph a frame. The K5 wrappers count the
+# capture's warm-up and capture; a replay's K5 launches come from the
+# profiler's kernel names.
+def same_frame(label, got, want):
+    """Fail unless two (colour, GBuffer) results are equal bit for bit;
+    returns the number of tensors held."""
+    a = [got[0], *got[1]]
+    b = [want[0], *want[1]]
+    bad = [i for i, (x, y) in enumerate(zip(a, b))
+           if (x is None) != (y is None)
+           or (x is not None and (x.shape != y.shape
+                                  or not torch.equal(x, y)))]
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(b)} outputs differ from eager "
+             f"render_frame (colour and GBuffer fields {bad})")
+    return sum(x is not None for x in b)
+
+
+def moved_state(st, seed):
+    """The state with every node's global translation moved by seeded
+    noise (±5 cm): another frame of the same shapes."""
+    noise = np.random.default_rng(seed).uniform(
+        -0.05, 0.05, tuple(st.globals_.shape[:2]) + (3,)).astype(np.float32)
+    g = st.globals_.clone()
+    g[..., :3, 3] += torch.as_tensor(noise, device=st.globals_.device)
+    return st._replace(globals_=g)
+
+
+def k5_profiled(events):
+    """K5 walk launches by variant name among profiler kernel events (the
+    template arguments <DEPTH_ONLY, AFFINE> of tile_raster_kernel), and
+    the plan kernel's launches."""
+    n = {k: 0 for k in ("full", "depth", "full_affine", "depth_affine",
+                        "plan")}
+    for e in events:
+        if "tile_raster_plan" in e.name:
+            n["plan"] += 1
+        elif "tile_raster_kernel<" in e.name:
+            args = e.name.split("tile_raster_kernel<", 1)[1].split(">")[0]
+            depth, affine = (a.strip() in ("true", "1", "(bool)1")
+                             for a in args.split(","))
+            n[("depth" if depth else "full")
+              + ("_affine" if affine else "")] += 1
+    return n
+
+
+def frame_launches(cfg, rt):
+    """K5 launches of one frame by variant, as the pipeline issues them."""
+    from fyrox_tpu_torch.render.lighting import DIRECTIONAL, POINT, SPOT
+    affine = cfg.raster_mode == "clipped"
+    kinds = set(int(k) for k in rt.light_kind)
+    maps = cfg.shadows * ((DIRECTIONAL in kinds)
+                          + (cfg.spot_shadows and SPOT in kinds)
+                          + (cfg.point_shadows and POINT in kinds))
+    n = dict(full=0, depth=maps, full_affine=0, depth_affine=0)
+    n["full_affine" if affine else "full"] += 1
+    if cfg.occlusion:
+        n["depth_affine" if affine else "depth"] += 1
+    return n
+
+
+def phase_render_captured(bench, feat):
+    """render.CapturedFrame on the bench frame and the features frame in
+    both raster modes at full width: counted launches, bit-equal replays,
+    the replayed frame's device events, device ms and K5 launches, frames/s
+    of replays against eager frames, capture seconds and pool bytes; then
+    a freed graph captured again. Returns K5's replayed launches a frame
+    by variant, per case."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from fyrox_tpu_torch.render import (CapturedFrame, render_frame,
+                                        tile_raster)
+    t_f, rt_f, st_f, cfg_f = feat
+    cases = [("bench", *bench),
+             ("features homogeneous", t_f, rt_f, st_f,
+              cfg_f._replace(raster_mode="homogeneous")),
+             ("features clipped", t_f, rt_f, st_f,
+              cfg_f._replace(raster_mode="clipped"))]
+    frames, replayed = {}, {}
+    for label, t, rt, st, cfg in cases:
+        frame = CapturedFrame(t, rt, cfg)
+        tile_raster.reset_launches()
+        got = frame(st)                              # warm-up + capture
+        torch.cuda.synchronize()
+        counted = dict(tile_raster._LAUNCHES)
+        per = frame_launches(cfg, rt)
+        if counted != {k: 2 * v for k, v in per.items()} or not any(
+                counted.values()):
+            fail(f"render-captured {label}: K5 counted {counted} at the "
+                 f"capture, want twice a frame's {per}")
+        n_out = same_frame(f"render-captured {label}", got,
+                           render_frame(st, t, rt, cfg))
+        other = moved_state(st, 5)
+        same_frame(f"render-captured {label}, another state", frame(other),
+                   render_frame(other, t, rt, cfg))
+        fg = frame.graph(st)
+        frame(st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(RENDER_PROFILED):
+                fg.graph.replay()
+            torch.cuda.synchronize()
+        events, busy_us = device_events(prof)
+        if not events:
+            fail(f"render-captured {label}: the profiler recorded no device "
+                 "events of a replay")
+        n = k5_profiled(events)
+        walk = {k: n[k] // RENDER_PROFILED for k in per}
+        if walk != per or any(n[k] % RENDER_PROFILED for k in per):
+            fail(f"render-captured {label}: K5 launches of "
+                 f"{RENDER_PROFILED} replays {n}, want {per} a frame")
+        replayed[label] = dict(walk, plan=n["plan"] / RENDER_PROFILED)
+        dev_ms = busy_us / 1e3 / RENDER_PROFILED
+        rates = {}
+        for kind in ("eager", "captured", "eager", "captured"):
+            fn = ((lambda: render_frame(st, t, rt, cfg)) if kind == "eager"
+                  else (lambda: frame(st)))
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RENDER_FRAMES):
+                fn()
+            torch.cuda.synchronize()
+            rates.setdefault(kind, []).append(
+                RENDER_WORLDS * RENDER_FRAMES / (time.perf_counter() - t0))
+        frame_ms = RENDER_WORLDS * 1e3 / max(rates["captured"])
+        log(f"[render-captured] {label}, W={RENDER_WORLDS}, "
+            f"{cfg.width}x{cfg.height}: replays equal eager render_frame bit "
+            f"for bit ({n_out} outputs, two states); K5 counted at the "
+            f"capture {counted}; a replayed frame: "
+            f"{len(events) / RENDER_PROFILED:.1f} device events, "
+            f"{dev_ms:.3f} ms of device time (busy share "
+            f"{dev_ms / frame_ms:.3f} of the fastest replayed frame, "
+            f"{frame_ms:.3f} ms with the copy-in and clone-out), K5 launches "
+            f"{replayed[label]}; frames/s (eager, captured, eager, captured) "
+            f"eager {', '.join(f'{r:.1f}' for r in rates['eager'])}, "
+            f"captured {', '.join(f'{r:.1f}' for r in rates['captured'])}; "
+            f"capture {fg.capture_seconds:.3f} s, graph pool "
+            f"{fg.pool_bytes / 2**20:.1f} MiB on {CARD}")
+        frames[label] = (frame, t, rt, st, cfg)
+    # free the bench frame's graph, capture it again while the features
+    # graphs live: each graph keeps a K5 scratch of its own, none of which
+    # the stream-keyed cache holds, and every graph replays as eager does
+    _, t, rt, st, cfg = frames["bench"]
+    del frames["bench"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    frames["bench again"] = (CapturedFrame(t, rt, cfg), t, rt, st, cfg)
+    frames["bench again"][0](st)
+    owned = []
+    for label, (frame, t, rt, st, cfg) in frames.items():
+        other = moved_state(st, 9)
+        same_frame(f"render-captured {label} after a recapture",
+                   frame(other), render_frame(other, t, rt, cfg))
+        fg = frame.graph(other)
+        if fg.scratch is not None:
+            owned.append(fg.scratch[0].data_ptr())
+    cached = {v[0].data_ptr() for v in tile_raster._SCRATCH.values()}
+    if len(set(owned)) != len(owned) or cached & set(owned) or not owned:
+        fail(f"render-captured: graphs' K5 scratch {owned} shared, or held "
+             f"by the stream cache {sorted(cached)}")
+    log(f"[render-captured] the bench graph freed and captured again: all "
+        f"{len(frames)} graphs replay bit-equal to eager frames from a new "
+        f"state; {len(owned)} graphs own a K5 scratch each, none shared or "
+        f"held by the stream-keyed cache")
+    del frames
+    gc.collect()
+    return replayed
+
+
+def stream_tris(rng, t=60, crossing=True):
+    """Clip-space triangles with a perspective's depth row (z = a w + b)
+    and per-vertex attributes, numpy; a quarter cross w = 0."""
+    xy = (rng.uniform(-0.9, 0.9, (t, 1, 2))
+          + rng.uniform(-0.35, 0.35, (t, 3, 2)))
+    w = rng.uniform(0.6, 3.0, (t, 1, 1)) + rng.uniform(-0.05, 0.05, (t, 3, 1))
+    if crossing:
+        w[: t // 4, 0, 0] = rng.uniform(-1.0, -0.2, t // 4)
+    clip = np.concatenate([xy * w, (100.1 * w - 20.0) / 99.9, w], -1)
+    attrs = {name: rng.uniform(-1, 1, (t, 3, c)).astype(np.float32)
+             for name, c in (("albedo", 3), ("normal", 3), ("position", 3),
+                             ("material", 2), ("emission", 3))}
+    return clip.astype(np.float32), attrs, rng.uniform(size=t) > 0.1
+
+
+def phase_render_extras_small():
+    """The streaming rasterizer, reflection probes, post-processing and
+    SSAO, card against CPU on seeded inputs."""
+    from fyrox_tpu_torch.render import post, probe, raster, ssao
+    from fyrox_tpu_torch.scene import camera
+    rng = np.random.default_rng(21)
+    worst = {}
+
+    def both(fn, *args, **kw):
+        """fn on CPU tensors and on card copies; (cpu, card on the CPU)."""
+        def to(x, dev):
+            if isinstance(x, np.ndarray):
+                return torch.as_tensor(x, device=dev)
+            if isinstance(x, dict):
+                return {k: to(v, dev) for k, v in x.items()}
+            if isinstance(x, raster.GBuffer):
+                return raster.GBuffer(*(None if v is None else v.to(dev)
+                                        for v in x))
+            return x
+        cpu = fn(*(to(a, "cpu") for a in args),
+                 **{k: to(v, "cpu") for k, v in kw.items()})
+        card = fn(*(to(a, "cuda") for a in args),
+                  **{k: to(v, "cuda") for k, v in kw.items()})
+        torch.cuda.synchronize()
+        return cpu, card
+
+    def held(label, cpu, card, tol, flips=0):
+        c, g = [x.float().cpu().reshape(-1, x.shape[-1] if x.dim() else 1)
+                for x in (cpu, card)]
+        bad = (g - c).abs().amax(-1) > tol
+        worst[label] = float((g - c).abs().max())
+        if int(bad.sum()) > flips or not bool(torch.isfinite(g).all()):
+            fail(f"render-extras-small {label}: card vs CPU "
+                 f"{worst[label]:.3g} max, {int(bad.sum())} rows past {tol}")
+
+    gbufs = {}
+    for cull in (True, False):
+        clip, attrs, valid = stream_tris(rng)
+        cpu, card = both(raster.rasterize, np.stack([clip, clip[::-1]]),
+                         attrs, 48, 48, tri_valid=np.stack([valid, valid]),
+                         chunk=16, backface_cull=cull)
+        if int((cpu.mask != card.mask.cpu()).sum()) > 2 or not bool(
+                cpu.mask.any()):
+            fail(f"render-extras-small rasterize cull={cull}: masks differ "
+                 "or nothing hit")
+        both_hit = (cpu.mask & card.mask.cpu())[..., None]
+        for f in ("depth", "albedo", "normal", "position", "material"):
+            c, g = getattr(cpu, f), getattr(card, f).cpu()
+            if f == "depth":
+                c, g = c[..., None], g[..., None]
+            held(f"rasterize {f}", c * both_hit, g * both_hit, 1e-5, 2)
+        gbufs[cull] = cpu
+    g = gbufs[True]
+    tris = rng.uniform(-4, 4, (40, 1, 3)) + rng.uniform(-0.6, 0.6, (40, 3, 3))
+    attrs = {k: rng.uniform(0, 1, (40, 3, c)).astype(np.float32)
+             for k, c in (("albedo", 3), ("normal", 3), ("position", 3),
+                          ("material", 2), ("emission", 3))}
+    faces, faces_g = both(probe.capture_probe, tris.astype(np.float32),
+                          attrs, np.zeros(3, np.float32), face_size=16,
+                          chunk=32)
+    held("capture_probe", faces, faces_g, 1e-5, 4)
+    held("face_irradiance", probe.face_irradiance(faces),
+         probe.face_irradiance(faces.cuda()), 1e-6)
+    pre, pre_g = both(probe.prefilter_specular, faces.numpy(), out_size=4)
+    held("prefilter_specular", pre, pre_g, 1e-5)
+    color = rng.uniform(0, 1, (2, 48, 48, 3)).astype(np.float32)
+    cams = rng.uniform(-3, 3, (2, 3)).astype(np.float32)
+    held("apply_probe_ambient", *both(
+        probe.apply_probe_ambient, color, g, rng.uniform(
+            0, 2, (6, 3)).astype(np.float32), probe_inv=np.diag(
+                [0.3, 0.3, 0.3, 1.0]).astype(np.float32)), 1e-5)
+    held("apply_probe_specular", *both(
+        probe.apply_probe_specular, color, g, cams, pre.numpy()), 1e-5, 8)
+    hdr = rng.uniform(0, 1.2, (2, 48, 48, 3)).astype(np.float32)
+    hdr[:, 10:14, 10:14] += 4.0
+    held("post_process", *both(post.post_process, hdr, post.PostConfig(
+        color_grading_lut=post.identity_lut(8) ** 0.8)), 1e-5)
+    vp = camera.view_projection(torch.eye(4)[None].expand(2, 4, 4), 1.0,
+                                1.0, 0.05, 50.0)
+    held("compute_ssao", *both(ssao.compute_ssao, g, vp.numpy(), cams),
+         1e-5, 8)
+    log(f"[render-extras-small] card == CPU: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def phase_unbinned():
+    """Slab and grid builds with no grid-eligible collider take the dense
+    pairs and step on the card as on the CPU."""
+    from fyrox_tpu_torch.physics import (HALFSPACE, PhysicsBuilder,
+                                         init_physics_state, step_physics)
+    out = []
+    for ground in (True, False):
+        for bp in ("slab", "grid"):
+            pb = PhysicsBuilder()
+            if ground:
+                pb.add_collider(pb.add_body(body_type=1), HALFSPACE, [])
+            for i in range(4):
+                pb.add_body(position=(0.5 * i, 1.0 + 0.3 * i, 0.0))
+            t = pb.build(broadphase=bp)
+            if t.grid is not None or len(t.pair_a):
+                fail(f"unbinned {bp}: grid {t.grid}, {len(t.pair_a)} pairs")
+            cpu = init_physics_state(pb, t, 4, device="cpu")
+            card = init_physics_state(pb, t, 4, device="cuda")
+            for _ in range(20):
+                cpu = step_physics(cpu, t, 1 / 60)
+                card = step_physics(card, t, 1 / 60)
+            err = float((card.position.cpu() - cpu.position).abs().max())
+            if err > 1e-6 or not float(card.position[0, -1, 1]) < 1.9:
+                fail(f"unbinned {bp}: card vs CPU {err:.3g}, or no fall")
+            out.append(f"{bp} {'halfspace' if ground else 'no collider'} "
+                       f"{err:.3g}")
+    log(f"[unbinned] slab and grid builds with no grid collider take the "
+        f"dense pairs (0 here) and step 20 ticks on the card as on the CPU "
+        f"(positions max card - CPU: {', '.join(out)})")
+
+
 # ---------------------------------------------------------------- audio
 # The audio mixer: the flagship with a hum on its first bone and a
 # listener on the camera. A tick carries the audio leaves unchanged; the
@@ -5017,7 +5340,11 @@ def main():
             [c for c in calls if not c[2]])
     del calls
     n_feat = phase_render_features(*feat)
+    replayed = phase_render_captured(render_scene(RENDER_WORLDS, "cuda"),
+                                     feat)
     del feat
+    phase_render_extras_small()
+    phase_unbinned()
     phase_audio_small()
     n_audio = phase_audio()
     phase_bus_binaural()
@@ -5037,6 +5364,14 @@ def main():
     k5d["launches"] = n_render["depth"]
     k5fa["launches"] = n_feat["full_affine"]
     k5da["launches"] = n_feat["depth_affine"]
+    # a replayed CapturedFrame's K5 launches (profiler; the counters see
+    # only the capture)
+    k5f["replayed_launches_per_frame"] = replayed["bench"]["full"]
+    k5d["replayed_launches_per_frame"] = replayed["bench"]["depth"]
+    k5fa["replayed_launches_per_frame"] = replayed["features clipped"][
+        "full_affine"]
+    k5da["replayed_launches_per_frame"] = replayed["features clipped"][
+        "depth_affine"]
     k1j["launches"] = n_jointed["solve_tgs"]
     k4b["launches"] = n_reuse["plane_scatter"]
     k1b["launches"] = n_big["solve_tgs"]

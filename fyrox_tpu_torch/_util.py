@@ -87,3 +87,9 @@ def sqrt_rn(x):
     float32 sqrt is; the CPU's is not always, its float64 one rounded to
     float32 is."""
     return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(x.dtype)
+
+
+def static_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x: a CUDA graph's static input buffer."""
+    return torch.empty_like(x, memory_format=torch.contiguous_format
+                            ).copy_(x)

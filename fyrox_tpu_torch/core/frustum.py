@@ -1,5 +1,4 @@
-"""Batched view frustums (the port's copy of ``fyrox_tpu.core.frustum``
-for what the renderer uses).
+"""Batched view frustums (the port of ``fyrox_tpu.core.frustum``).
 
 A frustum is a [..., 6, 4] tensor of normalized planes (a, b, c, d) in the
 reference's order (fyrox-math frustum.rs:27: 0 left, 1 right, 2 top,
@@ -11,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["from_view_projection", "intersects_aabb"]
+__all__ = ["from_view_projection", "intersects_aabb", "intersects_sphere",
+           "contains_point"]
 
 
 def from_view_projection(vp):
@@ -30,3 +30,17 @@ def intersects_aabb(planes, mins, maxs):
     pvert = torch.where(n >= 0.0, maxs[..., None, :], mins[..., None, :])
     d = torch.sum(n * pvert, -1) + planes[..., 3]
     return torch.all(d >= 0.0, dim=-1)
+
+
+def contains_point(planes, p):
+    """planes [..., 6, 4], p [..., 3] → bool [...]."""
+    d = torch.sum(planes[..., :3] * p[..., None, :], -1) + planes[..., 3]
+    return torch.all(d >= 0.0, dim=-1)
+
+
+def intersects_sphere(planes, centers, radii):
+    """Inside or crossing unless one plane has the whole sphere behind
+    it."""
+    d = (torch.sum(planes[..., :3] * centers[..., None, :], -1)
+         + planes[..., 3])
+    return torch.all(d >= -radii[..., None], dim=-1)

@@ -9,9 +9,21 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dot", "normalize", "conjugate", "mul", "rotate",
-           "from_euler", "to_mat3", "from_mat3", "nlerp", "mv",
+from fyrox_tpu_torch._util import resolve_device
+
+__all__ = ["identity", "normalize", "conjugate", "inverse", "mul", "rotate",
+           "from_axis_angle", "from_euler", "to_mat3", "from_mat3", "nlerp",
+           "slerp", "dot", "face_towards", "angle", "mv", "mtv", "mvb",
            "sandwich_inv_inertia"]
+
+
+def identity(shape=(), dtype=torch.float32, device="cuda"):
+    """The identity quaternion, [*shape, 4], on the card unless `device`
+    says otherwise."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype,
+                    device=resolve_device(device))
+    q[..., 3] = 1.0
+    return q
 
 
 def dot(a, b):
@@ -25,6 +37,11 @@ def normalize(q, eps=1e-12):
 
 def conjugate(q):
     return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def inverse(q):
+    """Inverse of a unit quaternion (its conjugate)."""
+    return conjugate(q)
 
 
 def mul(a, b):
@@ -47,6 +64,15 @@ def rotate(q, v):
     uv = torch.linalg.cross(u, v, dim=-1)
     uuv = torch.linalg.cross(u, uv, dim=-1)
     return v + 2.0 * (w * uv + uuv)
+
+
+def from_axis_angle(axis, angle_rad):
+    """Unit quaternion from a unit axis [..., 3] and an angle in radians
+    (a tensor [...] or a float)."""
+    angle_rad = torch.as_tensor(angle_rad, dtype=axis.dtype,
+                                device=axis.device)
+    half = 0.5 * angle_rad[..., None]
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
 
 
 def from_euler(roll, pitch, yaw):
@@ -117,9 +143,57 @@ def nlerp(a, b, t):
     return normalize(a + (sign * b - a) * t)
 
 
+def slerp(a, b, t, eps=1e-6):
+    """Spherical lerp along the shorter arc; nlerp's weights where the
+    two are nearly parallel. t is a tensor or a float."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    if t.dim() == a.dim() - 1:
+        t = t[..., None]
+    d = dot(a, b)
+    sign = torch.where(d < 0.0, -1.0, 1.0)
+    b = b * sign[..., None]
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)[..., None]
+    sin_theta = torch.sin(theta)
+    near = sin_theta < eps
+    safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    wa = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    wb = torch.where(near, t, torch.sin(t * theta) / safe)
+    return normalize(wa * a + wb * b)
+
+
+def angle(q):
+    """Rotation angle in [0, pi] of a unit quaternion."""
+    return 2.0 * torch.arccos(torch.clamp(torch.abs(q[..., 3]), 0.0, 1.0))
+
+
+def face_towards(direction, up):
+    """nalgebra ``UnitQuaternion::face_towards(dir, up)``: the rotation
+    that maps +Z to `direction` (the look-at of cameras and lights)."""
+    z = direction / torch.clamp(torch.linalg.norm(direction, dim=-1,
+                                                  keepdim=True), min=1e-12)
+    up = torch.broadcast_to(up, z.shape)
+    x = torch.linalg.cross(up, z, dim=-1)
+    x = x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True),
+                        min=1e-12)
+    y = torch.linalg.cross(z, x, dim=-1)
+    return from_mat3(torch.stack([x, y, z], dim=-1))       # columns
+
+
 def mv(m, v):
     """[..., i, j] @ [..., j] → [..., i]."""
     return torch.sum(m * v[..., None, :], -1)
+
+
+def mtv(m, v):
+    """mᵀ @ v: [..., j, i], [..., j] → [..., i]."""
+    return torch.sum(m * v[..., :, None], -2)
+
+
+def mvb(m, v):
+    """[..., i, j] applied to a batch of points [..., k, j] → [..., k,
+    i]."""
+    return torch.sum(m[..., None, :, :] * v[..., None, :], -1)
 
 
 def sandwich_inv_inertia(rmat, inv_inertia_local):

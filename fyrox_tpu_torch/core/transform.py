@@ -11,9 +11,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from fyrox_tpu_torch._util import resolve_device
 from fyrox_tpu_torch.core import quat
 
 __all__ = ["Transform", "local_matrix", "compose_trs", "mat4_mul",
+           "mat4_identity", "make_translation", "make_scale",
            "decompose_mat4", "invert_affine", "transform_point",
            "transform_vector"]
 
@@ -28,6 +30,28 @@ class Transform(NamedTuple):
     rotation_pivot: Optional[torch.Tensor] = None
     scaling_offset: Optional[torch.Tensor] = None
     scaling_pivot: Optional[torch.Tensor] = None
+
+
+def mat4_identity(shape=(), dtype=torch.float32, device="cuda"):
+    """[*shape, 4, 4] identities (a broadcast view), on the card unless
+    `device` says otherwise."""
+    eye = torch.eye(4, dtype=dtype, device=resolve_device(device))
+    return torch.broadcast_to(eye, tuple(shape) + (4, 4))
+
+
+def make_translation(t):
+    """[..., 4, 4] translations by t [..., 3]."""
+    m = mat4_identity(t.shape[:-1], t.dtype, t.device).clone()
+    m[..., :3, 3] = t
+    return m
+
+
+def make_scale(s):
+    """[..., 4, 4] axis scales by s [..., 3]."""
+    m = mat4_identity(s.shape[:-1], s.dtype, s.device).clone()
+    for i in range(3):
+        m[..., i, i] = s[..., i]
+    return m
 
 
 def mat4_mul(a, b):
@@ -90,7 +114,10 @@ def transform_vector(m, v):
 
 def invert_affine(m):
     """Inverse of an affine (rotation*scale + translation) transform."""
-    inv_lin = torch.linalg.inv(m[..., :3, :3])
+    # inv_ex reads no error code back to the host (a CUDA graph capture
+    # refuses that read); a singular block gives inf / nan, as
+    # jnp.linalg.inv does
+    inv_lin = torch.linalg.inv_ex(m[..., :3, :3]).inverse
     inv_t = -torch.sum(inv_lin * m[..., :3, 3][..., None, :], -1)
     return _assemble(inv_lin, inv_t)
 

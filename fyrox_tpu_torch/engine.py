@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch import disable_tf32
-from fyrox_tpu_torch._util import const, resolve_device
+from fyrox_tpu_torch._util import const, resolve_device, static_copy
 from fyrox_tpu_torch.animation import machine as machine_mod
 from fyrox_tpu_torch.animation import player as player_mod
 from fyrox_tpu_torch.animation import rootmotion as rm_mod
@@ -370,11 +370,6 @@ def _copy_all(dst, src):
         torch._foreach_copy_(d, s)
 
 
-def _static_copy(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty_like(x, memory_format=torch.contiguous_format
-                            ).copy_(x)
-
-
 class CapturedTick:
     """One engine tick captured as a CUDA graph on static state buffers.
 
@@ -393,9 +388,9 @@ class CapturedTick:
 
     def __init__(self, engine: Engine, state: EngineState, machine_params,
                  fused, bp_rank):
-        self.static = _map(_static_copy, state)
+        self.static = _map(static_copy, state)
         self.params = (None if machine_params is None
-                       else _static_copy(machine_params))
+                       else static_copy(machine_params))
         self._step = lambda: engine.step(self.static, self.params,
                                          fused=fused, bp_rank=bp_rank)
         self.graph = None

@@ -34,7 +34,8 @@ from fyrox_tpu_torch.core import quat as quat_mod
 from fyrox_tpu_torch.render.mesh import MeshData
 from fyrox_tpu_torch.scene.builder import SceneBuilder
 
-__all__ = ["FbxNode", "parse_fbx", "fbx_to_scene", "write_fbx", "extract_skin", "extract_animations",
+__all__ = ["FbxNode", "parse_fbx", "fbx_to_scene", "load_fbx_scene",
+           "write_fbx", "extract_skin", "extract_animations",
            "fbx_to_engine"]
 
 _BINARY_MAGIC = b"Kaydara FBX Binary  \x00"
@@ -412,6 +413,12 @@ def fbx_to_scene(doc: FbxNode, scene_builder=None, return_ids=False):
     if return_ids:
         return sb, name_to_node, made
     return sb, name_to_node
+
+
+def load_fbx_scene(path_or_bytes, scene_builder=None):
+    """One call from bytes or a path to (SceneBuilder, name → node
+    index)."""
+    return fbx_to_scene(parse_fbx(path_or_bytes), scene_builder)
 
 
 # --------------------------------------------------------------------------

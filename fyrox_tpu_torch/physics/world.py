@@ -446,17 +446,14 @@ class PhysicsBuilder:
         kind_ranges = None
         col_hull = np.asarray([c["hull"] for c in self._colliders],
                               np.int32)
-        if broadphase == "dense":
-            pa, pb, kind_ranges = _dense_pairs(col_shape, col_body,
-                                               body_type, col_hull)
-        elif broadphase == "grid" and nc:
+        if broadphase == "grid" and nc:
             from fyrox_tpu_torch.physics.broadphase import build_grid_config
             margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
             grid_cfg = build_grid_config(
                 col_shape, col_params, col_body, body_type, margin=margin,
                 window=grid_window, caps=grid_caps,
                 windows_body=grid_windows_body)
-        elif nc:
+        elif broadphase == "slab" and nc:
             from fyrox_tpu_torch.physics.broadphase import build_slab_config
             margin = solver_kw.get("allowed_linear_error", 0.002) + 0.05
             extent = 0.0
@@ -467,9 +464,12 @@ class PhysicsBuilder:
                 col_shape, col_params, col_body, body_type, margin=margin,
                 window=slab_window, active_window=slab_active,
                 walk=slab_walk, extent_hint=extent * 2.0)
-        if broadphase == "slab" and grid_cfg is None:
-            raise NotImplementedError("a slab scene with no grid colliders "
-                                      "(build it with the dense broadphase)")
+        if grid_cfg is None:
+            # the dense all-pairs list, also where no collider can enter a
+            # slab or grid broadphase (or there is none), as the JAX
+            # builder takes it
+            pa, pb, kind_ranges = _dense_pairs(col_shape, col_body,
+                                               body_type, col_hull)
 
         def stack(key, width, default):
             return (np.stack([r[key] for r in self._colliders]) if nc

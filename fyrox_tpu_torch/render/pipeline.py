@@ -1,5 +1,6 @@
 """Frame rendering: cull → G-buffer → shadows → deferred shade →
-forward pass (the port of ``fyrox_tpu.render.pipeline``).
+forward pass (the port of ``fyrox_tpu.render.pipeline``), and the frame
+captured as one CUDA graph (``CapturedFrame``).
 
 Equivalent of the reference's Renderer::render_frame chain
 (fyrox-impl/src/renderer/mod.rs:1384 → frustum culling bundle.rs:873-929 →
@@ -22,6 +23,7 @@ TPU-only ``edge_mode="mxu"`` raises.
 """
 from __future__ import annotations
 
+import time
 import types
 from dataclasses import dataclass
 from functools import cached_property
@@ -30,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const, value_const
+from fyrox_tpu_torch._util import const, static_copy, value_const
 from fyrox_tpu_torch.core import aabb as aabb_mod
 from fyrox_tpu_torch.core import frustum as frustum_mod
 from fyrox_tpu_torch.core import transform as tfm
@@ -48,7 +50,8 @@ from fyrox_tpu_torch.scene import camera as camera_mod
 from fyrox_tpu_torch.scene.template import NodeType, SceneTemplate
 
 __all__ = ["RenderConfig", "RenderTemplate", "build_render_template",
-           "render_frame", "render_frame_demand", "render_frames_chunked"]
+           "render_frame", "render_frame_demand", "render_frames_chunked",
+           "CapturedFrame"]
 
 
 class RenderConfig(NamedTuple):
@@ -522,8 +525,11 @@ def _frame(globals_, gvis, rt: RenderTemplate, st: SceneTemplate,
                  torch.full(col.shape[:2] + (2,), -1.0, device=dev)], -1)
         tri_clip = torch.cat([tri_clip, sp_clip], 1)
         attrs = {k: _cat_rows(attrs[k], sp_attrs[k], w) for k in attrs}
-        tri_valid = torch.cat([tri_valid, node_vis[:, snode]
-                               .repeat_interleave(2, 1)], 1)
+        # each sprite's flag for its two triangles by an expand, which
+        # reads nothing back from the card (a captured frame must not)
+        s_vis = node_vis[:, snode]
+        tri_valid = torch.cat([tri_valid, s_vis[..., None].expand(
+            -1, -1, 2).reshape(w, -1)], 1)
         tri_pos = torch.cat([tri_pos, sp_pos], 1)
     gbuf = tile_raster.rasterize_tiled(tri_clip, attrs, config.height,
                                        config.width, tri_valid=tri_valid,
@@ -713,3 +719,97 @@ def render_frames_chunked(scene_state, scene_template: SceneTemplate,
         None if parts[0] is None else torch.cat(parts)
         for parts in zip(*(b for _, b in outs))))
     return color, gbuf
+
+
+class CapturedFrame:
+    """``render_frame`` as one CUDA graph a (device, W): the counterpart of
+    ``jax.jit(lambda s: render_frame(s, t, rt, cfg))``.
+
+    ``frame(scene_state)`` returns what ``render_frame(scene_state,
+    scene_template, rt, config)`` returns, bit for bit: (color [W, H, Wd,
+    3], GBuffer). CPU tensors take ``render_frame``. On the card, the first
+    call for a (device, W) captures the frame (``FrameGraph``); a call
+    copies the state's global matrices and visibility into the graph's
+    static buffers, replays it and clones its outputs out. Every feature
+    and both raster modes capture; ``render_frame_demand`` and
+    ``render_frames_chunked`` stay eager. The K5 wrappers' launch counters
+    count a capture's warm-up frame and its capture, not its replays."""
+
+    def __init__(self, scene_template: SceneTemplate, rt: RenderTemplate,
+                 config: RenderConfig = RenderConfig()):
+        _check_scope(config)
+        self.scene_template, self.rt, self.config = scene_template, rt, config
+        self.graphs = {}
+
+    def graph(self, scene_state) -> "FrameGraph":
+        """The captured frame for this state's device and W (captured here
+        on first use)."""
+        g = scene_state.globals_
+        key = (str(g.device), int(g.shape[0]))
+        fg = self.graphs.get(key)
+        if fg is None:
+            fg = FrameGraph(self, scene_state)
+            self.graphs[key] = fg
+        return fg
+
+    def __call__(self, scene_state):
+        if not scene_state.globals_.is_cuda:
+            return render_frame(scene_state, self.scene_template, self.rt,
+                                self.config)
+        return self.graph(scene_state).run(scene_state)
+
+
+class FrameGraph:
+    """One frame captured on static copies of ``globals_`` and
+    ``global_visibility``.
+
+    Before the capture, one eager frame on the static buffers (its result
+    dropped) runs on the stream the capture then uses: it builds the host
+    tables and device constants a frame makes on first use (a capture
+    copies nothing from the host) and K5's scratch for that stream (plan
+    and slices), which this graph then keeps for itself
+    (``tile_raster.take_scratch``): no eager launch and no other graph
+    writes it, and it lives as long as the graph. Records the capture's
+    seconds and the bytes its private memory pool took."""
+
+    def __init__(self, frame: CapturedFrame, scene_state):
+        self.globals_ = static_copy(scene_state.globals_)
+        self.visibility = static_copy(scene_state.global_visibility)
+        args = (frame.rt, frame.scene_template, frame.config)
+        self._frame = lambda: _frame(self.globals_, self.visibility, *args)
+        dev = self.globals_.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream(dev)
+            key = stream.cuda_stream
+            tile_raster.take_scratch(dev, key)     # none shared from before
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self._frame()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, stream=stream):
+                # read inside: entering a capture empties the allocator's
+                # cache
+                reserved = torch.cuda.memory_reserved(dev)
+                self.out = self._frame()
+            torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.scratch = tile_raster.take_scratch(dev, key)
+
+    def run(self, scene_state):
+        """Copy the state in, replay, clone the outputs out."""
+        if (scene_state.globals_.shape != self.globals_.shape
+                or scene_state.global_visibility.shape
+                != self.visibility.shape):
+            raise ValueError("CapturedFrame: the state's shapes differ from "
+                             "the captured frame's")
+        self.globals_.copy_(scene_state.globals_)
+        self.visibility.copy_(scene_state.global_visibility)
+        with torch.cuda.device(self.globals_.device):
+            self.graph.replay()
+        color, gbuf = self.out
+        return color.clone(), raster_mod.GBuffer(
+            *(None if x is None else x.clone() for x in gbuf))

@@ -244,9 +244,11 @@ def _perspective_from(fov_y, z_near, z_far):
                     device=fov_y.device)
     m[..., 0, 0] = f
     m[..., 1, 1] = f
-    m[..., 2, 2] = (z_far + z_near) / (z_near - z_far)
-    m[..., 2, 3] = 2.0 * z_far * z_near / (z_near - z_far)
-    m[..., 3, 2] = -1.0
+    # fill_, not item assignment: assigning a Python float to a 0-d view
+    # copies a host scalar, which a CUDA graph capture refuses
+    m[..., 2, 2].fill_((z_far + z_near) / (z_near - z_far))
+    m[..., 2, 3].fill_(2.0 * z_far * z_near / (z_near - z_far))
+    m[..., 3, 2].fill_(-1.0)
     return m
 
 

@@ -36,7 +36,7 @@ from fyrox_tpu_torch.render.raster import GBuffer, clip_near
 
 __all__ = ["tri_features_h", "tri_features", "bin_triangles", "visibility",
            "visibility_plain", "rasterize_tiled", "launches",
-           "reset_launches", "split_parts", "BIG", "NFEAT"]
+           "reset_launches", "split_parts", "take_scratch", "BIG", "NFEAT"]
 
 BIG = 1e9
 NFEAT = 16          # feature row per triangle: E0, E1, S, Z, W forms, ok
@@ -320,14 +320,30 @@ def _check_inputs(feats, ids, count, height, width, tile_h, tile_w):
                          "16-byte aligned")
 
 
+def take_scratch(dev, stream):
+    """Remove and return K5's scratch of (device, stream handle), or None.
+    A CUDA graph that captured launches on that stream keeps what this
+    returns for as long as it lives, and no later launch on a stream of
+    the same handle (streams come from a pool) finds it."""
+    return _SCRATCH.pop((torch.device(dev), stream), None)
+
+
 def _scratch(dev, stream, n_tiles):
     """K5's scratch for this stream, kept from launch to launch: the plan,
     SPLIT_CAP parts and a counter for each of n_tiles tiles (int32), and
     a slice of 1,024 keys for each part (int64). The plan kernel writes
-    all of it that a launch reads."""
+    all of it that a launch reads. It is never allocated during a CUDA
+    graph capture (it would come from the graph's private pool, which
+    dies with the graph): a capture's warm-up on the capture stream makes
+    it first."""
     plan, slices = _SCRATCH.get((dev, stream), (None, None))
     n_plan = 3 + 5 * SPLIT_CAP + n_tiles
     if plan is None or plan.numel() < n_plan or len(slices) < SPLIT_CAP:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "tile_raster: K5's scratch would be allocated inside a CUDA "
+                "graph capture; run the captured work once on the capture "
+                "stream first (render.pipeline.CapturedFrame does)")
         plan = torch.empty(n_plan, dtype=torch.int32, device=dev)
         slices = torch.empty((SPLIT_CAP, 1024), dtype=torch.int64,
                              device=dev)

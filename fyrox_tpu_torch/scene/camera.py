@@ -17,8 +17,11 @@ import functools
 import torch
 
 from fyrox_tpu_torch._util import const, resolve_device
+from fyrox_tpu_torch.core import frustum as frustum_mod
+from fyrox_tpu_torch.core import transform as tfm
 
-__all__ = ["perspective", "orthographic", "look_at_rh", "view_matrix"]
+__all__ = ["perspective", "orthographic", "look_at_rh", "view_matrix",
+           "view_projection", "camera_frustums"]
 
 
 def perspective(fov_y, aspect, z_near, z_far, device="cuda"):
@@ -95,3 +98,21 @@ def view_matrix(global_transform):
     look = global_transform[..., :3, 2]
     up = global_transform[..., :3, 1]
     return look_at_rh(pos, pos + look, up)
+
+
+def view_projection(global_transform, fov_y, aspect, z_near, z_far,
+                    ortho=False, vertical_size=None):
+    """[..., 4, 4] projection @ view of cameras with global transforms
+    [..., 4, 4], on their device."""
+    view = view_matrix(global_transform)
+    dev = global_transform.device
+    if ortho:
+        proj = orthographic(vertical_size, aspect, z_near, z_far, dev)
+    else:
+        proj = perspective(fov_y, aspect, z_near, z_far, dev)
+    return tfm.mat4_mul(proj, view)
+
+
+def camera_frustums(vp):
+    """Frustum planes [..., 6, 4] of view-projections [..., 4, 4]."""
+    return frustum_mod.from_view_projection(vp)

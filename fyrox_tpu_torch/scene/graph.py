@@ -12,11 +12,13 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch.core import aabb as aabb_mod
 from fyrox_tpu_torch.core import transform as tfm
 from fyrox_tpu_torch.scene.state import WorldState
 from fyrox_tpu_torch.scene.template import SceneTemplate
 
-__all__ = ["local_matrices", "update_hierarchical_data", "step"]
+__all__ = ["local_matrices", "update_hierarchical_data", "step",
+           "world_bounding_boxes"]
 
 _BOTTOM_ROW = np.array([0.0, 0.0, 0.0, 1.0], np.float32)   # affine 4th row
 
@@ -70,3 +72,14 @@ def step(state: WorldState, template: SceneTemplate, dt: float,
     alive = state.alive & (lifetime > 0.0)
     return state._replace(lifetime=lifetime, alive=alive,
                           time=state.time + dt)
+
+
+def world_bounding_boxes(state: WorldState, template: SceneTemplate):
+    """[W, N, 3] (mins, maxs) of every node's local box under its global
+    matrix (NodeTrait::world_bounding_box, scene/node/mod.rs:178)."""
+    if template.local_bbox_min is None:
+        raise ValueError("template has no local bounding boxes")
+    dev = state.position.device
+    mins = const(template.local_bbox_min, dev).expand(state.position.shape)
+    maxs = const(template.local_bbox_max, dev).expand(state.position.shape)
+    return aabb_mod.transform(mins, maxs, state.globals_)

@@ -300,6 +300,51 @@ def test_port_imports_and_builds_without_jax():
         assert len(terrain.add_chunked_terrain(
             SceneBuilder(), terrain.Terrain(np.zeros((9, 9), np.float32)),
             chunks=(2, 1))) == 2
+        from fyrox_tpu_torch.render import (CapturedFrame, post, probe,
+                                            raster, shader, ssao)
+        frame = CapturedFrame(t, render.build_render_template(t),
+                              render.RenderConfig(width=16, height=16,
+                                  csm=render.CsmConfig(map_size=16)))
+        assert frame(ws)[0].shape == (2, 16, 16, 3) and not frame.graphs
+        g = raster.rasterize(torch.zeros(1, 3, 4), {k: torch.zeros(1, 3, 3)
+            for k in ("albedo", "normal", "position", "emission")} | {
+            "material": torch.zeros(1, 3, 2)}, 8, 8)
+        assert not g.mask.any()
+        faces = probe.capture_probe(torch.zeros(1, 3, 3), {
+            k: torch.zeros(1, 3, 3) for k in ("albedo", "normal",
+                                              "position", "emission")} | {
+            "material": torch.zeros(1, 3, 2)}, torch.zeros(3), face_size=4)
+        assert probe.prefilter_specular(faces, out_size=2).shape == (
+            4, 6, 2, 2, 3)
+        assert post.post_process(torch.ones(1, 8, 8, 3)).shape == (1, 8, 8,
+                                                                    3)
+        assert ssao.compute_ssao(g, torch.eye(4), torch.zeros(3)).shape == (
+            8, 8)
+        assert shader.standard_shader().default_properties(device="cpu")
+        from fyrox_tpu_torch.core import aabb, frustum, quat, transform
+        from fyrox_tpu_torch.io import fbx
+        assert aabb.volume(*aabb.unit(device="cpu")) == 1.0
+        assert quat.identity(device="cpu")[3] == 1.0
+        assert transform.mat4_identity(device="cpu").trace() == 4.0
+        assert camera.view_projection(ws.globals_[:, 0], 1.0, 1.0, 0.1,
+                                      10.0).shape == (2, 4, 4)
+        assert graph.world_bounding_boxes(ws, t)[0].shape == (
+            2, t.num_nodes, 3)
+        assert frustum.contains_point(camera.camera_frustums(torch.eye(4)),
+                                      torch.zeros(3))
+        sb2, names = fbx.load_fbx_scene(make_character_fbx(n_bones=3,
+                                                           n_verts=40))
+        assert names and sb2.build().num_nodes
+        import bench_render_torch
+        for bb in ("slab", "grid"):
+            hpb = PhysicsBuilder()
+            hpb.add_collider(hpb.add_body(body_type=1), 5, [])
+            hpb.add_body(position=(0.0, 1.0, 0.0))
+            ht = hpb.build(broadphase=bb)
+            assert ht.grid is None and len(ht.pair_a) == 0
+            hs = step_physics(init_physics_state(hpb, ht, 2, device="cpu"),
+                              ht, 1 / 60)
+            assert float(hs.position[0, 1, 1]) < 1.0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad
@@ -393,6 +438,48 @@ def test_out_of_scope_features_raise(case):
             fused_step.fused_full_step(st, t, 1 / 60, zero, zero)
         else:
             pb.build(broadphase="slab")
+
+
+def _unbinned_scene(lib, n_free, ground=True):
+    """A halfspace ground (or nothing) under n_free bodies with no
+    collider: no collider can enter a slab or grid broadphase."""
+    pb = lib()
+    if ground:
+        pb.add_collider(pb.add_body(body_type=1), sh.HALFSPACE, [])
+    for i in range(n_free):
+        pb.add_body(position=(0.5 * i, 1.0 + 0.2 * i, 0.0))
+    return pb
+
+
+@pytest.mark.parametrize("broadphase", ["slab", "grid"])
+@pytest.mark.parametrize("ground", [True, False],
+                         ids=["halfspace", "no-collider"])
+def test_unbinned_scenes_take_the_dense_pairs(broadphase, ground):
+    """A slab or grid build whose scene has no grid-eligible collider
+    (a halfspace under bodies with no collider, or no collider at all)
+    takes the dense all-pairs list, as the JAX builder does, and steps
+    like the JAX package's template."""
+    from fyrox_tpu.physics import (init_physics_state as jinit_physics,
+                                   step_physics as jstep_physics)
+    import jax.numpy as jnp
+    tb, jb = (_unbinned_scene(PhysicsBuilder, 3, ground),
+              _unbinned_scene(JPhysicsBuilder, 3, ground))
+    tt, jt = tb.build(broadphase=broadphase), jb.build(broadphase=broadphase)
+    assert tt.grid is None and jt.grid is None
+    np.testing.assert_array_equal(tt.pair_a, jt.pair_a)
+    np.testing.assert_array_equal(tt.pair_b, jt.pair_b)
+    assert list(tt.pair_kind_ranges) == list(jt.pair_kind_ranges) == []
+    ts = init_physics_state(tb, tt, 2, device="cpu")
+    js = jinit_physics(jb, jt, 2)
+    for _ in range(4):
+        ts = step_physics(ts, tt, 1 / 60)
+        js = jstep_physics(js, jt, 1 / 60)
+    for f in ("position", "rotation", "linvel", "angvel"):
+        np.testing.assert_allclose(getattr(ts, f).numpy(),
+                                   np.asarray(getattr(js, f)), rtol=0,
+                                   atol=1e-6, err_msg=f)
+    assert float(ts.position[0, -1, 1]) < 1.4       # the bodies fall
+    assert float(jnp.abs(js.linvel).sum()) > 0
 
 
 def test_default_arguments_pick_the_same_broadphase():

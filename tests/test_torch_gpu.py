@@ -962,3 +962,116 @@ def test_audio_flagship_replays_with_audio_leaves_carried(cuda):
         block_len=256)
     assert (block.cpu() - cpu_block).abs().max() <= 1e-5
     assert bool(torch.isfinite(block).all()) and block.abs().max() > 1e-3
+
+
+# ---- the captured frame, the render package's remainder, public names ----
+
+@pytest.mark.parametrize("mode", ["bench", "homogeneous", "clipped"])
+def test_captured_frame_replays_equal_eager_frames(cuda, mode):
+    """render.CapturedFrame at W=2, 32 x 32 (the bench scene, or every
+    feature in either raster mode): replays equal eager render_frame bit
+    for bit, from the captured state and from another; a second capture
+    after the first graph is freed replays as eager; the graph owns its
+    K5 scratch (none is left in the stream-keyed cache)."""
+    import gc
+    import chip_smoke
+    from fyrox_tpu_torch.render import (CapturedFrame, CsmConfig,
+                                        render_frame, tile_raster)
+    kw = dict(size=32, seed=3, n_obj=8)
+    if mode == "bench":
+        t, rt, st, cfg = chip_smoke.features_frame(
+            2, cuda, features=frozenset(), **kw)
+    else:
+        t, rt, st, cfg = chip_smoke.features_frame(2, cuda, tex_size=32,
+                                                   n_sprites=4, **kw)
+        cfg = cfg._replace(raster_mode=mode)
+    cfg = cfg._replace(csm=CsmConfig(map_size=64))
+    other = chip_smoke.moved_state(st, 4)
+    for _ in range(2):
+        frame = CapturedFrame(t, rt, cfg)
+        for s in (st, other, st):
+            chip_smoke.same_frame(mode, frame(s), render_frame(s, t, rt, cfg))
+        fg = frame.graph(st)
+        assert fg.capture_seconds > 0 and fg.pool_bytes > 0
+        if fg.scratch is not None:
+            held = {v[0].data_ptr() for v in tile_raster._SCRATCH.values()}
+            assert fg.scratch[0].data_ptr() not in held
+        del frame, fg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def test_render_extras_and_unbinned_builds_on_the_card():
+    """chip_smoke's render-extras-small (the streaming rasterizer, probes,
+    post-processing and SSAO, card vs CPU) and unbinned (slab and grid
+    builds with no grid collider step on the card as on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    import chip_smoke
+    chip_smoke.phase_render_extras_small()
+    chip_smoke.phase_unbinned()
+
+
+def test_public_names_on_the_card(cuda):
+    """core.aabb / frustum / quat / transform, scene.camera and
+    scene.graph.world_bounding_boxes on the card equal the CPU within
+    1e-6 (booleans exactly), and default to the card."""
+    from fyrox_tpu_torch.core import aabb, frustum, quat
+    from fyrox_tpu_torch.core import transform as tfm
+    from fyrox_tpu_torch.render import shader
+    from fyrox_tpu_torch.scene import camera, graph, init_state
+    rng = np.random.default_rng(0)
+
+    def both(fn, *xs):
+        cpu = fn(*(torch.as_tensor(x) for x in xs))
+        card = fn(*(torch.as_tensor(x, device=cuda) for x in xs))
+        cpu, card = ((cpu,), (card,)) if isinstance(cpu, torch.Tensor) \
+            else (cpu, card)
+        for a, b in zip(cpu, card):
+            assert b.is_cuda and a.shape == b.shape
+            if a.dtype == torch.bool:
+                assert torch.equal(a, b.cpu())
+            else:
+                assert (a - b.cpu()).abs().max() <= 1e-6
+
+    lo = rng.uniform(-2, 2, (32, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.1, 1.0, (32, 3)).astype(np.float32)
+    p = rng.uniform(-3, 3, (32, 3)).astype(np.float32)
+    r = rng.uniform(0.1, 1.0, 32).astype(np.float32)
+    q = rng.standard_normal((32, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q2 = np.roll(q, 1, 0)
+    m = rng.standard_normal((32, 3, 3)).astype(np.float32)
+    for fn, xs in ((aabb.from_points, (m,)), (aabb.center, (lo, hi)),
+                   (aabb.half_extents, (lo, hi)), (aabb.volume, (lo, hi)),
+                   (aabb.union, (lo, hi, hi, hi + 1)),
+                   (aabb.contains_point, (lo, hi, p)),
+                   (aabb.intersects_aabb, (lo, hi, p, p + 1)),
+                   (aabb.intersects_sphere, (lo, hi, p, r)),
+                   (aabb.corners, (lo, hi)), (quat.inverse, (q,)),
+                   (quat.from_axis_angle, (p / np.linalg.norm(
+                       p, axis=-1, keepdims=True), r)),
+                   (quat.slerp, (q, q2, r)), (quat.angle, (q,)),
+                   (quat.face_towards, (p, np.array([0, 1, 0], np.float32))),
+                   (quat.mtv, (m, p)), (quat.mvb, (m, m)),
+                   (tfm.make_translation, (p,)), (tfm.make_scale, (p,))):
+        both(fn, *xs)
+    vp = camera.view_projection(tfm.make_translation(torch.as_tensor(
+        p[:4], device=cuda)), 1.0, 1.2, 0.1, 30.0)
+    planes = camera.camera_frustums(vp)
+    both(frustum.contains_point, planes.cpu().numpy()[:, None], p[None])
+    both(frustum.intersects_sphere, planes.cpu().numpy()[:, None], p[None],
+         r[None])
+    assert aabb.invalid((2,))[0].is_cuda and aabb.unit()[0].is_cuda
+    assert quat.identity((2,)).is_cuda and tfm.mat4_identity().is_cuda
+    assert shader.standard_shader().default_properties()[
+        "properties"]["diffuseColor"].is_cuda
+    import chip_smoke
+    t = chip_smoke.features_scene(chip_smoke.render_lib(), frozenset(),
+                                  n_obj=4)
+    st = graph.update_hierarchical_data(init_state(t, 2), t)
+    card = graph.world_bounding_boxes(st, t)
+    cpu = graph.world_bounding_boxes(convert.scene_state(
+        convert.to_numpy(st), device="cpu"), t)
+    for a, b in zip(cpu, card):
+        assert (a - b.cpu()).abs().max() <= 1e-5
