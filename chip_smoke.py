@@ -262,6 +262,34 @@ Then the audio mixer, the grid broadphase and the terrain brush:
   brush    — apply_stroke in each mode and shape on a 257² map, card vs
              CPU within 1e-5, and add_chunked_terrain's 16-chunk scene
              rendered card vs CPU.
+Then the game loop (script.Executor with scripts, a HUD over the captured
+frame, checkpoints, debug_step, pathfinding and the lightmap bake):
+  game     — game_engine() (build_flagship(n_bodies=1000) + a navmesh
+             floor), W distinct worlds: GAME_TICKS Executor ticks (the
+             fused tick captured, K3 / K2 / K1 counted at its warm-up and
+             capture) with a flying camera, a nav agent steering one pile
+             body, a behavior tree and per-tick PerformanceStatistics,
+             equal bit for bit to the same script calls and eager ticks by
+             hand; a run saved at tick GAME_SAVE_AT, loaded into a fresh
+             state and resumed equals the whole run; debug_step finds
+             nothing on its state and names "nan" and the physics stage
+             for a NaN velocity; ms a tick, env·steps/s, a tick's device
+             events and kernels (profiler), the checked tick against a
+             plain eager tick;
+  game_frame — examples/example_game.py's game (24 dense crates, a
+             checkered ground, the crate hum) at FRAME_WORLDS worlds:
+             FRAME_TICKS Executor ticks, render_audio(256) a tick and in
+             on_frame a 128² shadowed CapturedFrame with the HUD (an
+             energy bar and a 4-digit step counter) composed over it;
+             K4a, K4b and K5 counted; the bin-demand audit; a W=2 run held
+             tick by tick against the CPU (dense bounds) and its frames at
+             FRAME_KEEP against the CPU's; frames/s of the whole loop;
+  navfield — distance_field on a walled 256² grid graph, 128 sources, as
+             many rounds as its longest shortest path: equal to a host BFS
+             for every source and to host A* for 8; ms a call;
+  lightmap — bake_vertex_ao (32 rays) and bake_direct_light over the
+             bench scene (T = 4,482): card vs CPU on 256 vertices, ms and
+             vertices/s.
 Then one JSON line describing the kernels, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Each kernel's `ms` (and
 `plain_ms`, `library_ms`) is CUDA-event time over a run of calls, which
@@ -5246,6 +5274,614 @@ def phase_brush():
         f"lit on {CARD}")
 
 
+
+# ------------------------------------------------------------------- game
+# The game loop on the flagship: script.Executor over the fused K3 → K2 →
+# K1 tick (build_flagship(n_bodies=1000) plus a navmesh floor), W = 128,
+# with a camera controller, a nav agent driving one pile body, a behavior
+# tree and per-tick statistics; checkpoints and the checked tick.
+GAME_TICKS = 60          # Executor.run(1.0) at 60 Hz
+GAME_NAV_BODY = 1        # the pile's first body (a cuboid on its floor)
+GAME_SAVE_AT = 30        # the tick after which the resumed run saves
+FRAME_WORLDS = 16        # example_game.py's loop at W = 16
+FRAME_TICKS = 120
+FRAME_KEEP = (30, 60, 90, 120)     # ticks whose frames card and CPU hold
+NAV_SIDE = 256           # navfield: a 256 x 256 grid graph
+NAV_SOURCES = 128
+NAV_ASTAR = 8
+LIGHTMAP_RAYS = 32
+LIGHTMAP_CPU_VERTS = 256
+
+
+def ring_navmesh(half=6.0, cell=3.0):
+    """A square floor of cell-sized quads around the pile (the four
+    central cells left out), vertices in np.unique's lexicographic order
+    so the navmesh's vertex weld keeps their indices."""
+    xs = np.arange(-half, half + 1e-6, cell)
+    n = len(xs)
+    verts = np.asarray([(x, 0.0, z) for x in xs for z in xs], np.float32)
+    tris = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            if abs(xs[i] + cell / 2) < cell and abs(xs[j] + cell / 2) < cell:
+                continue                       # the central hole
+            a, b = i * n + j, (i + 1) * n + j
+            tris += [(a, b, b + 1), (a, b + 1, a + 1)]
+    return verts, np.asarray(tris, np.int32)
+
+
+def game_engine(n_bones=100, n_verts=50_000, n_bodies=1000):
+    """build_flagship(n_bodies=1000) with a NavigationalMesh node (the ring
+    floor) added before the camera. Returns (Engine, SkinTemplate)."""
+    from fyrox_tpu_torch.models import character
+    sb, aset, mt, bones, skin_data = character.build_character_scene(
+        n_bones=n_bones, n_verts=n_verts, seed=0)
+    pb, _ = character.build_pile_scene(sb, n_bodies=n_bodies, seed=1)
+    sb.add_navmesh(*ring_navmesh(), name="floor")
+    pt = pb.build(broadphase="slab", slab_window=character.SLAB_WINDOW,
+                  slab_active=character.SLAB_ACTIVE,
+                  slab_walk=character.SLAB_WALK)
+    return character.assemble_flagship(sb, pt, aset, mt, bones, skin_data)
+
+
+class GameScripts:
+    """The four scripts of the game phase, made from the initial state and
+    a seed: a FlyingCameraController on main_camera (seeded per-world mouse
+    and move inputs), a nav script (BatchedNavAgents planned once on the
+    template's navmesh from the nav body's start to a seeded goal per
+    world; each tick steer writes the body's x / z linvel), a behavior
+    tree (selector(sequence(moving, on its path), camera pitched up)) over
+    [W, 3] leaf statuses derived from the state each tick, and a
+    PerformanceStatistics around each tick. ``states`` / ``load`` carry
+    the scripts' tensors through a checkpoint."""
+
+    def __init__(self, engine, state, seed=0):
+        from fyrox_tpu_torch.script import Script
+        from fyrox_tpu_torch.scripts import FlyingCameraController
+        from fyrox_tpu_torch.utils import (BatchedNavAgents,
+                                           BehaviorTreeBuilder, Status,
+                                           template_navmesh)
+        from fyrox_tpu_torch.utils.stats import PerformanceStatistics
+        dev = state.scene.position.device
+        w = state.scene.num_worlds
+        rng = np.random.default_rng(seed)
+        cam = engine.template.names.index("main_camera")
+        self.camera = FlyingCameraController(cam, w, speed=2.0,
+                                             device=dev)
+        self.camera.set_input(
+            mouse_delta=rng.uniform(-3, 3, (w, 2)).astype(np.float32),
+            move_axes=rng.uniform(-1, 1, (w, 2)).astype(np.float32))
+        agents = BatchedNavAgents(radius=0.1)
+        start = state.physics.position[:, GAME_NAV_BODY].cpu().numpy()
+        start[:, 1] = 0.0
+        goal = np.stack([rng.uniform(3.5, 5.5, w), np.zeros(w),
+                         rng.uniform(-5.5, 5.5, w)], -1).astype(np.float32)
+        self.nav = agents.plan(template_navmesh(engine.template), start,
+                               goal, device=dev)
+        b = BehaviorTreeBuilder()
+        root = b.selector()
+        seq = b.sequence(parent=root)
+        b.leaf(seq)
+        b.leaf(seq)
+        b.leaf(root)
+        tree = b.build(root)
+        self.status = torch.zeros(w, dtype=torch.int32, device=dev)
+        self.hist = torch.zeros((w, 3), dtype=torch.int32, device=dev)
+        self.stats = PerformanceStatistics()
+        outer = self
+        planar = torch.tensor([1.0, 0.0, 1.0], device=dev)
+
+        class Nav(Script):
+            def on_update(self, ctx):
+                ph = ctx.state.physics
+                pos = ph.position[:, GAME_NAV_BODY] * planar
+                vel, outer.nav = agents.steer(outer.nav, pos, 1.5, ctx.dt)
+                lv = ph.linvel.clone()
+                lv[:, GAME_NAV_BODY, 0] = vel[:, 0]
+                lv[:, GAME_NAV_BODY, 2] = vel[:, 2]
+                ctx.state = ctx.state._replace(physics=ph._replace(
+                    linvel=lv))
+
+        class Behave(Script):
+            def on_update(self, ctx):
+                s, f, r = Status.SUCCESS, Status.FAILURE, Status.RUNNING
+                v = ctx.state.physics.linvel[:, GAME_NAV_BODY]
+                moving = v[:, 0] * v[:, 0] + v[:, 2] * v[:, 2] > 1.0
+                going = outer.nav.wp < outer.nav.length
+                up = outer.camera.pitch > 0
+                leaves = torch.stack([torch.where(moving, s, f),
+                                      torch.where(going, r, s),
+                                      torch.where(up, s, f)], 1)
+                outer.status = tree.tick(leaves)
+                outer.hist = outer.hist + torch.nn.functional.one_hot(
+                    outer.status.long(), 3).to(torch.int32)
+
+        class Stats(Script):
+            """Closes the last tick's measurement and opens this one's
+            (scripts and tick), waiting for the card at each close."""
+            open = None
+
+            def on_update(self, ctx):
+                self.close()
+                self.open = outer.stats.measure("tick", block_on=ctx.state)
+                self.open.__enter__()
+
+            def close(self):
+                if self.open is not None:
+                    self.open.__exit__(None, None, None)
+                    self.open = None
+
+        self.scripts = [self.camera, Nav(), Behave(), Stats()]
+
+    def states(self):
+        return (self.camera.yaw, self.camera.pitch, self.nav, self.status,
+                self.hist)
+
+    def load(self, states):
+        (self.camera.yaw, self.camera.pitch, self.nav, self.status,
+         self.hist) = states
+
+    def close(self):
+        self.scripts[-1].close()
+
+
+def game_run(engine, state, seconds, scripts=None, executor=True):
+    """`seconds` of the game from `state`: through script.Executor (its
+    ticks captured on the card), or with executor=False the same script
+    calls and eager Engine.step ticks by hand. Returns (state, scripts)."""
+    from fyrox_tpu_torch.script import Executor, ScriptProcessor
+    scripts = scripts or GameScripts(engine, state)
+    if executor:
+        ex = Executor(engine, state)
+        for s in scripts.scripts:
+            ex.scripts.add(s)
+        out = ex.run(seconds)
+    else:
+        sp = ScriptProcessor()
+        for s in scripts.scripts:
+            sp.add(s)
+        out = state
+        for _ in range(round(seconds * 60)):
+            out = engine.step(sp.update(engine, out, 1.0 / 60.0))
+    if out.scene.position.is_cuda:
+        torch.cuda.synchronize()
+    scripts.close()
+    return out, scripts
+
+
+def same_game(label, got, want):
+    """Fail unless two game runs end equal, bit for bit: every state
+    tensor and every script tensor."""
+    (gs, gscr), (ws, wscr) = got, want
+    same_state(label, gs, ws)
+    from fyrox_tpu_torch.engine import _leaves
+    a, b = _leaves(gscr.states()), _leaves(wscr.states())
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{label}: the scripts' tensors differ")
+
+
+def phase_game():
+    """The game loop on the flagship: 60 Executor ticks (captured) with
+    four scripts equal the same script calls and eager ticks by hand; a
+    run saved at tick 30, loaded into a fresh state and finished equals
+    the uninterrupted run; debug_step passes its state and names the
+    physics stage for a NaN velocity. Returns the records to print."""
+    import tempfile
+    from fyrox_tpu_torch.engine import debug_step
+    from fyrox_tpu_torch.io import load_state, save_state
+    t0 = time.perf_counter()
+    engine, _ = game_engine()
+    st0 = distinct_worlds(engine, WORLDS, "cuda", seed=11)
+    log(f"[setup] game flagship (+ navmesh floor) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not engine._capturable():
+        fail("game: the flagship's tick does not capture")
+    reset_all_launches()
+    run_a = game_run(engine, st0, 1.0)
+    n = all_launches()
+    if not (n["fused_bp"] and n["narrow_compact"] and n["solve_tgs"]) or \
+            n["plane_gather"] or n["plane_scatter"]:
+        fail(f"game: launches of the Executor's run {n}")
+    if int(run_a[0].scene.time[0] * 60 + 0.5) != GAME_TICKS:
+        fail("game: the Executor ran another number of ticks")
+    reset_all_launches()
+    run_b = game_run(engine, st0, 1.0, executor=False)
+    n_eager = all_launches()
+    same_game("game: Executor (captured ticks) vs eager ticks by hand",
+              run_a, run_b)
+    nav = run_a[1].nav
+    hist = run_a[1].hist.sum(0).tolist()
+    # the timed run, the tick captured already (the scripts' host path
+    # planning before the clock starts)
+    scripts_c = GameScripts(engine, st0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run_c = game_run(engine, st0, 1.0, scripts=scripts_c)
+    wall = time.perf_counter() - t1
+    same_game("game: a second Executor run", run_c, run_a)
+    tick_ms = run_c[1].stats.mean_ms("tick")
+    from fyrox_tpu_torch.script import Executor
+    ex = Executor(engine, run_c[0])
+    for s in run_c[1].scripts[:3]:
+        ex.scripts.add(s)
+    kn, events, dev_ms = profiled(lambda: ex.run(3 / 60), 3)
+    if not (kn["fused_bp"] == kn["narrow_compact"] == kn["solve_tgs"]
+            == 3):
+        fail(f"game: a replayed tick's kernels {kn}")
+    # save at tick 30, load into a fresh state, finish
+    first = game_run(engine, st0, GAME_SAVE_AT / 60)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/game.npz"
+        t2 = time.perf_counter()
+        save_state((first[0], first[1].states()), path)
+        save_s = time.perf_counter() - t2
+        size = __import__("os").path.getsize(path)
+        fresh_state = engine.init_state(WORLDS)
+        fresh = GameScripts(engine, fresh_state)
+        loaded, states = load_state((fresh_state, fresh.states()), path)
+    fresh.load(states)
+    resumed = game_run(engine, loaded, (GAME_TICKS - GAME_SAVE_AT) / 60,
+                       scripts=fresh)
+    same_game("game: saved at tick 30, loaded and resumed", resumed, run_a)
+    # the checked tick
+    dbg = debug_step(engine)
+    err, _ = dbg(run_a[0])
+    if err.get() is not None:
+        fail(f"game: debug_step flags the healthy state: {err.get()}")
+    ph = run_a[0].physics
+    lv = ph.linvel.clone()
+    lv[0, GAME_NAV_BODY, 0] = float("nan")
+    bad, _ = dbg(run_a[0]._replace(physics=ph._replace(linvel=lv)))
+    msg = bad.get()
+    if msg is None or not msg.startswith("nan in stage physics"):
+        fail(f"game: debug_step on a NaN velocity says {msg!r}")
+    s = run_a[0]
+    plain_ms = cuda_ms(lambda: engine.step(s), 5)
+    debug_ms = cuda_ms(lambda: dbg(s)[0].get(), 5)
+    log(f"[game] build_flagship(n_bodies=1000) + navmesh floor, W={WORLDS} "
+        f"distinct worlds, {GAME_TICKS} Executor ticks (fused K3 → K2 → "
+        f"K1, captured) with a flying camera, a nav agent (paths of "
+        f"{int(nav.length.min())}-{int(nav.length.max())} waypoints, "
+        f"{int((nav.wp >= nav.length).sum())} of {WORLDS} done), a behavior "
+        f"tree (root statuses S/F/R over all ticks {hist}) and per-tick "
+        f"stats: equal to eager ticks by hand bit for bit (eager launches "
+        f"{n_eager}); launches of the Executor's run {n} (warm-up and "
+        f"capture); save at tick {GAME_SAVE_AT} ({size / 2**20:.1f} MiB, "
+        f"{save_s:.2f} s), load into a fresh state, resume: equal to the "
+        f"uninterrupted run bit for bit; debug_step: None on its state, "
+        f"{msg!r} on a NaN velocity")
+    log(f"[game] {tick_ms:.3f} ms a tick (PerformanceStatistics: scripts + "
+        f"captured tick, synchronised), {WORLDS * GAME_TICKS / wall:.1f} "
+        f"env·steps/s over the run ({wall * 1e3:.1f} ms); a tick under "
+        f"the profiler: {events:.1f} device events, {dev_ms:.3f} ms of "
+        f"device time, kernels {kn} over 3 ticks; checked tick "
+        f"(debug_step + get) {debug_ms:.3f} ms against a plain eager tick "
+        f"{plain_ms:.3f} ms ({debug_ms / plain_ms:.2f}x) on {CARD}")
+
+
+# ------------------------------------------------------------- game_frame
+def game_frame_scene(num_crates=24, seed=0):
+    """The port's counterpart of examples/example_game.py's build: a 24 m
+    checkered ground, a tilted directional light, a camera with a
+    listener, num_crates crates (cube meshes under rigid-body nodes) over
+    a halfspace (dense broadphase), and a 220 Hz hum on the first crate.
+    Returns the Engine."""
+    from fyrox_tpu_torch.engine import Engine
+    from fyrox_tpu_torch.physics import (CUBOID, HALFSPACE, BodyType,
+                                         PhysicsBuilder)
+    from fyrox_tpu_torch.render import Texture, make_cube, make_plane
+    from fyrox_tpu_torch.scene import NodeType, SceneBuilder
+    from fyrox_tpu_torch.sound.engine import SAMPLE_RATE
+    rng = np.random.default_rng(seed)
+    res = 16
+    y, x = np.mgrid[0:res, 0:res]
+    cell = ((x * 4 // res) + (y * 4 // res)) % 2
+    checker = np.where(cell[..., None] == 0,
+                       np.asarray([0.55, 0.55, 0.6], np.float32),
+                       np.asarray([0.25, 0.3, 0.25], np.float32))
+    sb = SceneBuilder()
+    ground = make_plane(24.0, albedo=(1.0, 1.0, 1.0))
+    ground.albedo_texture = Texture.from_array(checker.astype(np.float32))
+    sb.add_mesh(ground, name="ground")
+    tilt = (np.sin(np.pi / 5), 0.0, 0.0, np.cos(np.pi / 5))
+    sb.add_light("directional", rotation=tilt, intensity=1.8)
+    cam = sb.add_camera("cam", position=(0, 6.0, -12.0),
+                        rotation=(np.sin(np.pi / 14), 0, 0,
+                                  np.cos(np.pi / 14)))
+    sb.add_listener("ears", parent=cam)
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=BodyType.STATIC)
+    pb.add_collider(g, HALFSPACE, [], friction=0.6)
+    crates = []
+    for i in range(num_crates):
+        p = (rng.uniform(-4, 4), 1.0 + 0.9 * i % 7, rng.uniform(-4, 4))
+        node = sb.add_node(f"crate{i}", node_type=NodeType.RIGID_BODY,
+                           position=p,
+                           bbox=(np.full(3, -0.35), np.full(3, 0.35)))
+        sb.add_mesh(make_cube(0.6, albedo=(0.75, 0.45, 0.2)),
+                    name=f"crate{i}_mesh", parent=node)
+        b = pb.add_body(node=node, position=p)
+        pb.add_collider(b, CUBOID, [0.3, 0.3, 0.3], friction=0.5)
+        crates.append(node)
+    t = np.arange(SAMPLE_RATE // 4) / SAMPLE_RATE
+    hum = (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    sb.add_sound(hum, name="crate_hum", parent=crates[0], radius=1.0,
+                 max_distance=30.0)
+    return Engine(template=sb.build(), physics=pb.build(broadphase="dense"))
+
+
+def frame_loop(engine, state, frame, hud, keep=(), every=None):
+    """example_game.py's loop: FRAME_TICKS Executor ticks, each after a
+    script that mixes render_audio(256), and in on_frame the frame
+    (render.CapturedFrame) with the HUD (each world's kinetic-energy bar
+    and a 4-digit step counter) composed over it, every tick. keep: the
+    ticks whose composed frames and states are kept; every: a list that
+    each tick's state is appended to. Returns (state, {tick: (frames,
+    state)}, audio peak, seconds)."""
+    from fyrox_tpu_torch.script import Executor, Script
+    from fyrox_tpu_torch.ui import compose_over
+    w = state.scene.num_worlds
+    dev = state.scene.position.device
+    peak = []
+
+    class Hum(Script):
+        def on_update(self, ctx):
+            block, ctx.state = ctx.engine.render_audio(ctx.state,
+                                                       block_len=256)
+            peak.append(block.abs().amax())
+
+    kept, tick = {}, [0]
+
+    def on_frame(s):
+        tick[0] += 1
+        if every is not None:
+            every.append(s)
+        color, _ = frame(s.scene)
+        ke = 0.5 * (s.physics.linvel ** 2).sum((1, 2))
+        overlay = hud.render({
+            "energy": torch.clamp(ke / 100.0, 0.0, 1.0),
+            "step": torch.full((w,), tick[0], dtype=torch.int32,
+                               device=dev)})
+        out = compose_over(color, overlay)
+        if tick[0] in keep:
+            kept[tick[0]] = (out, s)
+
+    ex = Executor(engine, state)
+    ex.scripts.add(Hum())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ex.run(FRAME_TICKS / 60, on_frame=on_frame)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, kept, float(torch.stack(peak).max()), \
+        time.perf_counter() - t0
+
+
+def phase_game_frame():
+    """examples/example_game.py's game at W = 16 on the card: dense
+    physics (K4a, K4b), render.CapturedFrame (K5) with shadows at 128²,
+    render_audio(256) each tick and a HUD composed over every frame;
+    the bin-demand audit; a W = 2 run against the same run on the CPU."""
+    from fyrox_tpu_torch import convert
+    from fyrox_tpu_torch.render import (CapturedFrame, RenderConfig,
+                                        build_render_template,
+                                        render_frame_demand, tile_raster)
+    from fyrox_tpu_torch.ui import Hud, compose_over
+    engine = game_frame_scene()
+    t = engine.template
+    rt = build_render_template(t)
+    cfg = RenderConfig(width=128, height=128, shadows=True)
+    frame = CapturedFrame(t, rt, cfg)
+    hud = (Hud(128, 128).add_bar("energy", x=8, y=8, w=112, h=6)
+           .add_counter("step", x=8, y=18, digits=4, scale=1))
+
+    def start(w, device):
+        st = engine.init_state(w, device=device)
+        return st._replace(physics=jitter(st.physics, engine.physics,
+                                          device, seed=5))
+
+    st = start(FRAME_WORLDS, "cuda")
+    reset_all_launches()
+    tile_raster.reset_launches()
+    out, _, peak, _ = frame_loop(engine, st, frame, hud)
+    n = all_launches()
+    n.update(full=tile_raster.launches("full"),
+             depth=tile_raster.launches("depth"))
+    if not (n["plane_gather"] and n["plane_scatter"] and n["full"]
+            and n["depth"]) or n["fused_bp"] or n["solve_tgs"]:
+        fail(f"game_frame: launches of the loop {n}")
+    if not (0.0 < peak < 10.0):
+        fail(f"game_frame: audio peak {peak}")
+    # the timed loop: the tick and the frame captured already
+    out2, kept, _, secs = frame_loop(engine, st, frame, hud,
+                                     keep=(FRAME_TICKS,))
+    same_state("game_frame: a second loop", out2, out)
+    frames = kept[FRAME_TICKS][0]
+    if not (frames.shape == (FRAME_WORLDS, 128, 128, 3)
+            and bool(torch.isfinite(frames).all())
+            and float(frames.std()) > 0.01 and all_differ(frames)):
+        fail("game_frame: the composed frames are not finite, distinct "
+             "images")
+    _, demand, caps = render_frame_demand(out.scene, t, rt, cfg)
+    dmax = [int(d) for d in demand.max(0).values.tolist()]
+    over = [(p, d, k) for p, (d, k) in enumerate(zip(dmax, caps)) if d >= k]
+    if over:
+        fail(f"game_frame: bin overflow (pass, demand, cap) {over}")
+    # W = 2: the card's run held tick by tick against the CPU, each CPU
+    # tick (render_audio(256), then Engine.step) from the card's state
+    # before it; the composed frames at FRAME_KEEP rendered on the CPU
+    # from the card's state. Whole runs part: the crates' contacts
+    # amplify the devices' last-bit differences (3.4 cm after 120 ticks
+    # on an H100 against the CPU)
+    gpu = start(2, "cuda")
+    seen = [gpu]
+    _, gk, _, _ = frame_loop(engine, gpu, frame, hud, keep=FRAME_KEEP,
+                             every=seen)
+    worst = [0.0, 0.0, 0.0, 1.0]
+    for k in range(1, FRAME_TICKS + 1):
+        prev = convert.engine_state(convert.to_numpy(seen[k - 1]),
+                                    device="cpu")
+        _, cs = engine.render_audio(prev, block_len=256)
+        cs = engine.step(cs)
+        gs = seen[k]
+        worst[0] = max(worst[0], float((gs.physics.position.cpu()
+                                        - cs.physics.position).abs().max()))
+        worst[1] = max(worst[1], float((gs.physics.linvel.cpu()
+                                        - cs.physics.linvel).abs().max()))
+        if not torch.equal(gs.audio.playhead.cpu(), cs.audio.playhead):
+            fail(f"game_frame: card vs CPU playheads differ at tick {k}")
+        if k in FRAME_KEEP:
+            sc = convert.scene_state(convert.to_numpy(gs.scene), device="cpu")
+            color, _ = frame(sc)
+            ke = 0.5 * (gs.physics.linvel.cpu() ** 2).sum((1, 2))
+            cf = compose_over(color, hud.render({
+                "energy": torch.clamp(ke / 100.0, 0.0, 1.0),
+                "step": torch.full((2,), k, dtype=torch.int32)}))
+            err = (gk[k][0].cpu() - cf).abs()
+            worst[2] = max(worst[2], float(err.max()))
+            worst[3] = min(worst[3], float((err <= 1e-4).float().mean()))
+    if not (worst[0] < 5e-4 and worst[1] < 5e-3 and worst[3] >= 0.999):
+        fail(f"game_frame: card vs CPU tick by tick: dp {worst[0]:.3g}, dv "
+             f"{worst[1]:.3g}; frames at ticks {FRAME_KEEP}: colours "
+             f"{worst[2]:.3g} max, {worst[3]:.4f} within 1e-4")
+    log(f"[game_frame] example_game.py's game: {len(engine.physics.body_type) - 1} "
+        f"crates (dense, {engine.physics.num_pairs} pairs), 16² checker "
+        f"ground, crate hum, W={FRAME_WORLDS} distinct worlds, "
+        f"{FRAME_TICKS} Executor ticks each with render_audio(256) "
+        f"(peak {peak:.3f}) and a 128² shadowed CapturedFrame + HUD "
+        f"composed in on_frame: launches of the first loop {n} (the "
+        f"tick's and the frame's warm-ups and captures); bin demand "
+        f"{list(zip(dmax, caps))}; W=2, each of {FRAME_TICKS} card ticks "
+        f"against the CPU from the card's state: dp {worst[0]:.3g} (bound "
+        f"5e-4), dv {worst[1]:.3g} (bound 5e-3), playheads equal; frames "
+        f"at ticks {FRAME_KEEP}: colours {worst[2]:.3g} max, "
+        f"{worst[3]:.4f} within 1e-4 (bound 0.999)")
+    log(f"[game_frame] the whole loop: {FRAME_TICKS / secs:.1f} frames/s "
+        f"({FRAME_TICKS * FRAME_WORLDS / secs:.1f} world-frames/s; "
+        f"{secs * 1e3 / FRAME_TICKS:.3f} ms a tick + audio + frame + HUD) "
+        f"on {CARD}")
+
+
+# --------------------------------------------------------------- navfield
+def walled_grid(side=NAV_SIDE, every=32):
+    """A side x side grid with a wall every `every` columns, open at the
+    top and the bottom row in turn: a serpentine whose longest shortest
+    path is far longer than the open grid's diameter."""
+    blocked = []
+    for k, x in enumerate(range(every, side, every)):
+        gap = side - 1 if k % 2 == 0 else 0
+        blocked += [y * side + x for y in range(side) if y != gap]
+    return blocked
+
+
+def phase_navfield():
+    """distance_field on a walled 256² grid graph, 128 sources, with
+    enough rounds for the longest shortest path: equal to the hop counts
+    of a host BFS (scipy) for every source, and to host A* costs for 8."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    from fyrox_tpu_torch.utils import (astar_search, build_grid_graph,
+                                       distance_field, pack_adjacency)
+    t0 = time.perf_counter()
+    blocked = walled_grid()
+    verts, nbrs = build_grid_graph(NAV_SIDE, NAV_SIDE, blocked)
+    idx, w = pack_adjacency(verts, nbrs)
+    n = len(verts)
+    rows = np.repeat(np.arange(n), [len(b) for b in nbrs])
+    graph = csr_matrix((np.ones(len(rows)), (rows, np.concatenate(
+        [b for b in nbrs if b] or [[]]).astype(np.int64))), shape=(n, n))
+    rng = np.random.default_rng(17)
+    free = np.setdiff1d(np.arange(n), blocked)
+    src = rng.choice(free, NAV_SOURCES, replace=False)
+    hops = shortest_path(graph, unweighted=True, indices=src)
+    iters = int(hops[np.isfinite(hops)].max()) + 1
+    setup = time.perf_counter() - t0
+    sources = torch.as_tensor(src, device="cuda")
+    dist = distance_field(idx, w, sources, num_iters=iters)
+    want = torch.as_tensor(hops.astype(np.float32), device="cuda")
+    if not torch.equal(dist, want):
+        fail(f"navfield: distance_field differs from the BFS hop counts "
+             f"({int((dist != want).sum())} of {dist.numel()})")
+    goals = rng.choice(free, NAV_ASTAR)
+    t1 = time.perf_counter()
+    for k, (s, g) in enumerate(zip(src[:NAV_ASTAR], goals)):
+        path = astar_search(verts, nbrs, int(s), int(g))
+        cost = len(path) - 1 if path else float("inf")
+        if float(dist[k, g]) != cost:
+            fail(f"navfield: A* cost {cost} from {s} to {g}, field "
+                 f"{float(dist[k, g])}")
+    astar_s = time.perf_counter() - t1
+    ms = cuda_ms(lambda: distance_field(idx, w, sources, num_iters=iters), 2)
+    default = int(2 * np.sqrt(n) + 8)
+    short = distance_field(idx, w, sources)
+    unreached = int(torch.isinf(short).sum() - torch.isinf(dist).sum())
+    log(f"[navfield] distance_field on a {NAV_SIDE}² grid graph (N={n}, "
+        f"4-connected, {len(blocked)} wall vertices, serpentine), "
+        f"Wb={NAV_SOURCES} sources, {iters} rounds (the longest shortest "
+        f"path + 1; the default {default} leaves {unreached} vertex-source "
+        f"pairs at inf): equal to a host BFS for every source and to host "
+        f"A* for {NAV_ASTAR} ({astar_s:.1f} s on the host); {ms:.2f} ms a call "
+        f"({ms / iters * 1e3:.1f} µs a round of [{NAV_SOURCES}, {n}, 4]); "
+        f"graph set-up {setup:.1f} s on the host; on {CARD}")
+
+
+# --------------------------------------------------------------- lightmap
+def world_triangles(t, rt, st, world=0):
+    """(vertex positions [V,3], normals [V,3], triangle soup [T,3,3]) of
+    the render template in world `world`'s global transforms."""
+    g = st.globals_[world, torch.as_tensor(rt.vert_node.astype(np.int64),
+                                           device=st.globals_.device)]
+    p = torch.as_tensor(rt.positions, device=g.device)
+    nrm = torch.as_tensor(rt.normals, device=g.device)
+    wp = (g[:, :3, :3] @ p[:, :, None])[..., 0] + g[:, :3, 3]
+    wn = (g[:, :3, :3] @ nrm[:, :, None])[..., 0]
+    wn = wn / torch.linalg.vector_norm(wn, dim=-1, keepdim=True)
+    tris = wp[torch.as_tensor(rt.triangles.astype(np.int64),
+                              device=g.device)]
+    return wp, wn, tris
+
+
+def phase_lightmap():
+    """bake_vertex_ao (32 rays) and bake_direct_light over bench_render.py's
+    scene (T = 4,482): card against CPU on 256 vertices; ms and
+    vertices/s over every vertex."""
+    from fyrox_tpu_torch.utils import lightmap
+    t, rt, st, _ = render_scene(1, "cuda")
+    pos, nrm, tris = world_triangles(t, rt, st)
+    v, tcount = pos.shape[0], tris.shape[0]
+    sub = torch.as_tensor(np.random.default_rng(23).choice(
+        v, LIGHTMAP_CPU_VERTS, replace=False), device="cuda")
+    sun = (0.4, -1.0, 0.3)
+    ao_ms = cuda_ms(lambda: lightmap.bake_vertex_ao(
+        pos, nrm, tris, n_rays=LIGHTMAP_RAYS, max_dist=4.0), 2)
+    dl_ms = cuda_ms(lambda: lightmap.bake_direct_light(
+        pos, nrm, tris, light_dir=sun), 2)
+    ao = lightmap.bake_vertex_ao(pos, nrm, tris, n_rays=LIGHTMAP_RAYS,
+                                 max_dist=4.0)
+    dl = lightmap.bake_direct_light(pos, nrm, tris, light_dir=sun)
+    cpu = [x.cpu() for x in (pos[sub], nrm[sub], tris)]
+    cao = lightmap.bake_vertex_ao(*cpu, n_rays=LIGHTMAP_RAYS, max_dist=4.0,
+                                  device="cpu")
+    cdl = lightmap.bake_direct_light(*cpu, light_dir=sun, device="cpu")
+    dao = float((ao[sub].cpu() - cao).abs().max())
+    ddl = float((dl[sub].cpu() - cdl).abs().max())
+    if not (dao == 0.0 and ddl <= 1e-6 and bool(torch.isfinite(ao).all())
+            and 0.0 < float(ao.mean()) < 1.0 and float(dl.max()) > 0.1):
+        fail(f"lightmap: card vs CPU AO {dao:.3g}, direct {ddl:.3g}; AO mean "
+             f"{float(ao.mean()):.3f}")
+    rows = max(1, lightmap.RAY_TRI_BUDGET // tcount)
+    log(f"[lightmap] bench_render.py's scene (V={v}, T={tcount}): "
+        f"bake_vertex_ao ({LIGHTMAP_RAYS} rays) {ao_ms:.2f} ms "
+        f"({v / ao_ms * 1e3:.0f} vertices/s, AO mean {float(ao.mean()):.3f}),"
+        f" bake_direct_light {dl_ms:.2f} ms ({v / dl_ms * 1e3:.0f} "
+        f"vertices/s); rays in batches of {rows} ({rows // LIGHTMAP_RAYS} "
+        f"vertices of AO) so a [rays, T] intermediate holds at most 2^24 "
+        f"floats; card vs CPU on "
+        f"{LIGHTMAP_CPU_VERTS} vertices: AO equal, direct light {ddl:.3g} "
+        f"max on {CARD}")
+
+
 def main():
     phase_device()
     phase_build()
@@ -5357,6 +5993,10 @@ def main():
     kg_grid, ks_grid = phase_grid_k4(engine, rolled)
     del engine, skin, rolled
     phase_brush()
+    phase_game()
+    phase_game_frame()
+    phase_navfield()
+    phase_lightmap()
     for k in (kbp, knc, k1):
         k["launches"] = n_fused[k["name"]]
     k4["launches"] = n_staged["plane_gather"]

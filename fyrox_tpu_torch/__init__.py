@@ -18,7 +18,14 @@ version instead.
 
 Entry points: ``models.build_flagship`` → ``Engine.init_state`` →
 ``Engine.step``, then ``animation.skinning``; for rendering,
-``render.build_render_template`` → ``render.render_frame``.
+``render.build_render_template`` → ``render.render_frame`` (or
+``render.CapturedFrame``, one CUDA graph a frame). The game-logic layer on
+top: ``script.Executor`` runs ``script.Script`` s (``scripts``: the stock
+camera controllers) between fixed-timestep ticks; ``utils`` holds
+pathfinding (``astar``, ``navmesh``, the batched ``navagent``), behavior
+trees, the lightmap bake and ``stats``; ``ui.Hud`` draws per-world
+overlays that ``ui.compose_over`` lays over frames; ``io.checkpoint``
+saves and resumes states; ``engine.debug_step`` is the checked tick.
 """
 import torch
 

@@ -102,8 +102,8 @@ def _mesh_data(m, memo) -> MeshData:
 def scene_template(t) -> SceneTemplate:
     """A JAX-package SceneTemplate → the port's: topology, payload
     routing, cameras, lights, meshes, sprites, decals, rectangles (their
-    textures converted), sound sources, listeners, sound buffers and LOD
-    groups."""
+    textures converted), sound sources, listeners, sound buffers, navmesh
+    nodes with their geometry, and LOD groups."""
     names = ("parent", "node_type", "names", "levels", "depth", "payload",
              "init_position", "init_rotation", "init_scale",
              "init_visibility", "init_enabled", "init_lifetime",
@@ -113,6 +113,10 @@ def scene_template(t) -> SceneTemplate:
              "local_bbox_max", "cameras", "lights", "sprites", "decals",
              "rectangles", "sounds", "listeners")
     out = _copy(t, SceneTemplate, names)
+    out.navmeshes = {k: np.asarray(v)
+                     for k, v in (getattr(t, "navmeshes", None) or {}).items()}
+    out.navmesh_data = [(np.asarray(v, np.float32), np.asarray(f, np.int32))
+                        for v, f in getattr(t, "navmesh_data", None) or []]
     memo = {}
     out.meshes = [_mesh_data(m, memo) for m in t.meshes]
     out.rect_textures = [texture(x, memo) for x in t.rect_textures]

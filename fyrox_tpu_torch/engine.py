@@ -19,7 +19,8 @@ per tick, the reference's audio-thread cadence.
 
 ``Engine.rollout`` runs N ticks; on the card it replays one captured CUDA
 graph of a tick (the JAX package's one ``lax.scan`` dispatch).
-``world_health`` / ``restore_unhealthy`` find and reset diverged worlds.
+``world_health`` / ``restore_unhealthy`` find and reset diverged worlds;
+``debug_step`` is the checked tick (the JAX package's checkify step).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from fyrox_tpu_torch.animation import rootmotion as rm_mod
 from fyrox_tpu_torch.animation import track as track_mod
 from fyrox_tpu_torch.core import quat
 from fyrox_tpu_torch.core import transform as tfm
+from fyrox_tpu_torch.physics import plane_ops
 from fyrox_tpu_torch.physics import world as phys_mod
 from fyrox_tpu_torch.scene import graph as graph_mod
 from fyrox_tpu_torch.scene import particles as particles_mod
@@ -47,9 +49,14 @@ from fyrox_tpu_torch.sound import scene as sound_scene
 from fyrox_tpu_torch.sound.engine import DistanceModel
 
 __all__ = ["Engine", "EngineState", "AnimState", "DEFAULT_DT",
-           "world_health", "restore_unhealthy"]
+           "world_health", "restore_unhealthy", "debug_step", "StepError",
+           "DebugStepError"]
 
 DEFAULT_DT = 1.0 / 60.0  # executor.rs:87
+
+# the checks of a debug_step tick in progress (a _Checks); None otherwise,
+# and then a tick checks nothing
+_CHECKS = None
 
 
 class AnimState(NamedTuple):
@@ -197,12 +204,16 @@ class Engine:
             # the root-motion branch's pose
             if self.root_motion is None:
                 scene = scene._replace(position=p, rotation=r, scale=s)
+            if _CHECKS is not None:
+                _CHECKS.stage("animation", animation=anim, scene=scene)
 
         # ---- 2. hierarchy (pre-physics) ----
         skip_pre = (state.physics is not None and self.physics is not None
                     and self._bodies_at_root())
         scene = graph_mod.step(scene, self.template, dt,
                                update_hierarchy=not skip_pre)
+        if _CHECKS is not None:
+            _CHECKS.stage("hierarchy", scene=scene)
 
         # ---- 3+4+5. physics, body → node sync, refresh ----
         phys = state.physics
@@ -211,13 +222,21 @@ class Engine:
                 phys = self._drive_root_body(phys, rm_delta, dt)
             phys = phys_mod.step_physics(phys, self.physics, dt, fused=fused,
                                          bp_rank=bp_rank)
+            if _CHECKS is not None:
+                _CHECKS.stage("physics", physics=phys)
             scene = self._sync_bodies_to_nodes(scene, phys)
+            if _CHECKS is not None:
+                _CHECKS.stage("sync", scene=scene)
             scene = graph_mod.update_hierarchical_data(scene, self.template)
+            if _CHECKS is not None:
+                _CHECKS.stage("refresh", scene=scene)
 
         # ---- 6. particle systems ----
         parts = state.particles
         if parts is not None and self.particles is not None:
             parts = particles_mod.step_particles(parts, self.particles, dt)
+            if _CHECKS is not None:
+                _CHECKS.stage("particles", particles=parts)
         return EngineState(scene=scene, physics=phys, animation=anim,
                            particles=parts, audio=state.audio)
 
@@ -497,3 +516,144 @@ def restore_unhealthy(state: EngineState,
                            fb)
 
     return _map(fix, state, fallback)
+
+
+# --------------------------------------------------------------------------
+# debug_step: the checked tick
+# --------------------------------------------------------------------------
+
+class DebugStepError(RuntimeError):
+    """What ``StepError.throw`` raises."""
+
+
+class StepError:
+    """The verdict of one ``debug_step`` tick (checkify's Error): device
+    flags, read once by ``get`` or ``throw``."""
+
+    def __init__(self, flags):
+        self._flags = flags         # [(kind, stage, tensor name, flag)]
+        self._read = False
+        self._msg = None
+
+    def get(self):
+        """None for a healthy tick; else "<kind> in stage <stage>: <tensor>"
+        of the first check that fired (kind "nan", "inf" or "index"), in
+        stage order. One host read, the first time."""
+        if not self._read and self._flags:
+            hit = torch.stack([f for *_, f in self._flags]).cpu().tolist()
+            self._msg = next((f"{kind} in stage {stage}: {name}"
+                              for (kind, stage, name, _), h in
+                              zip(self._flags, hit) if h), None)
+        self._read = True
+        return self._msg
+
+    def throw(self):
+        """Raise DebugStepError where a check fired."""
+        msg = self.get()
+        if msg is not None:
+            raise DebugStepError(msg)
+
+    def __repr__(self):
+        return f"StepError({self.get()!r})"
+
+
+def _named_leaves(prefix, tree):
+    """(dotted field path, tensor) of every tensor in a nest of
+    NamedTuples / tuples."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", None) or [
+            str(i) for i in range(len(tree))]
+        for name, field in zip(names, tree):
+            yield from _named_leaves(f"{prefix}.{name}", field)
+
+
+class _Checks:
+    """The flags of one checked tick. ``stage`` flags every NaN, and every
+    inf but in `lifetime` (+inf is its "unlimited" sentinel), in a stage's
+    floating outputs; ``index`` flags a gather index out of range (the
+    physics wrappers of K4a / K4b report theirs through
+    ``plane_ops._INDEX_CHECKS``), attributed to the stage that ends
+    next."""
+
+    def __init__(self):
+        self.flags = []
+        self.pending = []
+
+    def index(self, name, bad):
+        self.pending.append((name, bad))
+
+    def stage(self, stage, **values):
+        self.pending += plane_ops._INDEX_CHECKS or []
+        if plane_ops._INDEX_CHECKS:
+            plane_ops._INDEX_CHECKS.clear()
+        for name, bad in self.pending:
+            self.flags.append(("index", stage, name, bad))
+        self.pending = []
+        for prefix, tree in values.items():
+            for name, x in _named_leaves(prefix, tree):
+                if not x.is_floating_point() or x.numel() == 0:
+                    continue
+                self.flags.append(("nan", stage, name, torch.isnan(x).any()))
+                if not name.endswith(".lifetime"):
+                    self.flags.append(("inf", stage, name,
+                                       torch.isinf(x).any()))
+
+
+def _checked_indices(engine: Engine, state: EngineState, checks: _Checks):
+    """Flag the ABSM's state indices (MachineState.current / source) that
+    are no valid index of the machine's states (below -n or at n and
+    above: a negative one counts from the end, as in numpy), and return
+    the state with those set to 0, so that the tick's gathers stay in
+    range and the card's context survives (checkify's errors can be
+    recovered: a device assert cannot)."""
+    anim = state.animation
+    if anim is None or anim.machine is None or engine.machine is None:
+        return state
+    n = len(engine.machine.state_names)
+    ms = anim.machine
+    fixed = {}
+    for f in ("current", "source"):
+        idx = getattr(ms, f)
+        bad = (idx < -n) | (idx >= n)
+        checks.index(f"animation.machine.{f}", bad.any())
+        fixed[f] = torch.where(bad, torch.zeros_like(idx), idx)
+    return state._replace(animation=anim._replace(
+        machine=ms._replace(**fixed)))
+
+
+def debug_step(engine: Engine, **step_kwargs):
+    """The checked tick: the counterpart of the JAX package's checkify step
+    (float and index checks over a whole step; the reference's debug-assert
+    builds and catch_unwind around physics, physics/mod.rs:1188).
+
+    Returns step_fn(state, **kw) -> (StepError, new_state). The tick is
+    ``engine.step(state, **step_kwargs, **kw)`` with device-side flags kept
+    after each of its stages (animation, hierarchy, physics, sync,
+    refresh, particles): any NaN, and any inf outside the lifetime
+    sentinel, in the stage's floating outputs; the ABSM's state indices
+    read from the state; and the index tensors given to K4a
+    (``plane_gather``) and K4b (``plane_scatter``), where -1 (K4b's
+    dropped row, K4a's zero row) is no error. ``error.get()`` reads the
+    flags once and names the kind ("nan", "inf" or "index"), the stage and
+    the tensor; ``error.throw()`` raises ``DebugStepError``. The fused
+    hand kernels (K3, K2, K1) and K5 are checked at the stage boundaries,
+    by their outputs, not inside the kernels. An out-of-range ABSM index
+    is flagged and then read as 0, so the tick stays in range. No check
+    runs in a plain ``Engine.step``. A debug tool: eager only, never
+    captured, its cost against a plain tick is in PERF.md."""
+
+    def step(state, **kw):
+        global _CHECKS
+        checks = _Checks()
+        state = _checked_indices(engine, state, checks)
+        _CHECKS, plane_ops._INDEX_CHECKS = checks, []
+        try:
+            out = engine.step(state, **step_kwargs, **kw)
+            checks.stage("end")
+        finally:
+            _CHECKS, plane_ops._INDEX_CHECKS = None, None
+        return StepError(checks.flags), out
+
+    return step

@@ -27,6 +27,9 @@ __all__ = ["plane_gather", "plane_gather_plain", "gather_rows",
            "rank_rows", "count_lt", "launches", "reset_launches"]
 
 _LAUNCHES = {"plane_gather": 0, "plane_scatter": 0}
+# a list while engine.debug_step runs a tick: each call appends
+# (name, device flag of an index below -1 or at or above N); None otherwise
+_INDEX_CHECKS = None
 
 
 def launches(name: str) -> int:
@@ -95,9 +98,17 @@ def _plane_gather_cuda(planes, idx):
                    out.data_ptr(), w, a, n, k, 0 if wp == 1 else a * n)
 
 
+def _note_indices(name, idx, n):
+    """Under engine.debug_step: flag any index below -1 or at or above n
+    (-1 is the padding row both kernels take by design)."""
+    if _INDEX_CHECKS is not None and idx.numel():
+        _INDEX_CHECKS.append((f"{name} idx", ((idx < -1) | (idx >= n)).any()))
+
+
 def plane_gather(planes, idx):
     """Dispatch: CPU tensors → plain version; CUDA tensors → the kernel
     (which raises on anything it does not take)."""
+    _note_indices("plane_gather", idx, planes.shape[2])
     if planes.is_cuda:
         return _plane_gather_cuda(planes, idx)
     return plane_gather_plain(planes, idx)
@@ -147,6 +158,7 @@ def _plane_scatter_cuda(vals, idx, n):
 def plane_scatter(vals, idx, n):
     """Dispatch: CPU tensors → plain version; CUDA tensors → the kernel
     (which raises on anything it does not take)."""
+    _note_indices("plane_scatter", idx, n)
     if vals.is_cuda:
         return _plane_scatter_cuda(vals, idx, n)
     return plane_scatter_plain(vals, idx, n)

@@ -60,9 +60,9 @@ class _Ctx:
     def __init__(self, t):
         sc = t.grid
         if not isinstance(sc, bp_mod.SlabConfig):
-            raise NotImplementedError("the torch port steps slab templates "
-                                      "only (dense and grid broadphases "
-                                      "are not ported)")
+            raise NotImplementedError(
+                "slab2 steps slab templates only; dense and grid templates "
+                "take their own routes in physics/world.py")
         self.c, self.b = t.num_colliders, t.num_bodies
         self.cg = int(sc.grid_cols.size)
         self.s_active = int(sc.s_active)

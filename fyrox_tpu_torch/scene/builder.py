@@ -2,7 +2,8 @@
 ``fyrox_tpu.scene.builder`` for the node kinds the port uses).
 
 Pivots, rigid-body nodes, cameras, lights, meshes, sprites, decals,
-rectangles, sound sources, listeners and LOD groups are supported, and
+rectangles, sound sources, listeners, navmeshes and LOD groups are
+supported, and
 ``instantiate`` copies one builder's nodes into another.
 """
 from __future__ import annotations
@@ -55,6 +56,8 @@ class SceneBuilder:
         self._listeners: dict = dict(node=[])
         self._rects: dict = dict(node=[], color=[], uv_rect=[], texture=[])
         self._rect_textures: list = []
+        self._navmeshes: dict = dict(node=[], data=[])
+        self._navmesh_data: list = []
         self.extras: dict = {}
 
     def add_node(self, name="node", parent=-1, node_type=NodeType.PIVOT,
@@ -201,6 +204,21 @@ class SceneBuilder:
         r["texture"].append(tex)
         return idx
 
+    # -- NavigationalMesh (scene/navmesh.rs:81) -----------------------------
+    def add_navmesh(self, vertices, triangles, name="navmesh", parent=-1,
+                    **kw) -> int:
+        """NavigationalMesh node: navmesh geometry in the scene graph, its
+        vertices node-local. ``utils.navagent.template_navmesh`` bakes the
+        node's template transform in and returns a ``utils.navmesh.Navmesh``
+        for pathfinding; ``BatchedNavAgents`` steers along it."""
+        idx = self.add_node(name, parent, NodeType.NAVMESH, **kw)
+        self._nodes[idx].payload = len(self._navmeshes["node"])
+        self._navmesh_data.append((np.asarray(vertices, np.float32),
+                                   np.asarray(triangles, np.int32)))
+        self._navmeshes["node"].append(idx)
+        self._navmeshes["data"].append(len(self._navmesh_data) - 1)
+        return idx
+
     def add_lod_group(self, levels):
         """Attach a LOD group (LodGroup, scene/base.rs:129): levels is a
         list of (begin, end, [node indices]), begin / end the normalised
@@ -227,9 +245,10 @@ class SceneBuilder:
         """Copy another builder's nodes into this scene with their handles
         remapped (Model::instantiate, resource/model/mod.rs:354) under an
         inserted pivot that takes the optional transform; returns the
-        pivot. Camera, light, mesh, sprite, sound, listener and rectangle
-        payloads are remapped (sound buffers and rectangle textures
-        too), as the JAX package's ``instantiate`` does."""
+        pivot. Camera, light, mesh, sprite, sound, listener, rectangle and
+        navmesh payloads are remapped (sound buffers, rectangle textures
+        and navmesh geometry too), as the JAX package's ``instantiate``
+        does."""
         import copy
         kw = {k: v for k, v in (("position", position),
                                 ("rotation", rotation), ("scale", scale))
@@ -244,8 +263,10 @@ class SceneBuilder:
             NodeType.MESH: len(self._meshes),
             NodeType.SOUND: len(self._sounds["node"]),
             NodeType.LISTENER: len(self._listeners["node"]),
-            NodeType.RECTANGLE: len(self._rects["node"])}
+            NodeType.RECTANGLE: len(self._rects["node"]),
+            NodeType.NAVMESH: len(self._navmeshes["node"])}
         buf_off = len(self._sound_buffers)
+        navd_off = len(self._navmesh_data)
         rtex_off = len(self._rect_textures)
         for rec in prefab._nodes:
             rec2 = copy.deepcopy(rec)
@@ -275,6 +296,9 @@ class SceneBuilder:
         extend(self._rects, prefab._rects,
                {"texture": lambda v: v + rtex_off if v >= 0 else v})
         self._rect_textures.extend(prefab._rect_textures)
+        extend(self._navmeshes, prefab._navmeshes,
+               {"data": lambda v: v + navd_off})
+        self._navmesh_data.extend(prefab._navmesh_data)
         return root
 
     def build(self) -> SceneTemplate:
@@ -318,5 +342,7 @@ class SceneBuilder:
             sound_buffers=list(self._sound_buffers),
             rectangles={k: np.asarray(v) for k, v in self._rects.items()},
             rect_textures=list(self._rect_textures),
+            navmeshes={k: np.asarray(v) for k, v in self._navmeshes.items()},
+            navmesh_data=list(self._navmesh_data),
             extras=dict(self.extras),
         )

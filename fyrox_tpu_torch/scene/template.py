@@ -1,8 +1,8 @@
 """Scene templates: the static, host-side half of a scene.
 
 Same layout as ``fyrox_tpu.scene.template`` (topology, node types, payload
-routing, initial local transforms, local bounding boxes, the render
-and sound payloads), kept as numpy.
+routing, initial local transforms, local bounding boxes, the render,
+sound and navmesh payloads), kept as numpy.
 The port carries its own copy because the JAX package cannot be imported
 on a machine without JAX; a CPU test holds the two equal.
 """
@@ -84,6 +84,10 @@ class SceneTemplate:
     # quad in the node's local XY plane
     rectangles: dict = field(default_factory=dict)  # SoA (node, color,
     rect_textures: list = field(default_factory=list)  # uv_rect, texture)
+    # NavigationalMesh nodes (scene/navmesh.rs:81): node-local navmesh
+    # geometry; utils.navagent.template_navmesh bakes the node's transform
+    navmeshes: dict = field(default_factory=dict)  # SoA (node, data index)
+    navmesh_data: list = field(default_factory=list)  # (verts, tris) pairs
     # builder-attached extras; "lod_groups": [[(begin, end, [nodes])...]]
     extras: dict = field(default_factory=dict)
 

@@ -345,6 +345,50 @@ def test_port_imports_and_builds_without_jax():
             hs = step_physics(init_physics_state(hpb, ht, 2, device="cpu"),
                               ht, 1 / 60)
             assert float(hs.position[0, 1, 1]) < 1.0
+        import tempfile
+        from fyrox_tpu_torch import script, scripts, ui, utils
+        from fyrox_tpu_torch.core import mathutil
+        from fyrox_tpu_torch.io import checkpoint, visitor
+        from fyrox_tpu_torch.ui import core, hud, renderer
+        from fyrox_tpu_torch.utils import (astar, behavior, lightmap,
+                                           navagent, navmesh, stats)
+        err, dst = engine.debug_step(e)(st)
+        assert err.get() is None
+        ex = script.Executor(e, st)
+        cam = scripts.FlyingCameraController(e.template.names.index(
+            "main_camera"), 2, device="cpu")
+        ex.scripts.add(cam)
+        gs2 = ex.run(2 / 60)
+        with tempfile.TemporaryDirectory() as tmp:
+            checkpoint.save_state(gs2, tmp + "/s.npz")
+            back = checkpoint.load_state(st, tmp + "/s.npz")
+        assert torch.equal(back.physics.position, gs2.physics.position)
+        assert visitor.read_rgs(checkpoint.state_to_visitor(gs2, e.template)
+                                )[0].child("Scene") is not None
+        v, nb = astar.build_grid_graph(4, 4)
+        ai, aw = astar.pack_adjacency(v, nb, device="cpu")
+        assert astar.distance_field(ai, aw, torch.tensor([0]))[0, 15] == 6
+        nsb = SceneBuilder()
+        nsb.add_navmesh(np.asarray([[0, 0, 0], [1, 0, 0], [0, 0, 1]],
+                                   np.float32), np.asarray([[0, 1, 2]]))
+        nm = navagent.template_navmesh(nsb.build())
+        ag = navagent.BatchedNavAgents()
+        nst = ag.plan(nm, [[0.1, 0, 0.1]], [[0.5, 0, 0.2]], device="cpu")
+        assert ag.steer(nst, torch.zeros(1, 3), 1.0, 1 / 60)[0].shape == (
+            1, 3)
+        bt = behavior.BehaviorTreeBuilder()
+        bt.leaf(bt.sequence())
+        assert bt.build().tick(torch.zeros(2, 1)).tolist() == [0, 0]
+        assert lightmap.bake_vertex_ao(torch.zeros(1, 3), torch.tensor(
+            [[0.0, 1.0, 0.0]]), torch.zeros(0, 3, 3), n_rays=4,
+            device="cpu").tolist() == [1.0]
+        ps = stats.PerformanceStatistics()
+        with ps.measure("x", block_on=gs2):
+            pass
+        h = ui.Hud(8, 16).add_bar("hp", 0, 0, 8, 2)
+        assert ui.compose_over(torch.zeros(2, 8, 16, 3), h.render(
+            {"hp": torch.ones(2)})).shape == (2, 8, 16, 3)
+        assert mathutil.wrap_angle(-1.0) > 0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

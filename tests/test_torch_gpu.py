@@ -1075,3 +1075,115 @@ def test_public_names_on_the_card(cuda):
         convert.to_numpy(st), device="cpu"), t)
     for a, b in zip(cpu, card):
         assert (a - b.cpu()).abs().max() <= 1e-5
+
+
+def test_executor_replays_equal_eager_ticks_and_resume(cuda, tmp_path):
+    """script.Executor on the card (captured ticks) equals the same script
+    calls and eager Engine.step ticks, bit for bit; a run saved, loaded
+    into a fresh state and resumed equals the whole run."""
+    from fyrox_tpu_torch.engine import _leaves
+    from fyrox_tpu_torch.io import load_state, save_state
+    from fyrox_tpu_torch.script import Executor, Script, ScriptProcessor
+
+    class Push(Script):
+        def on_update(self, ctx):
+            ph = ctx.state.physics
+            lv = ph.linvel.clone()
+            lv[:, 1, 0] += 0.05
+            ctx.state = ctx.state._replace(physics=ph._replace(linvel=lv))
+
+    e, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+    st = e.init_state(4, device=cuda)
+    ex = Executor(e, st)
+    ex.scripts.add(Push())
+    whole = ex.run(12 / 60)
+    sp = ScriptProcessor()
+    sp.add(Push())
+    s = st
+    for _ in range(12):
+        s = e.step(sp.update(e, s, 1 / 60))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(whole), _leaves(s)))
+    first = Executor(e, st)
+    first.scripts.add(Push())
+    save_state(first.run(6 / 60), str(tmp_path / "s.npz"))
+    second = Executor(e, load_state(e.init_state(4, device=cuda),
+                                    str(tmp_path / "s.npz")))
+    second.scripts.add(Push())
+    got = second.run(6 / 60)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(got),
+                                                 _leaves(whole)))
+
+
+def test_debug_step_on_the_card(cuda):
+    """debug_step on the card: None on a healthy tick, "nan" in the physics
+    stage for a NaN velocity, and an ABSM index past the states flagged
+    with the tick carried on (no device assert)."""
+    from fyrox_tpu_torch.engine import debug_step, world_health
+    e, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+    st = e.step(e.init_state(4, device=cuda))
+    dbg = debug_step(e)
+    assert dbg(st)[0].get() is None
+    lv = st.physics.linvel.clone()
+    lv[1, 3, 0] = float("nan")
+    msg = dbg(st._replace(physics=st.physics._replace(linvel=lv)))[0].get()
+    assert msg.startswith("nan in stage physics"), msg
+    m = st.animation.machine
+    cur = m.current.clone()
+    cur[2] = 99
+    err, out = dbg(st._replace(animation=st.animation._replace(
+        machine=m._replace(current=cur))))
+    assert err.get() == "index in stage animation: animation.machine.current"
+    assert bool(world_health(out).all())
+    torch.cuda.synchronize()
+
+
+def test_game_loop_modules_on_the_card_match_the_cpu(cuda):
+    """distance_field, the lightmap bakes, behavior ticks, nav steering and
+    the HUD on the card equal the CPU."""
+    from fyrox_tpu_torch.ui import Hud, compose_over
+    from fyrox_tpu_torch.utils import (BatchedNavAgents, BehaviorTreeBuilder,
+                                       Navmesh, build_grid_graph,
+                                       distance_field, lightmap,
+                                       pack_adjacency)
+    rng = np.random.default_rng(3)
+    blocked = [y * 16 + 8 for y in range(15)]
+    v, nb = build_grid_graph(16, 16, blocked)
+    src = torch.as_tensor(rng.choice(200, 6, replace=False))
+    d = [distance_field(*pack_adjacency(v, nb, device=dev), src.to(dev),
+                        num_iters=80) for dev in ("cpu", cuda)]
+    assert torch.equal(d[0], d[1].cpu())
+    tris = rng.uniform(-1, 1, (40, 3, 3)).astype(np.float32)
+    pts = rng.uniform(-1, 1, (30, 3)).astype(np.float32)
+    nrm = rng.normal(size=(30, 3)).astype(np.float32)
+    for fn in (lambda dev: lightmap.bake_vertex_ao(pts, nrm, tris, 16,
+                                                   device=dev),
+               lambda dev: lightmap.bake_direct_light(
+                   pts, nrm, tris, light_pos=(0, 2, 0), device=dev)):
+        a, b = fn("cpu"), fn(cuda)
+        assert (a - b.cpu()).abs().max() <= 1e-6
+    b = BehaviorTreeBuilder()
+    root = b.selector()
+    seq = b.sequence(parent=root)
+    b.leaf(seq)
+    b.leaf(b.inverter(parent=seq))
+    b.leaf(root)
+    tree = b.build(root)
+    leaves = torch.as_tensor(rng.integers(0, 3, (64, 3)).astype(np.int32))
+    assert torch.equal(tree.tick(leaves), tree.tick(leaves.to(cuda)).cpu())
+    verts = np.asarray([[0, 0, 0], [0, 0, 1], [1, 0, 0], [1, 0, 1]],
+                       np.float32)
+    nm = Navmesh(verts, np.asarray([[0, 2, 3], [0, 3, 1]], np.int32))
+    ag = BatchedNavAgents()
+    starts, goals = [[0.1, 0, 0.1]] * 3, [[0.9, 0, 0.8]] * 3
+    pos = torch.as_tensor(rng.uniform(0, 1, (3, 3)).astype(np.float32))
+    for dev in ("cpu", cuda):
+        vel, st = ag.steer(ag.plan(nm, starts, goals, device=dev),
+                           pos.to(dev), 1.5, 1 / 60)
+        if dev == "cpu":
+            want = vel
+    assert (vel.cpu() - want).abs().max() <= 1e-6
+    hud = Hud(32, 64).add_bar("hp", 2, 2, 60, 4).add_counter("n", 2, 10, 3)
+    vals = {"hp": torch.as_tensor([0.3, 0.8]), "n": torch.as_tensor([7, 512])}
+    got = [compose_over(torch.zeros(2, 32, 64, 3, device=dev), hud.render(
+        {k: x.to(dev) for k, x in vals.items()})) for dev in ("cpu", cuda)]
+    assert (got[0] - got[1].cpu()).abs().max() <= 1e-6
