@@ -26,6 +26,10 @@ pathfinding (``astar``, ``navmesh``, the batched ``navagent``), behavior
 trees, the lightmap bake and ``stats``; ``ui.Hud`` draws per-world
 overlays that ``ui.compose_over`` lays over frames; ``io.checkpoint``
 saves and resumes states; ``engine.debug_step`` is the checked tick.
+The content path runs on the host: ``io.load_scene`` (.rgs),
+``io.gltf.load_gltf``, ``sound.ogg.load_ogg``, ``scene.tilemap`` and the
+``resource.ResourceManager`` that loads them by extension; on top of them
+``editor.EditorSession``, ``plugin.PluginHost`` and the ``tools`` CLI.
 """
 import torch
 

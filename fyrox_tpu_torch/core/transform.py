@@ -84,22 +84,29 @@ def local_matrix(t: Transform):
     def _v(x):
         return zeros if x is None else x
 
+    # the 3-term products are summed in index order, not by torch.sum,
+    # whose reduction order differs between the card and the CPU: a scene
+    # graph pass with pivot terms is then bit-equal on both
     rot = quat.to_mat3(t.rotation)
     if t.pre_rotation is not None:
-        pre = quat.to_mat3(t.pre_rotation)
-        rot = torch.sum(pre[..., :, :, None] * rot[..., None, :, :], -2)
+        rot = _mat3_mul(quat.to_mat3(t.pre_rotation), rot)
     if t.post_rotation is not None:
         # the reference stores inverse(post_rotation) (transform.rs:160)
-        post_inv = quat.to_mat3(t.post_rotation).transpose(-1, -2)
-        rot = torch.sum(rot[..., :, :, None] * post_inv[..., None, :, :], -2)
+        rot = _mat3_mul(rot, quat.to_mat3(t.post_rotation).transpose(-1, -2))
     rp, roff = _v(t.rotation_pivot), _v(t.rotation_offset)
     sp, soff = _v(t.scaling_pivot), _v(t.scaling_offset)
     s = t.scale
     linear = rot * s[..., None, :]
-    inner = soff + sp - s * sp - rp
-    translation = torch.sum(rot * inner[..., None, :], -1) + t.position \
-        + roff + rp
+    inner = (soff + sp - s * sp - rp)[..., None, :]
+    translation = (rot[..., 0] * inner[..., 0] + rot[..., 1] * inner[..., 1]
+                   + rot[..., 2] * inner[..., 2]) + t.position + roff + rp
     return _assemble(linear, translation)
+
+
+def _mat3_mul(a, b):
+    """a @ b for [..., 3, 3], each entry summed in index order."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
 
 
 def transform_point(m, p):

@@ -26,7 +26,7 @@ from fyrox_tpu_torch.scene import init_state
 from fyrox_tpu_torch.sound.engine import SAMPLE_RATE
 
 __all__ = ["build_flagship", "build_character_scene", "build_pile_scene",
-           "assemble_flagship"]
+           "assemble_flagship", "assemble_imported"]
 
 # slab windows sized from the measured demand of the settled 1k pile
 SLAB_WINDOW = (12, 8, 10)
@@ -202,8 +202,23 @@ def _build_flagship_real(asset, n_bodies=64, seed=0):
     _, _, skin, aset = fbx_to_engine(asset, scene_builder=sb)
     if skin is None:
         raise ValueError("real_asset has no skin deformer")
+    return assemble_imported(sb, skin, aset, n_bodies=n_bodies, seed=seed)
+
+
+def assemble_imported(sb, skin, aset, n_bodies=64, seed=0, hum=None):
+    """The flagship around an imported character already in `sb` (an FBX's
+    or a glTF's scene, its SkinTemplate and AnimationSet, on the plain
+    player): build_pile_scene's pile (slab broadphase from 192 bodies,
+    dense below), optionally `hum` (mono samples) as a Sound on the skin's
+    first bone, a camera (with the hum, a listener on it). Returns
+    (Engine, SkinTemplate)."""
     pb, _ = build_pile_scene(sb, n_bodies=n_bodies, seed=seed + 1)
-    sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    if hum is not None:
+        sb.add_sound(hum, name="character_hum", parent=int(skin.bones[0]),
+                     radius=1.0, max_distance=40.0)
+    cam = sb.add_camera("main_camera", position=(0, 3.0, -10.0))
+    if hum is not None:
+        sb.add_listener("ears", parent=cam)
     template = sb.build()
     if n_bodies >= 192:
         pt = pb.build(broadphase="slab", slab_window=SLAB_WINDOW)

@@ -18,6 +18,8 @@ from fyrox_tpu_torch.scene.template import NodeType, SceneTemplate
 __all__ = ["SceneBuilder"]
 
 _IDENT_Q = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+_PIVOT_TERMS = ("pre_rotation", "post_rotation", "rotation_offset",
+                "rotation_pivot", "scaling_offset", "scaling_pivot")
 
 
 @dataclass
@@ -31,6 +33,12 @@ class _NodeRec:
     visibility: bool = True
     enabled: bool = True
     lifetime: float = np.inf
+    pre_rotation: Optional[np.ndarray] = None
+    post_rotation: Optional[np.ndarray] = None
+    rotation_offset: Optional[np.ndarray] = None
+    rotation_pivot: Optional[np.ndarray] = None
+    scaling_offset: Optional[np.ndarray] = None
+    scaling_pivot: Optional[np.ndarray] = None
     bbox_min: Optional[np.ndarray] = None
     bbox_max: Optional[np.ndarray] = None
     payload: int = -1
@@ -63,7 +71,10 @@ class SceneBuilder:
     def add_node(self, name="node", parent=-1, node_type=NodeType.PIVOT,
                  position=(0, 0, 0), rotation=None, scale=(1, 1, 1),
                  visibility=True, enabled=True, lifetime=np.inf,
-                 bbox=None) -> int:
+                 bbox=None, **extra) -> int:
+        """`extra`: the FBX / .rgs pivot terms (pre_rotation,
+        post_rotation, rotation_offset, rotation_pivot, scaling_offset,
+        scaling_pivot); a node without one takes the identity."""
         rec = _NodeRec(
             name=name, parent=int(parent), node_type=int(node_type),
             position=np.asarray(position, np.float32),
@@ -72,6 +83,11 @@ class SceneBuilder:
             scale=np.asarray(scale, np.float32),
             visibility=bool(visibility), enabled=bool(enabled),
             lifetime=float(lifetime))
+        for k in _PIVOT_TERMS:
+            if extra.get(k) is not None:
+                setattr(rec, k, np.asarray(extra.pop(k), np.float32))
+        if extra:
+            raise TypeError(f"add_node: unexpected arguments {sorted(extra)}")
         if bbox is not None:
             rec.bbox_min = np.asarray(bbox[0], np.float32)
             rec.bbox_max = np.asarray(bbox[1], np.float32)
@@ -310,6 +326,13 @@ class SceneBuilder:
             return (np.stack([np.asarray(get(r), dtype) for r in self._nodes])
                     if n else np.zeros((0,) + shape, dtype))
 
+        def opt_stack(attr, identity):
+            vals = [getattr(r, attr) for r in self._nodes]
+            if all(v is None for v in vals):
+                return None
+            return np.stack([identity if v is None else v
+                             for v in vals]).astype(np.float32)
+
         has_bbox = any(r.bbox_min is not None for r in self._nodes)
         zero3 = np.zeros(3, np.float32)
         return SceneTemplate(
@@ -325,6 +348,12 @@ class SceneBuilder:
             init_visibility=stack(lambda r: r.visibility, (), bool),
             init_enabled=stack(lambda r: r.enabled, (), bool),
             init_lifetime=stack(lambda r: r.lifetime, ()),
+            init_pre_rotation=opt_stack("pre_rotation", _IDENT_Q),
+            init_post_rotation=opt_stack("post_rotation", _IDENT_Q),
+            init_rotation_offset=opt_stack("rotation_offset", zero3),
+            init_rotation_pivot=opt_stack("rotation_pivot", zero3),
+            init_scaling_offset=opt_stack("scaling_offset", zero3),
+            init_scaling_pivot=opt_stack("scaling_pivot", zero3),
             local_bbox_min=(np.stack([zero3 if r.bbox_min is None
                                       else r.bbox_min for r in self._nodes])
                             if has_bbox else None),

@@ -192,6 +192,14 @@ def test_port_imports_and_builds_without_jax():
         sys.modules["fyrox_tpu"] = None
         import torch
         torch.set_num_threads(2)           # as the test files run torch
+        # no quiet fallback: a loader that fails to import fails the
+        # resource manager's import
+        sys.modules["fyrox_tpu_torch.io.gltf"] = None
+        try:
+            import fyrox_tpu_torch.resource
+            raise SystemExit("resource imported without its glTF loader")
+        except ImportError:
+            del sys.modules["fyrox_tpu_torch.io.gltf"]
         import fyrox_tpu_torch
         from fyrox_tpu_torch import convert, engine, kernels
         from fyrox_tpu_torch.models import build_flagship
@@ -389,6 +397,23 @@ def test_port_imports_and_builds_without_jax():
         assert ui.compose_over(torch.zeros(2, 8, 16, 3), h.render(
             {"hp": torch.ones(2)})).shape == (2, 8, 16, 3)
         assert mathutil.wrap_angle(-1.0) > 0
+        from fyrox_tpu_torch import editor, plugin, resource, tools
+        from fyrox_tpu_torch.core import log, task
+        from fyrox_tpu_torch.io import gltf, inheritance, rgs_scene
+        from fyrox_tpu_torch.scene import tilemap
+        from fyrox_tpu_torch.sound import ogg, vorbis
+        from fyrox_tpu_torch.utils import autotile, commands, watcher
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(tmp + "/s.rgs", "wb") as f:
+                f.write(visitor.write_rgs(chip_smoke.fyrox_scene(n_nodes=12)))
+            with open(tmp + "/c.glb", "wb") as f:
+                f.write(chip_smoke.character_glb(n_bones=4, n_verts=30))
+            rm = resource.ResourceManager()
+            rs, rg = (rm.request(tmp + p).wait(30) for p in ("/s.rgs",
+                                                             "/c.glb"))
+            rm.shutdown()
+        assert rs.is_ok() and rs.data.num_nodes == 12 and rg.is_ok()
+        assert rg.data.skins[0].num_vertices == 30
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

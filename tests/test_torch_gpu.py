@@ -1187,3 +1187,68 @@ def test_game_loop_modules_on_the_card_match_the_cpu(cuda):
     got = [compose_over(torch.zeros(2, 32, 64, 3, device=dev), hud.render(
         {k: x.to(dev) for k, x in vals.items()})) for dev in ("cpu", cuda)]
     assert (got[0] - got[1].cpu()).abs().max() <= 1e-6
+
+
+def test_gltf_import_steps_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A .glb of a small character loaded through the resource manager,
+    built with a 192-body pile (the fused route): K3, K2 and K1 once a tick
+    on the card, within the CPU suite's trajectory bounds of the same
+    ticks on the CPU, skinned meshes within 1e-3."""
+    import chip_smoke
+    from fyrox_tpu_torch.animation import skinning
+    from fyrox_tpu_torch.resource import ResourceManager
+    path = tmp_path / "c.glb"
+    path.write_bytes(chip_smoke.character_glb(n_bones=10, n_verts=300))
+    rm = ResourceManager()
+    res = rm.request(str(path)).wait(60)
+    rm.shutdown()
+    assert res.is_ok(), res.error
+    engine, skin = chip_smoke.imported_flagship(res.data, n_bodies=192)
+    gpu = chip_smoke.distinct_worlds(engine, 4, cuda)
+    cpu = convert.engine_state(convert.to_numpy(gpu), device="cpu")
+    plane_ops.reset_launches()
+    tgs_kernel.reset_launches()
+    fused_step.reset_launches()
+    for _ in range(20):
+        gpu = engine.step(gpu)
+        cpu = engine.step(cpu)
+    assert (fused_step.launches("fused_bp"),
+            fused_step.launches("narrow_compact"),
+            tgs_kernel.launches()) == (20, 20, 20)
+    assert (gpu.physics.position.cpu() - cpu.physics.position).abs().max() \
+        < 5e-4
+    assert (gpu.physics.linvel.cpu() - cpu.physics.linvel).abs().max() < 5e-3
+
+    def skinned(st):
+        return skinning.skin_positions_dense(skinning.bone_matrices(
+            st.scene.globals_, skin), skin).cpu()
+
+    assert (skinned(gpu) - skinned(cpu)).abs().max() < 1e-3
+
+
+def test_editor_undo_after_play_on_the_card(cuda, tmp_path):
+    """EditorSession over an imported character on the card: play mode's
+    ticks replay the captured tick and write no state the stack keeps; the
+    snapshot after stop and undo after play equal the states taken before,
+    bit for bit."""
+    import chip_smoke
+    from fyrox_tpu_torch.editor import EditorSession
+    from fyrox_tpu_torch.io.gltf import load_gltf
+    path = tmp_path / "c.glb"
+    path.write_bytes(chip_smoke.character_glb(n_bones=10, n_verts=300))
+    engine, skin = chip_smoke.imported_flagship(load_gltf(str(path)),
+                                                n_bodies=192)
+    first = engine.init_state(1, device=cuda)
+    before = chip_smoke.clone_state(first)
+    es = EditorSession(engine, first)
+    es.translate(int(skin.bones[0]), (0.0, 0.5, 0.0))
+    edited = es.state
+    kept = chip_smoke.clone_state(edited)
+    es.play()
+    played = es.tick(0.25)
+    assert not torch.equal(played.physics.position, edited.physics.position)
+    chip_smoke.same_state("stop", es.stop(), kept)
+    chip_smoke.same_state("the edited state", edited, kept)
+    es.undo()
+    chip_smoke.same_state("undo after play", es.state, before)
+    chip_smoke.same_state("the first state", first, before)
