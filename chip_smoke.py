@@ -284,6 +284,19 @@ frame, checkpoints, debug_step, pathfinding and the lightmap bake):
              K4a, K4b and K5 counted; the bin-demand audit; a W=2 run held
              tick by tick against the CPU (dense bounds) and its frames at
              FRAME_KEEP against the CPU's; frames/s of the whole loop;
+  ui       — examples/example_hud.py's scene (hud_scene) through
+             render.CapturedFrame at UI_WORLDS worlds moved apart, UI_SIZE²,
+             under hud_ui's 30-widget tree (the example's window, stack and
+             bars, a grid, a wrap panel, a scroll viewer over a text block,
+             a text box, a progress bar bound to the tick) in write_ttf's
+             TrueType font: UI_TICKS ticks of a replayed frame, one scripted
+             OS event to InputState and the UI (hud_event, ui_event), update
+             / layout / draw, render_ui through a FontAtlas and compose_over
+             on the card, each tick's composed frames equal bit for bit to
+             the CPU's compose_over of the frames copied to the CPU; text
+             rects inked, 5x7 and TrueType images unlike; host ms of layout,
+             draw and render_ui a tick, the atlas build, compose_over's
+             device ms, frames/s of the loop with the UI and without it;
   navfield — distance_field on a walled 256² grid graph, 128 sources, as
              many rounds as its longest shortest path: equal to a host BFS
              for every source and to host A* for 8; ms a call;
@@ -5837,6 +5850,293 @@ def phase_game_frame():
         f"on {CARD}")
 
 
+# --------------------------------------------------------------------- ui
+UI_WORLDS = 16           # example_hud.py's scene at W = 16
+UI_SIZE = 128            # its frame and screen, pixels a side
+UI_TICKS = 60
+UI_FONT_PX = 9           # the FontAtlas every text command draws with
+UI_STATES = 4            # moved scene states the loop's ticks cycle over
+MODIFIERS = ("Shift", "Control", "Alt")
+
+
+def hud_scene():
+    """examples/example_hud.py's scene with the port's builders: ground,
+    two lit cubes, a directional light with shadows and the camera.
+    Returns the template."""
+    from fyrox_tpu_torch.render import make_cube, make_plane
+    from fyrox_tpu_torch.scene import SceneBuilder
+    sb = SceneBuilder()
+    sb.add_mesh(make_plane(20.0, albedo=(0.45, 0.5, 0.4)), name="ground")
+    sb.add_mesh(make_cube(1.0, albedo=(0.8, 0.3, 0.2)), position=(0, 0.5, 4))
+    sb.add_mesh(make_cube(1.0, albedo=(0.2, 0.4, 0.8)), position=(2, 0.5, 6))
+    tilt = (np.sin(np.pi / 3), 0.0, 0.0, np.cos(np.pi / 3))
+    sb.add_light("directional", rotation=tilt, intensity=2.0)
+    down = (np.sin(np.pi / 10), 0.0, 0.0, np.cos(np.pi / 10))
+    sb.add_camera("cam", position=(0, 3.0, -4.0), rotation=down)
+    return sb.build()
+
+
+def hud_ui(core, size=UI_SIZE):
+    """The loop's widget tree with either package's ui.core module:
+    example_hud.py's STATS window (a stack of two texts) and health bar, a
+    3 x 2 grid of labels, a wrap panel of six buttons, a scroll viewer over
+    a five-line text block, a text box and a progress bar; 30 widgets.
+    Returns (ui, {name: handle})."""
+    W_ = core.Widget
+    ui = core.UserInterface((size, size))
+    h = {}
+    h["stats"] = ui.add(W_(kind="window", title="STATS", width=70.0,
+                           height=46.0, margin=(4, 4, 0, 0),
+                           title_height=14.0,
+                           background=(0.05, 0.05, 0.1, 0.65)))
+    body = ui.add(W_(kind="stack"), h["stats"])
+    h["fps"] = ui.add(W_(kind="text", text="FPS 60", height=14.0), body)
+    h["hp"] = ui.add(W_(kind="text", text="HP 87", height=14.0), body)
+    h["bar"] = ui.add(W_(kind="border", width=100.0, height=8.0,
+                         margin=(4, float(size - 16), 0, 0),
+                         background=(0.2, 0.0, 0.0, 0.9),
+                         foreground=(0.9, 0.9, 0.9, 1.0)))
+    h["fill"] = ui.add(W_(kind="border", width=87.0, height=8.0,
+                          background=(0.1, 0.8, 0.1, 0.9)), h["bar"])
+    h["grid"] = ui.add(W_(kind="grid", width=46.0, height=39.0,
+                          margin=(78, 4, 0, 0), rows=[("strict", 13.0)] * 3,
+                          columns=[("strict", 23.0), ("stretch",)],
+                          background=(0.1, 0.1, 0.1, 0.5)))
+    for i, s in enumerate(("X", "1", "Y", "2", "Z", "3")):
+        ui.add(W_(kind="text", text=s, font_size=8.0, grid_row=i // 2,
+                  grid_column=i % 2), h["grid"])
+    h["wrap"] = ui.add(W_(kind="wrap", orientation="horizontal", width=60.0,
+                          margin=(4, 54, 0, 0)))
+    for s in "ABCDEF":
+        h["btn" + s] = ui.add(W_(kind="button", text=s, font_size=8.0),
+                              h["wrap"])
+    h["scroll"] = ui.add(W_(kind="scroll", width=58.0, height=30.0,
+                            margin=(66, 54, 0, 0),
+                            background=(0.0, 0.0, 0.0, 0.4)))
+    lines = ui.add(W_(kind="stack"), h["scroll"])
+    for i in range(5):
+        ui.add(W_(kind="text", text=f"LOG {i}", font_size=8.0), lines)
+    h["name"] = ui.add(W_(kind="textbox", text="hero", width=58.0,
+                          height=14.0, font_size=8.0, margin=(66, 88, 0, 0)))
+    h["tick"] = ui.add(W_(kind="progress", width=120.0, height=6.0,
+                          margin=(4, 104, 0, 0),
+                          foreground=(0.9, 0.8, 0.2, 1.0)))
+    ui.update_layout()
+    return ui, h
+
+
+def hud_event(ui, h, k):
+    """The loop's OS event at tick k (an InputState event dict), aimed at
+    the widgets' current rects: focus the text box and edit it (End,
+    shift-selection, typing, Backspace, Enter), Tab focus, wheel the
+    scroll viewer down and up, click a wrapped button and drag the STATS
+    window by its title, with mouse moves between."""
+    def at(name, dx=0.5, dy=0.5):
+        r = ui.nodes.borrow(h[name]).actual_rect
+        return {"type": "mouse_move", "x": r.x + r.w * dx,
+                "y": r.y + r.h * dy}
+
+    def key(name, up=False):
+        return {"type": "key_up" if up else "key_down", "key": name}
+
+    script = [at("name"), {"type": "mouse_down", "button": 0},
+              {"type": "mouse_up", "button": 0}, key("End"), key("Shift"),
+              key("Left"), key("Left"), key("Shift", True), key("7"),
+              key("Backspace"), key("x"), key("Home"), key("Right"),
+              key("Delete"), key("Enter"), key("Tab"), key("Tab"),
+              at("scroll"), {"type": "wheel", "delta": -6.0},
+              {"type": "wheel", "delta": -6.0},
+              {"type": "wheel", "delta": 4.0}, at("btnC"),
+              {"type": "mouse_down", "button": 0},
+              {"type": "mouse_up", "button": 0},
+              at("stats", 0.5, 0.1), {"type": "mouse_down", "button": 0},
+              {"type": "mouse_move", "x": 40.0, "y": 8.0},
+              {"type": "mouse_up", "button": 0}]
+    if k < len(script):
+        return script[k]
+    return {"type": "mouse_move", "x": float(k % 13) * 9.0,
+            "y": float(k % 7) * 17.0}
+
+
+def ui_event(inp, ev):
+    """The UserInterface event of an OS event that InputState inp has just
+    taken (None where the UI has none): a press of button 0 clicks at the
+    pointer, a move with it held drags from where the pointer was, the
+    wheel scrolls at the pointer, and a key press other than a modifier is
+    a key with the held modifiers."""
+    t = ev.get("type")
+    x, y = inp.mouse_position
+    if t == "mouse_down" and ev["button"] == 0:
+        return {"type": "click", "x": x, "y": y}
+    if t == "mouse_move" and 0 in inp.mouse_buttons:
+        dx, dy = inp.mouse_delta
+        return {"type": "drag", "x": x - dx, "y": y - dy, "dx": dx,
+                "dy": dy}
+    if t == "wheel":
+        return {"type": "scroll", "x": x, "y": y, "dy": ev["delta"]}
+    if t == "key_down" and ev["key"] not in MODIFIERS:
+        return {"type": "key", "key": ev["key"],
+                "shift": "Shift" in inp.keys_down,
+                "ctrl": "Control" in inp.keys_down,
+                "alt": "Alt" in inp.keys_down}
+    return None
+
+
+def hud_tick(ui, h, inp, k, dt=1 / 60):
+    """One tick of the loop's UI: the tick's OS event to inp and, through
+    ui_event, to ui; the bound widgets (HP text, the bar's fill, the
+    progress bar) set from the tick; ui.update(dt) and update_layout().
+    Returns the messages the tick polled."""
+    ev = hud_event(ui, h, k)
+    inp.process_event(ev)
+    uev = ui_event(inp, ev)
+    if uev is not None:
+        ui.process_os_event(uev)
+    ui.nodes.borrow(h["hp"]).text = f"HP {87 - k // 6}"
+    ui.nodes.borrow(h["fill"]).width = float(87 - k // 6)
+    ui.nodes.borrow(h["tick"]).progress = (k + 1) / UI_TICKS
+    ui.update(dt)
+    ui.update_layout()
+    inp.end_frame()
+    msgs = []
+    m = ui.poll_message()
+    while m is not None:
+        msgs.append(m)
+        m = ui.poll_message()
+    return msgs
+
+
+def uninked_text(cmds, img):
+    """The text commands (of text in a rect of at least a pixel a side,
+    inside the screen) whose rects hold no covered pixel of img; [] when
+    every one is inked."""
+    H, W = img.shape[:2]
+    bare = []
+    for c in cmds:
+        b = c.bounds
+        if c.kind != "text" or not str(c.text).strip() or b.w < 1 or \
+                b.h < 1 or b.x < 0 or b.y < 0 or b.x + b.w > W or \
+                b.y + b.h > H:
+            continue
+        if not (img[int(b.y):int(np.ceil(b.y + b.h)),
+                    int(b.x):int(np.ceil(b.x + b.w)), 3] > 0).any():
+            bare.append((c.text, (b.x, b.y, b.w, b.h)))
+    return bare
+
+
+def phase_ui():
+    """examples/example_hud.py on the card: its scene through
+    render.CapturedFrame (K5) at W = UI_WORLDS, UI_SIZE², worlds moved
+    apart, under hud_ui's tree drawn with a TrueType font (write_ttf):
+    UI_TICKS ticks, each one replayed frame, one scripted OS event to
+    InputState and the UI, update / layout / draw, render_ui through a
+    FontAtlas and compose_over on the card. Every tick's composed frames
+    equal the CPU's compose_over of the replayed frames copied to the CPU,
+    bit for bit; then the loop timed with the UI and without it."""
+    from fyrox_tpu_torch import render
+    from fyrox_tpu_torch.input import InputState
+    from fyrox_tpu_torch.render import tile_raster
+    from fyrox_tpu_torch.scene import graph, init_state
+    from fyrox_tpu_torch.ui import compose_over, core, render_ui
+    from fyrox_tpu_torch.ui.font import FontAtlas, TtfFont
+    t = hud_scene()
+    rt = render.build_render_template(t)
+    cfg = render.RenderConfig(width=UI_SIZE, height=UI_SIZE, shadows=True,
+                              sky_zenith=(0.3, 0.5, 0.8),
+                              sky_horizon=(0.8, 0.85, 0.9))
+    frame = render.CapturedFrame(t, rt, cfg)
+    st = graph.update_hierarchical_data(init_state(t, UI_WORLDS,
+                                                   device="cuda"), t)
+    states = [moved_state(st, seed) for seed in range(UI_STATES)]
+    t0 = time.perf_counter()
+    font = TtfFont(write_ttf())
+    atlas = FontAtlas(font, UI_FONT_PX)
+    atlas_s = time.perf_counter() - t0
+    tile_raster.reset_launches()
+    frame(states[0])
+    n5 = dict(full=tile_raster.launches("full"),
+              depth=tile_raster.launches("depth"))
+    if not (n5["full"] and n5["depth"]):
+        fail(f"ui: K5 launches of the frame's capture {n5}")
+
+    # the checked loop
+    ui, h = hud_ui(core)
+    inp = InputState()
+    n_msgs, n_cmds, worst = 0, 0, 0
+    for k in range(UI_TICKS):
+        color = frame(states[k % UI_STATES])[0]
+        n_msgs += len(hud_tick(ui, h, inp, k))
+        cmds = ui.draw()
+        n_cmds = max(n_cmds, len(cmds))
+        img = render_ui(cmds, UI_SIZE, UI_SIZE, font=atlas)
+        out = compose_over(color, img)
+        want = compose_over(color.cpu(), img)
+        if not torch.equal(out.cpu(), want):
+            fail(f"ui: tick {k}: the card's compose_over differs from the "
+                 f"CPU's by {float((out.cpu() - want).abs().max()):.3g}")
+        bare = uninked_text(cmds, img)
+        if bare:
+            fail(f"ui: tick {k}: text rects with no covered pixel {bare}")
+    plain = render_ui(cmds, UI_SIZE, UI_SIZE)
+    if np.array_equal(plain, img) or not (plain[..., 3] > 0).any():
+        fail("ui: the 5x7 and TrueType paths give the same image")
+    if not (out.shape == (UI_WORLDS, UI_SIZE, UI_SIZE, 3)
+            and bool(torch.isfinite(out).all()) and all_differ(out)):
+        fail("ui: the composed frames are not finite, distinct images")
+    box = ui.nodes.borrow(h["name"])
+    if box.text == "hero" or inp.mouse_buttons or n_msgs == 0:
+        fail(f"ui: the script did not reach the UI (text {box.text!r}, "
+             f"{n_msgs} messages)")
+
+    # the timed loops: with the UI (its host stages timed), then without
+    ui, h = hud_ui(core)
+    inp = InputState()
+    host = np.zeros(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(UI_TICKS):
+        color = frame(states[k % UI_STATES])[0]
+        a = time.perf_counter()
+        hud_tick(ui, h, inp, k)
+        b = time.perf_counter()
+        cmds = ui.draw()
+        c = time.perf_counter()
+        img = render_ui(cmds, UI_SIZE, UI_SIZE, font=atlas)
+        d = time.perf_counter()
+        host += (b - a, c - b, d - c)
+        out = compose_over(color, img)
+    torch.cuda.synchronize()
+    with_ui = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in range(UI_TICKS):
+        color = frame(states[k % UI_STATES])[0]
+    torch.cuda.synchronize()
+    without = time.perf_counter() - t0
+    ui_dev = torch.as_tensor(img, device="cuda")
+    comp_dev = device_ms(lambda: compose_over(color, ui_dev), 20)
+    comp_host = cuda_ms(lambda: compose_over(color, img), 20)
+    host_ms = host * 1e3 / UI_TICKS
+    log(f"[ui] example_hud.py's scene (ground, 2 cubes, shadowed "
+        f"directional light) through CapturedFrame at W={UI_WORLDS}, "
+        f"{UI_SIZE}² (K5 at the capture {n5}), under a "
+        f"{len(list(ui.nodes.iter()))}-widget tree in a {len(write_ttf())}"
+        f"-byte TrueType font (write_ttf) at {UI_FONT_PX} px: {UI_TICKS} "
+        f"ticks of one OS event each ({n_msgs} UI messages, up to {n_cmds} "
+        f"draw commands), every composed frame equal bit for bit to the "
+        f"CPU's compose_over of the replayed frame; text rects inked; 5x7 "
+        f"and TrueType images differ; text box edited to {box.text!r}")
+    log(f"[ui] host ms a tick: layout (event + update + update_layout) "
+        f"{host_ms[0]:.4f}, draw {host_ms[1]:.4f}, render_ui "
+        f"{host_ms[2]:.4f}; FontAtlas build (parse + {UI_FONT_PX} px "
+        f"atlas) once {atlas_s * 1e3:.2f} ms; compose_over device ms "
+        f"{comp_dev:.4f} (UI image on the card), {comp_host:.4f} ms with "
+        f"the image's upload (CUDA events); on {CARD}")
+    log(f"[ui] frames/s of the loop: with the UI "
+        f"{UI_TICKS / with_ui:.1f} ({with_ui * 1e3 / UI_TICKS:.3f} ms a "
+        f"tick), without it (replayed frame only) {UI_TICKS / without:.1f} "
+        f"({without * 1e3 / UI_TICKS:.3f} ms a tick); on {CARD}")
+
+
 # --------------------------------------------------------------- navfield
 def walled_grid(side=NAV_SIDE, every=32):
     """A side x side grid with a wall every `every` columns, open at the
@@ -6238,6 +6538,211 @@ def wav_bytes(samples, rate):
         w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
                       .tobytes())
     return buf.getvalue()
+
+
+# ------------------------------------------------------------------ fonts
+# A TrueType font that chip_smoke.write_ttf writes, since no font file ships
+# with the repo and the card's machine has none: 1,000 units an em, each
+# printable ASCII character drawn on a 5 x 7 grid of 100-unit pixels.
+TTF_UPEM = 1000
+TTF_ASCENT, TTF_DESCENT, TTF_GAP = 800, -200, 90
+TTF_PX = 100
+# kerning pairs (left, right, units) of the font's kern table
+TTF_KERN = (("A", "V", -80), ("V", "A", -80), ("T", "o", -60),
+            ("L", "T", -50), ("1", "1", -40), ("P", "a", -30))
+# characters that are composite glyphs: (component, flags, dx, dy,
+# transform) each; flags 1 = word arguments, 8 = one scale, 0x40 = x and y
+# scales, 0x80 = a 2 x 2 matrix (the MORE_COMPONENTS and XY_VALUES bits are
+# added by the writer). Lowercase letters are their capitals at 3/4 scale.
+TTF_COMPOSITES = {
+    ":": ((".", 1, 0, 0, ()), (".", 1, 0, 400, ())),
+    ";": ((".", 1, 0, 400, ()), (",", 1, 0, 0, ())),
+    "/": (("|", 0x80, -60, 0, (1.0, 0.3, 0.0, 1.0)),),
+    "_": (("-", 1 | 0x40, 0, -300, (1.0, 0.5)),),
+    "`": (("'", 0, 30, 0, ()),),
+    **{chr(c): ((chr(c - 32), 1 | 8, 40, 0, (0.75,)),)
+       for c in range(ord("a"), ord("z") + 1)},
+}
+
+
+def ttf_pattern(ch):
+    """The 5 x 7 pattern of a simple glyph (rows of 5-bit integers, the
+    most significant bit leftmost): the port's bitmap font where it has
+    the character, else bits seeded by its code."""
+    from fyrox_tpu_torch.ui.renderer import FONT_5X7
+    fixed = {"|": (0x04,) * 7, "'": (0x04, 0x04, 0x08, 0, 0, 0, 0)}
+    if ch in fixed or ch in FONT_5X7:
+        return fixed.get(ch) or FONT_5X7[ch]
+    bits = np.random.default_rng(ord(ch)).random((7, 5)) < 0.45
+    return tuple(int(sum(1 << (4 - c) for c in range(5) if row[c]))
+                 for row in bits)
+
+
+def ttf_contours(ch):
+    """A simple glyph's contours, lists of (x, y, on_curve) in font units
+    (y up, clockwise): a run of lit pixels in a row is a bar whose left end
+    is rounded by two off-curve points (a quadratic curve through an
+    implied on-curve midpoint); '.' is a dot of four off-curve points only,
+    and .notdef a box with a hole."""
+    if ch == ".notdef":
+        return [[(50, 700, 1), (550, 700, 1), (550, 0, 1), (50, 0, 1)],
+                [(150, 100, 1), (450, 100, 1), (450, 600, 1), (150, 600, 1)]]
+    if ch == ".":
+        return [[(220, 80, 0), (300, 160, 0), (380, 80, 0), (300, 0, 0)]]
+    out = []
+    for r, bits in enumerate(ttf_pattern(ch)):
+        c = 0
+        while c < 5:
+            if not bits & (1 << (4 - c)):
+                c += 1
+                continue
+            e = c
+            while e + 1 < 5 and bits & (1 << (3 - e)):
+                e += 1
+            x0, x1 = 50 + c * TTF_PX, 50 + (e + 1) * TTF_PX
+            y0 = (6 - r) * TTF_PX
+            y1 = y0 + TTF_PX
+            out.append([(x0 + 25, y1, 1), (x1, y1, 1), (x1, y0, 1),
+                        (x0 + 25, y0, 1), (x0, y0, 0), (x0, y1, 0)])
+            c = e + 1
+    return out
+
+
+def _ttf_simple(contours):
+    """glyf bytes of a simple glyph: short and long deltas, 'same' flags
+    and run-length flags with the repeat bit."""
+    import struct
+    pts = [p for c in contours for p in c]
+    ends = list(np.cumsum([len(c) for c in contours]) - 1)
+    xs, ys = [p[0] for p in pts], [p[1] for p in pts]
+    out = struct.pack(">hhhhh", len(contours), min(xs), min(ys), max(xs),
+                      max(ys))
+    out += struct.pack(f">{len(ends)}HH", *ends, 0)     # no instructions
+    flags, xb, yb = [], b"", b""
+    px = py = 0
+    for x, y, on in pts:
+        f = 1 if on else 0
+        for d, short, same, fmt in ((x - px, 2, 16, "x"), (y - py, 4, 32,
+                                                           "y")):
+            if d == 0:
+                f |= same
+                continue
+            if abs(d) < 256:
+                f |= short | (same if d > 0 else 0)
+                enc = bytes([abs(d)])
+            else:
+                enc = struct.pack(">h", d)
+            if fmt == "x":
+                xb += enc
+            else:
+                yb += enc
+        flags.append(f)
+        px, py = x, y
+    fb = bytearray()
+    i = 0
+    while i < len(flags):
+        j = i
+        while j + 1 < len(flags) and flags[j + 1] == flags[i] and j - i < 255:
+            j += 1
+        fb += bytes([flags[i] | 8, j - i]) if j > i else bytes([flags[i]])
+        i = j + 1
+    return out + bytes(fb) + xb + yb
+
+
+def _ttf_advance(ch):
+    """(advance, left side bearing) of a simple glyph: its ink and 100
+    units after it."""
+    xs = [p[0] for c in ttf_contours(ch) for p in c] or [0]
+    return max(xs) + 100, min(xs)
+
+
+def _ttf_composite(parts, gid_of):
+    import struct
+    out = struct.pack(">hhhhh", -1, 0, -200, 700, 700)
+    for k, (comp, flags, dx, dy, tf) in enumerate(parts):
+        f = flags | 2 | (0x20 if k + 1 < len(parts) else 0)
+        out += struct.pack(">HH", f, gid_of[comp])
+        out += struct.pack(">hh" if f & 1 else ">bb", dx, dy)
+        out += b"".join(struct.pack(">h", int(round(v * 16384))) for v in tf)
+    return out
+
+
+def write_ttf(long_loca=False, cmap_shift=0):
+    """The bytes of a TrueType font: head, hhea, maxp, cmap (format 4: one
+    segment by idDelta, one through glyphIdArray), loca (short, or long
+    with long_loca), glyf, hmtx (the last two glyphs share the last
+    advance) and kern (format 0). Glyphs: .notdef, the space (no outline),
+    then every printable ASCII character; composites per TTF_COMPOSITES.
+    cmap_shift maps 'A'..'~' to the glyphs that many places on: another
+    font of the same length."""
+    import struct
+    chars = [chr(c) for c in range(33, 127)]
+    names = [".notdef", " "] + chars
+    gid_of = {n: i for i, n in enumerate(names)}
+    glyphs, adv, lsb = [], [], []
+    for n in names:
+        if n == " ":
+            glyphs.append(b"")
+            adv.append(400)
+            lsb.append(0)
+        elif n in TTF_COMPOSITES:
+            glyphs.append(_ttf_composite(TTF_COMPOSITES[n], gid_of))
+            base = _ttf_advance(TTF_COMPOSITES[n][0][0])[0]
+            adv.append(base * 3 // 4 + 60 if n.islower() else base)
+            lsb.append(0)
+        else:
+            conts = ttf_contours(n)
+            glyphs.append(_ttf_simple(conts) if conts else b"")
+            a, s = _ttf_advance(n)
+            adv.append(a)
+            lsb.append(s)
+    glyphs = [g + b"\0" * (-len(g) % 4) for g in glyphs]
+    offs = np.concatenate([[0], np.cumsum([len(g) for g in glyphs])])
+    n_glyphs, n_hm = len(names), len(names) - 2
+    loca = (struct.pack(f">{len(offs)}I", *offs) if long_loca
+            else struct.pack(f">{len(offs)}H", *(offs // 2)))
+    head = struct.pack(">IIIIHHqqhhhhHHhhh", 0x10000, 0x10000, 0, 0x5F0F3CF5,
+                       0, TTF_UPEM, 0, 0, 0, -200, 700, 700, 0, 8, 2,
+                       int(long_loca), 0)
+    hhea = struct.pack(">Ihhh" + "H" + "hhh" + "hhh" + "hhhh" + "hH",
+                       0x10000, TTF_ASCENT, TTF_DESCENT, TTF_GAP, max(adv),
+                       0, 0, 700, 1, 0, 0, 0, 0, 0, 0, 0, n_hm)
+    maxp = struct.pack(">IH", 0x5000, n_glyphs)
+    hmtx = b"".join(struct.pack(">Hh", a, s)
+                    for a, s in zip(adv[:n_hm], lsb[:n_hm]))
+    hmtx += struct.pack(f">{n_glyphs - n_hm}h", *lsb[n_hm:])
+    # cmap: 32..64 by idDelta, 65..126 through glyphIdArray, then 0xFFFF
+    segs = [(32, 64, -31, 0), (65, 126, 0, 4), (0xFFFF, 0xFFFF, 1, 0)]
+    sc = len(segs)
+    ids = [gid_of[chr(65 + (c - 65 + cmap_shift) % 62)]
+           for c in range(65, 127)]
+    sub = struct.pack(f">{sc}H", *(s[1] for s in segs)) + b"\0\0"
+    sub += struct.pack(f">{sc}H", *(s[0] for s in segs))
+    sub += struct.pack(f">{sc}h", *(s[2] for s in segs))
+    sub += struct.pack(f">{sc}H", *(s[3] for s in segs))
+    sub += struct.pack(f">{len(ids)}H", *ids)
+    sub = struct.pack(">HHHHHHH", 4, 14 + len(sub), 0, 2 * sc, 4, 1,
+                      2 * sc - 4) + sub
+    cmap = struct.pack(">HHHHI", 0, 1, 3, 1, 12) + sub
+    pairs = sorted((gid_of[a], gid_of[b], v) for a, b, v in TTF_KERN)
+    kern_sub = struct.pack(">HHHH", len(pairs), 0, 0, 0) + b"".join(
+        struct.pack(">HHh", *p) for p in pairs)
+    kern = struct.pack(">HHHHH", 0, 1, 0, 6 + len(kern_sub), 1) + kern_sub
+    tables = dict(head=head, hhea=hhea, maxp=maxp, cmap=cmap, loca=loca,
+                  glyf=b"".join(glyphs), hmtx=hmtx, kern=kern)
+    tags = sorted(tables)
+    out = struct.pack(">IHHHH", 0x10000, len(tags), 128, 3, 16 * len(tags)
+                      - 128)
+    off = 12 + 16 * len(tags)
+    body = b""
+    for tag in tags:
+        data = tables[tag]
+        pad = data + b"\0" * (-len(data) % 4)
+        csum = sum(struct.unpack(f">{len(pad) // 4}I", pad)) & 0xFFFFFFFF
+        out += tag.encode() + struct.pack(">III", csum, off + len(body),
+                                          len(data))
+        body += pad
+    return out + body
 
 
 def level_tilemap(tm_mod, rows=LEVEL_ROWS, cols=LEVEL_COLS):
@@ -6731,6 +7236,7 @@ def main():
     phase_brush()
     phase_game()
     phase_game_frame()
+    phase_ui()
     phase_navfield()
     phase_lightmap()
     phase_assets()

@@ -23,8 +23,11 @@ Entry points: ``models.build_flagship`` → ``Engine.init_state`` →
 top: ``script.Executor`` runs ``script.Script`` s (``scripts``: the stock
 camera controllers) between fixed-timestep ticks; ``utils`` holds
 pathfinding (``astar``, ``navmesh``, the batched ``navagent``), behavior
-trees, the lightmap bake and ``stats``; ``ui.Hud`` draws per-world
-overlays that ``ui.compose_over`` lays over frames; ``io.checkpoint``
+trees, the lightmap bake and ``stats``; ``ui.UserInterface`` lays out a
+widget tree fed by OS events (``input.InputState`` accumulates the same
+events), ``ui.render_ui`` paints its draw list on the host (TrueType text
+through ``ui.font``) and ``ui.Hud`` draws per-world overlays, both laid
+over frames by ``ui.compose_over``; ``io.checkpoint``
 saves and resumes states; ``engine.debug_step`` is the checked tick.
 The content path runs on the host: ``io.load_scene`` (.rgs),
 ``io.gltf.load_gltf``, ``sound.ogg.load_ogg``, ``scene.tilemap`` and the

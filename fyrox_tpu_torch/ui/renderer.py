@@ -8,9 +8,9 @@ text via an embedded 5x7 bitmap font (digits, A-Z, and HUD punctuation).
 `compose_over` alpha-blends the UI image onto rendered world frames.
 
 Command counts are tiny (a HUD is tens of rects), so ``render_ui`` runs on
-the host in numpy by design, with the 5x7 bitmap font; its image drops
-onto the [..., H, W, 3] frames of render_frame through ``compose_over``,
-on the frames' device. TrueType text (``ui/font.py``) is not ported yet.
+the host in numpy by design, with the 5x7 bitmap font or a TrueType font
+(``ui/font.py``); its image drops onto the [..., H, W, 3] frames of
+render_frame through ``compose_over``, on the frames' device.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch.ui.core import DrawCommand
+from fyrox_tpu_torch.ui.font import FontAtlas, TtfFont
 
 __all__ = ["render_ui", "compose_over", "FONT_5X7"]
 
@@ -101,18 +102,37 @@ def _draw_text(img, text, x, y, scale, rgba):
         x += cw
 
 
+# Parsed fonts and their atlases, keyed by the objects themselves, which
+# the keys keep alive: a key of id(font) could serve a freed font's atlas
+# to the next font that CPython places at the same address.
+_FONTS: dict = {}               # path or bytes -> TtfFont
+_ATLASES: dict = {}             # (TtfFont, px) -> FontAtlas
+
+
+def _atlas_for(font, px_size: int):
+    """font: a FontAtlas (used as-is), a TtfFont (per-size atlases built
+    and cached), or a path/bytes (parsed once, then cached)."""
+    if isinstance(font, FontAtlas):
+        return font
+    if not isinstance(font, TtfFont):
+        key = font if isinstance(font, str) else bytes(font)
+        font = _FONTS.get(key) or _FONTS.setdefault(key, TtfFont(font))
+    key = (font, int(px_size))
+    at = _ATLASES.get(key)
+    if at is None:
+        at = _ATLASES[key] = FontAtlas(font, int(px_size))
+    return at
+
+
 def render_ui(commands: List[DrawCommand], height, width,
               font=None) -> np.ndarray:
     """Paint the draw-command list → [H,W,4] f32 RGBA (straight alpha, 0
-    where untouched), text in the embedded 5x7 bitmap font.
+    where untouched).
 
-    A TrueType `font` (the JAX package's ui.font atlases) is not ported:
-    it raises NotImplementedError."""
-    if font is not None:
-        raise NotImplementedError(
-            "render_ui: TrueType fonts need ui/font.py, which the port does "
-            "not have yet (ROADMAP.md queue 1, item 8: ui/font.py and "
-            "ui/text.py); pass font=None for the 5x7 bitmap font")
+    `font` (optional): a ui.font.FontAtlas / TtfFont / .ttf path or bytes
+    — text commands then render antialiased glyphs sized to the widget
+    (fyrox-ui font/mod.rs atlas path); without it the embedded 5x7
+    bitmap font."""
     img = np.zeros((height, width, 4), np.float32)
     for cmd in commands:
         b = cmd.bounds
@@ -125,9 +145,15 @@ def render_ui(commands: List[DrawCommand], height, width,
             _blend_px(img, b.y, b.y + b.h, b.x, b.x + t, cmd.color)
             _blend_px(img, b.y, b.y + b.h, b.x + b.w - t, b.x + b.w, cmd.color)
         elif cmd.kind == "text":
-            # fit glyphs to ~70% of the widget height
-            scale = max(int(b.h * 0.7 / 7), 1)
-            _draw_text(img, cmd.text, b.x + 3, b.y + 3, scale, cmd.color)
+            if font is not None:
+                px = max(int(b.h * 0.7), 6)
+                _atlas_for(font, px).draw(img, str(cmd.text), b.x + 3,
+                                          b.y + 1, cmd.color)
+            else:
+                # 5x7: fit glyphs to ~70% of the widget height
+                scale = max(int(b.h * 0.7 / 7), 1)
+                _draw_text(img, cmd.text, b.x + 3, b.y + 3, scale,
+                           cmd.color)
     return img
 
 

@@ -414,6 +414,27 @@ def test_port_imports_and_builds_without_jax():
             rm.shutdown()
         assert rs.is_ok() and rs.data.num_nodes == 12 and rg.is_ok()
         assert rg.data.skins[0].num_vertices == 30
+        from fyrox_tpu_torch import input as input_mod
+        from fyrox_tpu_torch.core import pool
+        from fyrox_tpu_torch.ui import curve_editor, font, text
+        tree, th = chip_smoke.hud_ui(core)
+        keys = input_mod.InputState()
+        seen = [m for k in range(12)
+                for m in chip_smoke.hud_tick(tree, th, keys, k)]
+        assert seen and tree.nodes.borrow(th["name"]).text != "hero"
+        assert isinstance(th["name"], pool.Handle)
+        cmds = tree.draw()
+        img = ui.render_ui(cmds, 128, 128, font=chip_smoke.write_ttf())
+        assert chip_smoke.uninked_text(cmds, img) == []
+        assert ui.compose_over(torch.zeros(1, 128, 128, 3), img).shape == (
+            1, 128, 128, 3)
+        atlas = font.FontAtlas(font.TtfFont(chip_smoke.write_ttf()), 10)
+        assert text.FormattedText("AVATar To", 10.0, font=atlas).size[0] > 0
+        z = ui.UserInterface((64, 64))
+        ce = curve_editor.add_curve_editor(z, keys=[(0.0, 0.0, 0.0)])
+        z.add(ui.Widget(kind="text", text="x"))
+        z.update_layout()
+        assert len(z.draw()) > 3 and z.nodes.borrow(ce).kind == "curve_editor"
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

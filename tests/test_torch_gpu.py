@@ -1252,3 +1252,34 @@ def test_editor_undo_after_play_on_the_card(cuda, tmp_path):
     es.undo()
     chip_smoke.same_state("undo after play", es.state, before)
     chip_smoke.same_state("the first state", first, before)
+
+
+def test_ui_tree_composes_over_a_captured_frame_as_on_the_cpu(cuda):
+    """chip_smoke's ui phase at W = 2, 64²: example_hud.py's scene through
+    render.CapturedFrame (K5) under hud_ui's tree in the writer's TrueType
+    font, a scripted OS event a tick: every composed frame equals the CPU's
+    compose_over of the replayed frame copied to the CPU, bit for bit."""
+    import chip_smoke
+    from fyrox_tpu_torch import render
+    from fyrox_tpu_torch.input import InputState
+    from fyrox_tpu_torch.scene import graph, init_state
+    from fyrox_tpu_torch.ui import compose_over, core, render_ui
+    from fyrox_tpu_torch.ui.font import FontAtlas, TtfFont
+    t = chip_smoke.hud_scene()
+    cfg = render.RenderConfig(width=64, height=64, shadows=True)
+    frame = render.CapturedFrame(t, render.build_render_template(t), cfg)
+    st = chip_smoke.moved_state(graph.update_hierarchical_data(
+        init_state(t, 2, device=cuda), t), 1)
+    ui, h = chip_smoke.hud_ui(core, size=64)
+    inp = InputState()
+    atlas = FontAtlas(TtfFont(chip_smoke.write_ttf()), 7)
+    for k in range(6):
+        color = frame(st)[0]
+        chip_smoke.hud_tick(ui, h, inp, k)
+        img = render_ui(ui.draw(), 64, 64, font=atlas)
+        out = compose_over(color, img)
+        assert out.is_cuda and torch.equal(out.cpu(),
+                                           compose_over(color.cpu(), img))
+    assert bool(torch.isfinite(out).all()) and (img[..., 3] > 0).any()
+    assert frame.graphs
+

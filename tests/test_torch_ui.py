@@ -3,7 +3,8 @@ against fyrox_tpu's on the CPU.
 
 Mirrors tests/test_hud.py: bars at seeded fractions, counters at seeded
 values, a shared static layer, compose_over, and missing bindings; and
-render_ui on a draw list with rects, borders and text in the 5x7 font.
+render_ui on a draw list with rects, borders and text in the 5x7 font and
+in chip_smoke.write_ttf's TrueType font.
 The same inputs go through both packages; the images are held equal to
 1e-6 (the blends are the same float32 expressions).
 """
@@ -12,6 +13,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import chip_smoke
 from fyrox_tpu.ui.core import DrawCommand as JDrawCommand
 from fyrox_tpu.ui.core import Rect as JRect
 from fyrox_tpu.ui.hud import Hud as JHud
@@ -40,8 +42,12 @@ def test_render_ui_equals_jax():
     want = jrender_ui(_commands(JDrawCommand, JRect), 48, 72)
     np.testing.assert_array_equal(got, want)
     assert (got[..., 3] > 0).mean() > 0.2
-    with pytest.raises(NotImplementedError, match="ui/font.py"):
-        render_ui([], 8, 8, font="any.ttf")
+    # the TrueType path: the same list through a font in both packages
+    font = chip_smoke.write_ttf()
+    ttf = render_ui(_commands(DrawCommand, Rect), 48, 72, font=font)
+    np.testing.assert_array_equal(
+        ttf, jrender_ui(_commands(JDrawCommand, JRect), 48, 72, font=font))
+    assert not np.array_equal(ttf, got)
 
 
 def _huds(cls):
