@@ -50,7 +50,18 @@ last line:
              and copy-back, the busy share, the capture's seconds and the
              graph pool's size;
   health   — world_health and restore_unhealthy on the rolled state with a
-             NaN injected into one world.
+             NaN injected into one world;
+  sharded  — parallel.make_sharded_rollout over world_mesh(["cuda:0"] * 2):
+             the flagship's W worlds as 2 shards of W/2 on the card, 20
+             ticks: every state tensor equal to an unsharded
+             Engine.rollout bit for bit, mean_body_speed within 1e-6
+             (relative), total_worlds W; K3, K2 and K1 launched;
+             env·steps/s sharded and unsharded, in turns.
+  oracle   — the port's float64 oracle (physics.oracle) holds card steps of
+             tests/test_oracle.py's three-cube stack and mixed cluster
+             (slab, W=1, cold steps at sampled ticks) at 1e-5 in position,
+             linear and angular velocity, on the staged route (K4a + K1)
+             and the fused route (K3 → K2 → K1); each route's launches.
 Then the animation breadth and the real-asset flagship:
   anim-small — W=4, the card against the CPU from the same state: ANIM_TICKS
              ticks of the plain AnimationPlayer, of a machine with a
@@ -325,7 +336,10 @@ through one ResourceManager, then stepped, rendered and edited):
              replayed roll equal to eager and counted by the profiler,
              env·steps/s) and its CapturedFrame at W=16, 256² with CSM (K5
              full and depth counted at the capture and on a replay, the
-             bin audit under LEVEL_CAPS, frames/s).
+             bin audit under LEVEL_CAPS, frames/s);
+  editors  — AbsmEditor.preview and AnimationEditor.scrub of one document
+             each (absm_session, anim_session) on the card: the same state
+             trace as on the CPU, samples equal bit for bit.
 Then one JSON line describing the kernels, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Each kernel's `ms` (and
 `plain_ms`, `library_ms`) is CUDA-event time over a run of calls, which
@@ -387,10 +401,16 @@ def device_ms(fn, reps):
     """Mean milliseconds of the card per call of fn, without the host's
     issue: CUDA events around reps calls queued behind a spin kernel
     (torch.cuda._sleep), so that the card runs them back to back. The spin
-    is lengthened until the host has queued every call before it ends."""
+    is lengthened until the host has queued every call before it ends.
+    Where a spin of 2^30 cycles (~0.5 s) does not cover the set, the host
+    is blocked by the card's full queue of pending launches (about 1,000
+    of the smallest launches, fewer of larger ones: launch_queue_probe.py),
+    which no longer spin cures: the set is halved and tried again, and
+    DEVICE_MS_HALVED records the caller's line, the reps asked for and the
+    reps timed."""
     fn()
     torch.cuda.synchronize()
-    cycles = 1 << 24
+    asked, cycles = reps, 1 << 24
     while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -402,11 +422,25 @@ def device_ms(fn, reps):
         queued = not start.query()
         torch.cuda.synchronize()
         if queued:
+            if reps != asked:
+                DEVICE_MS_HALVED.append((sys._getframe(1).f_lineno, asked,
+                                         reps))
             return start.elapsed_time(end) / reps
-        if cycles >= 1 << 32:
-            fail("device_ms: the host could not queue the calls behind a "
-                 "spin of 2^32 cycles")
-        cycles <<= 2
+        if cycles < 1 << 30:
+            cycles <<= 2
+        elif reps > 1:
+            reps //= 2
+        elif cycles < 1 << 32:
+            cycles <<= 2
+        else:
+            fail(f"device_ms (called from line "
+                 f"{sys._getframe(1).f_lineno}): the host could not queue "
+                 f"one call behind a spin of 2^32 cycles")
+
+
+# (caller's line, reps asked for, reps timed) of each device_ms set that
+# had to be halved to fit the card's queue of pending launches
+DEVICE_MS_HALVED = []
 
 
 def bound_ms(n_bytes, n_ops):
@@ -2783,21 +2817,8 @@ def dense_small_scene():
     """tests/test_oracle.py's mixed cluster (balls, cuboids, capsules) and,
     beside it, tests/test_ragdoll.py's 4-limb chain (capsules, ball joints)
     on one halfspace; 14 colliders, dense broadphase."""
-    from fyrox_tpu_torch.physics import (BALL, CAPSULE, CUBOID, HALFSPACE,
-                                         BodyType, PhysicsBuilder)
     from fyrox_tpu_torch.scene import RagdollBuilder, SceneBuilder
-    rng = np.random.default_rng(3)
-    pb = PhysicsBuilder()
-    g = pb.add_body(body_type=BodyType.STATIC)
-    pb.add_collider(g, HALFSPACE, [], friction=0.5, restitution=0.2)
-    shapes = [(BALL, [0.25]), (CUBOID, [0.2, 0.25, 0.2]),
-              (CAPSULE, [0.2, 0.15])]
-    for i in range(9):
-        kind, params = shapes[i % 3]
-        p = (rng.uniform(-0.8, 0.8), 0.5 + 0.5 * (i // 3),
-             rng.uniform(-0.8, 0.8))
-        b = pb.add_body(position=p)
-        pb.add_collider(b, kind, params, friction=0.4, restitution=0.1)
+    pb = oracle_cluster()
     sb = SceneBuilder()
     rb = RagdollBuilder(pb)
     limbs = []
@@ -3366,8 +3387,8 @@ def shared_gather_record(name, calls, launches):
         return lambda: [fn(*c) for c in cs]
 
     # device_ms queues its calls behind one spin: keep them within the
-    # card's queue of pending launches (~1,000)
-    reps = max(1, min(20, 800 // len(calls)))
+    # card's queue of pending launches (~600, as hold_k4 does)
+    reps = max(1, min(20, 600 // len(calls)))
     ms_k = cuda_ms(run(plane_ops.plane_gather, calls), 20)
     ms_p = cuda_ms(run(plane_ops.plane_gather_plain, calls), 10)
     ms_lib = cuda_ms(run(lambda p, li: torch.gather(p, 2, li), lib), 20)
@@ -7123,6 +7144,268 @@ def phase_assets():
     log(f"[assets] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# the float64 oracle, world sharding and the editor panels
+# --------------------------------------------------------------------------
+
+ORACLE_TOL = 1e-5       # tests/test_oracle.py's bar
+ORACLE_SAMPLES = {"stack": (0, 10, 19), "mixed": (0, 8, 19)}
+SHARDS = 2
+SHARD_TICKS = 20
+SHARD_TIMED = 3
+
+
+def oracle_stack():
+    """tests/test_oracle.py's _stack: three unit cubes on a halfspace."""
+    from fyrox_tpu_torch.physics import CUBOID, HALFSPACE, PhysicsBuilder
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=1)
+    pb.add_collider(g, HALFSPACE, [], friction=0.8)
+    for k in range(3):
+        b = pb.add_body(position=(0.02 * k, 0.55 + 1.08 * k, -0.01 * k))
+        pb.add_collider(b, CUBOID, [0.5, 0.5, 0.5], friction=0.8)
+    return pb
+
+
+def oracle_cluster():
+    """tests/test_oracle.py's _mixed_cluster: balls, cuboids and capsules
+    on a halfspace."""
+    from fyrox_tpu_torch.physics import (BALL, CAPSULE, CUBOID, HALFSPACE,
+                                         PhysicsBuilder)
+    rng = np.random.default_rng(3)
+    pb = PhysicsBuilder()
+    g = pb.add_body(body_type=1)
+    pb.add_collider(g, HALFSPACE, [], friction=0.5, restitution=0.2)
+    shapes = [(BALL, [0.25]), (CUBOID, [0.2, 0.25, 0.2]),
+              (CAPSULE, [0.2, 0.15])]
+    for i in range(9):
+        kind, params = shapes[i % 3]
+        p = (rng.uniform(-0.8, 0.8), 0.5 + 0.5 * (i // 3),
+             rng.uniform(-0.8, 0.8))
+        b = pb.add_body(position=p)
+        pb.add_collider(b, kind, params, friction=0.4, restitution=0.1)
+    return pb
+
+
+ORACLE_SCENES = {"stack": oracle_stack, "mixed": oracle_cluster}
+
+
+def oracle_deviation(scene, device, fused, oracle_step, state_from_device,
+                     samples=None, broadphase="slab"):
+    """The worst |step - oracle step| per field ("position", "linvel",
+    "angvel") over the scene's sampled ticks (ORACLE_SAMPLES by default), and the live contact slots
+    of those steps. At each sampled tick one step from the trajectory's
+    state with its warm start zeroed (the oracle has none) meets one
+    oracle step (either package's oracle functions) from the same state;
+    the trajectory goes on warm."""
+    from fyrox_tpu_torch.physics import world as phys_mod
+    pb = ORACLE_SCENES[scene]()
+    t = pb.build(broadphase=broadphase)
+    s = phys_mod.init_physics_state(pb, t, 1, device=device)
+    samples = ORACLE_SAMPLES[scene] if samples is None else samples
+    worst = dict(position=0.0, linvel=0.0, angvel=0.0)
+    live = 0
+    for i in range(max(samples) + 1):
+        if i in samples:
+            cold = s._replace(warm_n=torch.zeros_like(s.warm_n),
+                              warm_t1=torch.zeros_like(s.warm_t1),
+                              warm_t2=torch.zeros_like(s.warm_t2))
+            got = phys_mod.step_physics(cold, t, 1.0 / 60.0, fused=fused)
+            ref = oracle_step(state_from_device(cold), t, 1.0 / 60.0)
+            for f in worst:
+                worst[f] = max(worst[f], float(np.abs(
+                    getattr(got, f)[0].double().cpu().numpy()
+                    - getattr(ref, f)).max()))
+            live += int((got.warm_n != 0).sum())
+        s = phys_mod.step_physics(s, t, 1.0 / 60.0, fused=fused)
+    return worst, live
+
+
+def phase_oracle():
+    """The port's float64 oracle (physics.oracle) holds card steps of
+    tests/test_oracle.py's three-cube stack and mixed cluster (slab
+    broadphase, W=1) at its bar of 1e-5 in position, linear and angular
+    velocity, on both routes: staged (fused=False: K4a + K1) and fused
+    (K3 → K2 → K1). Prints the worst deviation per route and field and
+    each route's kernel launches."""
+    from fyrox_tpu_torch.physics import oracle as orc
+    out = []
+    for route, fused, need in (
+            ("staged", False, ("plane_gather", "solve_tgs")),
+            ("fused", True, ("fused_bp", "narrow_compact", "solve_tgs"))):
+        reset_all_launches()
+        worst = dict(position=0.0, linvel=0.0, angvel=0.0)
+        live = 0
+        for scene in ORACLE_SCENES:
+            w, n = oracle_deviation(scene, "cuda", fused, orc.oracle_step,
+                                    orc.state_from_device)
+            worst = {f: max(worst[f], w[f]) for f in worst}
+            live += n
+        torch.cuda.synchronize()
+        n = all_launches()
+        if any(n[k] == 0 for k in need):
+            fail(f"oracle: the {route} route launched {n}; it needs "
+                 f"{', '.join(need)}")
+        if live == 0:
+            fail(f"oracle: the {route} route's sampled steps solved no "
+                 f"contact")
+        if max(worst.values()) > ORACLE_TOL:
+            fail(f"oracle: the {route} route's card steps part from the "
+                 f"float64 oracle by {worst} (bar {ORACLE_TOL})")
+        out.append(f"{route}: dp {worst['position']:.3g}, dv "
+                   f"{worst['linvel']:.3g}, dw {worst['angvel']:.3g} "
+                   f"({live} live contact slots; launches {n})")
+    log(f"[oracle] card steps of the stack and the mixed cluster at ticks "
+        f"{ORACLE_SAMPLES} (cold) against the port's float64 oracle, bar "
+        f"{ORACLE_TOL}: " + "; ".join(out))
+
+
+def phase_sharded(engine):
+    """make_sharded_rollout over world_mesh(["cuda:0"] * SHARDS): WORLDS
+    distinct worlds of the flagship split into SHARDS shards on the one
+    card, SHARD_TICKS ticks; every state tensor equals an unsharded
+    Engine.rollout of the same worlds bit for bit, mean_body_speed within
+    1e-6 (relative) of the unsharded mean, total_worlds WORLDS; K3, K2 and
+    K1 launched (a shard's tick is captured on first use); env·steps/s of
+    SHARD_TIMED sharded and unsharded rolls in turns, each warm."""
+    from fyrox_tpu_torch.parallel import (make_sharded_rollout,
+                                          shard_state, unshard_state,
+                                          world_mesh)
+    state0 = distinct_worlds(engine, WORLDS, "cuda", seed=23)
+    mesh = world_mesh(["cuda:0"] * SHARDS)
+    roll = make_sharded_rollout(engine, mesh, SHARD_TICKS)
+    shards = shard_state(state0, mesh)
+    reset_all_launches()
+    out, metrics = roll(shards)
+    torch.cuda.synchronize()
+    n = all_launches()
+    if any(n[k] == 0 for k in ("fused_bp", "narrow_compact", "solve_tgs")):
+        fail(f"sharded: a sharded roll launched {n}")
+    want = engine.rollout(state0, SHARD_TICKS)
+    n_leaves = same_state("sharded rollout", unshard_state(out), want)
+    speed = float(torch.linalg.vector_norm(want.physics.linvel,
+                                           dim=-1).mean())
+    got_speed = float(metrics["mean_body_speed"])
+    if abs(got_speed - speed) > 1e-6 * abs(speed):
+        fail(f"sharded: mean_body_speed {got_speed!r}, unsharded {speed!r}")
+    if float(metrics["total_worlds"]) != WORLDS:
+        fail(f"sharded: total_worlds {float(metrics['total_worlds'])}")
+    rates = {"sharded": [], "unsharded": []}
+    for _ in range(SHARD_TIMED):           # in turns, each warm
+        for label, fn in (("sharded", lambda: roll(shards)),
+                          ("unsharded", lambda: engine.rollout(
+                              state0, SHARD_TICKS))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[label].append(WORLDS * SHARD_TICKS
+                                / (time.perf_counter() - t0))
+    log(f"[sharded] flagship W={WORLDS} as {SHARDS} shards of "
+        f"{WORLDS // SHARDS} on cuda:0, {SHARD_TICKS} ticks: {n_leaves} "
+        f"state tensors equal the unsharded roll bit for bit; "
+        f"mean_body_speed {got_speed!r} (unsharded {speed!r}), total_worlds"
+        f" {float(metrics['total_worlds']):.0f}; launches of the first "
+        f"sharded roll {n}; env·steps/s of {SHARD_TIMED} rolls each in "
+        f"turns (no skinning): sharded "
+        f"{', '.join(f'{r:.1f}' for r in rates['sharded'])} (median "
+        f"{np.median(rates['sharded']):.1f}), unsharded "
+        f"{', '.join(f'{r:.1f}' for r in rates['unsharded'])} (median "
+        f"{np.median(rates['unsharded']):.1f}) on {CARD}")
+
+
+def absm_session(mod):
+    """An ABSM editor session built through its commands (`mod`: either
+    package's ui.absm_editor): three states, two parameters, four
+    transitions, an edit undone and redone, a rename."""
+    ed = mod.AbsmEditor()
+    run = ed.add_parameter("run")
+    jump = ed.add_parameter("jump")
+    idle = ed.add_state("idle", clips=((0, 1.0),), position=(0, 0))
+    walk = ed.add_state("run", clips=((1, 1.0), (2, 0.5)),
+                        position=(200, 0))
+    air = ed.add_state("jump", clips=((2, 1.0),), position=(100, 150))
+    ed.add_transition(idle, walk, run, duration=0.1)
+    ed.add_transition(walk, idle, run, duration=0.2, invert=True)
+    ed.add_transition(walk, air, jump, duration=0.05)
+    ed.add_transition(air, walk, jump, duration=0.1, invert=True)
+    ed.set_transition_duration(0, 0.15)
+    ed.move_state(air, (120.0, 160.0))
+    ed.undo()
+    ed.redo()
+    ed.rename_state(idle, "Idle")
+    return ed
+
+
+def absm_rows(seed=0, steps=120, hold=10):
+    """[steps, 2] bool parameter rows (run, jump), each drawn from `seed`
+    and held for `hold` steps, so that the machine switches states."""
+    rng = np.random.default_rng(seed)
+    return np.repeat(rng.random((steps // hold, 2)) < 0.5, hold, axis=0)
+
+
+def anim_session(mod):
+    """An animation editor session built through its commands (`mod`:
+    either package's ui.anim_editor): two clips; position, rotation and
+    scale tracks with keys on every channel, one moved, one deleted and
+    restored by undo, a disabled track."""
+    rng = np.random.default_rng(7)
+    ed = mod.AnimationEditor()
+    walk = ed.add_clip("walk", length=2.0)
+    turn = ed.add_clip("turn", length=1.0, speed=1.5)
+    tracks = [(walk, ed.add_track(walk, node=1, kind=mod.POSITION)),
+              (walk, ed.add_track(walk, node=2, kind=mod.ROTATION)),
+              (turn, ed.add_track(turn, node=3, kind=mod.SCALE)),
+              (turn, ed.add_track(turn, node=1, kind=mod.POSITION))]
+    for c, t in tracks:
+        length = ed.doc.clips[c].length
+        for ch in range(3):
+            for k in range(4):
+                ed.add_key(c, t, ch, float(length * k / 3),
+                           float(rng.uniform(-1.0, 1.0)),
+                           float(rng.uniform(-0.5, 0.5)))
+    ed.move_key(walk, tracks[0][1], 1, 2, 1.1, 0.25)
+    ed.delete_key(walk, tracks[1][1], 0, 1)
+    ed.undo()
+    ed.delete_key(turn, tracks[2][1], 2, 3)
+    ed.set_track_enabled(turn, tracks[3][1], False)
+    return ed
+
+
+SCRUB_TIMES = (0.0, 0.37, 0.8, 1.25, 1.999, 2.6)
+
+
+def phase_editors():
+    """AbsmEditor.preview and AnimationEditor.scrub on the card against
+    the same calls on the CPU: the same state trace, and samples equal
+    bit for bit, of one document of each kind built through the editors'
+    commands."""
+    from fyrox_tpu_torch.ui import absm_editor, anim_editor
+    ed = absm_session(absm_editor)
+    rows = absm_rows()
+    card = ed.preview(rows)
+    cpu = ed.preview(rows, device="cpu")
+    if card != cpu or len(set(card)) < 3:
+        fail(f"editors: preview on the card {card}, on the CPU {cpu}")
+    an = anim_session(anim_editor)
+    n = 0
+    for tm in SCRUB_TIMES:
+        got, want = an.scrub(tm), an.scrub(tm, device="cpu")
+        if sorted(got) != sorted(want):
+            fail(f"editors: scrub({tm}) kinds {sorted(got)} on the card, "
+                 f"{sorted(want)} on the CPU")
+        for kind in want:
+            (gn, ga, gv), (wn, wa, wv) = got[kind], want[kind]
+            if not (np.array_equal(gn, wn) and np.array_equal(ga, wa)
+                    and gv.is_cuda and torch.equal(gv.cpu(), wv)):
+                fail(f"editors: scrub({tm}) {kind} differs card vs CPU")
+            n += 1
+    log(f"[editors] AbsmEditor.preview over {len(rows)} steps: card == CPU"
+        f" ({len(set(card))} states visited); AnimationEditor.scrub at "
+        f"{len(SCRUB_TIMES)} times: {n} samples equal card vs CPU bit for "
+        f"bit")
+
+
 def main():
     phase_device()
     phase_build()
@@ -7148,7 +7431,9 @@ def main():
     phase_profile(engine, settled)
     rolled = phase_rollout(engine, skin)
     phase_health(engine, rolled)
+    phase_sharded(engine)
     del engine, skin, settled, rolled
+    phase_oracle()
     phase_anim_small()
     phase_real_asset()
     phase_dense_small()
@@ -7240,6 +7525,7 @@ def main():
     phase_navfield()
     phase_lightmap()
     phase_assets()
+    phase_editors()
     for k in (kbp, knc, k1):
         k["launches"] = n_fused[k["name"]]
     k4["launches"] = n_staged["plane_gather"]
@@ -7268,6 +7554,8 @@ def main():
     log(f"[profiler] replays whose counted kernels needed more than two "
         f"profiles to agree (label, counts of each record): "
         f"{PROFILE_REDONE}")
+    log(f"[device_ms] sets halved to fit the card's launch queue (caller's "
+        f"line, reps asked, reps timed): {DEVICE_MS_HALVED}")
     records = [kbp, knc, k1, k4, k5f, k5d, k5fa, k5da, k1j, k4b, k1b, k1m,
                kg_dense, ks_dense] + terrain_recs + [kg_grid, ks_grid]
     print(json.dumps({"kernels": records}))

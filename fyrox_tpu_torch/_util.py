@@ -1,7 +1,9 @@
 """Small helpers shared by the port's modules."""
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 
 import numpy as np
 import torch
@@ -87,6 +89,24 @@ def sqrt_rn(x):
     float32 sqrt is; the CPU's is not always, its float64 one rounded to
     float32 is."""
     return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Cyclic garbage collected first, then the collector off until the
+    block ends: for a CUDA graph capture. A freed graph left in a reference
+    cycle (an engine's captured tick refers to itself through its step) is
+    destroyed where the collector happens to run, and its destruction
+    inside another capture invalidates that capture; torch.cuda.graph no
+    longer collects on entry."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def static_copy(x: torch.Tensor) -> torch.Tensor:

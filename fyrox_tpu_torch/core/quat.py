@@ -75,12 +75,20 @@ def from_axis_angle(axis, angle_rad):
     return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
 
 
+def _cos_sin(x):
+    """cos and sin of x, taken in float64 and rounded to x's dtype: the
+    card's and the CPU's float32 sin / cos differ in the last bit, their
+    float64 ones rounded to float32 agree."""
+    d = x.double()
+    return torch.cos(d).to(x.dtype), torch.sin(d).to(x.dtype)
+
+
 def from_euler(roll, pitch, yaw):
     """nalgebra ``from_euler_angles(roll, pitch, yaw)``:
     q = Rz(yaw) * Ry(pitch) * Rx(roll)."""
-    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
-    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
-    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cr, sr = _cos_sin(roll * 0.5)
+    cp, sp = _cos_sin(pitch * 0.5)
+    cy, sy = _cos_sin(yaw * 0.5)
     return torch.stack([
         sr * cp * cy - cr * sp * sy,
         cr * sp * cy + sr * cp * sy,

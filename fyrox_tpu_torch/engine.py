@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch import disable_tf32
-from fyrox_tpu_torch._util import const, resolve_device, static_copy
+from fyrox_tpu_torch._util import (collector_paused, const, resolve_device,
+                                   static_copy)
 from fyrox_tpu_torch.animation import machine as machine_mod
 from fyrox_tpu_torch.animation import player as player_mod
 from fyrox_tpu_torch.animation import rootmotion as rm_mod
@@ -435,7 +436,7 @@ class CapturedTick:
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
+            with collector_paused(), torch.cuda.graph(graph):
                 # read inside: entering a capture empties the allocator's
                 # cache
                 reserved = torch.cuda.memory_reserved(dev)

@@ -32,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fyrox_tpu_torch._util import const, static_copy, value_const
+from fyrox_tpu_torch._util import (collector_paused, const, static_copy,
+                                   value_const)
 from fyrox_tpu_torch.core import aabb as aabb_mod
 from fyrox_tpu_torch.core import frustum as frustum_mod
 from fyrox_tpu_torch.core import transform as tfm
@@ -789,7 +790,8 @@ class FrameGraph:
             torch.cuda.synchronize(dev)
             self.graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with torch.cuda.graph(self.graph, stream=stream):
+            with collector_paused(), torch.cuda.graph(self.graph,
+                                                      stream=stream):
                 # read inside: entering a capture empties the allocator's
                 # cache
                 reserved = torch.cuda.memory_reserved(dev)

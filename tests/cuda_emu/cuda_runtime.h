@@ -1,25 +1,31 @@
 // A host emulation of the CUDA features fyrox_tpu_torch/csrc uses, so that
 // the kernels compile as host C++ (g++ -std=c++20 -ffp-contract=off) and
-// run on the CPU for tests/test_torch_kernels_emulated.py. One std::thread
-// per CUDA thread, one block at a time; std::barrier stands in for
-// __syncthreads and for the warp-wide syncs of __syncwarp / __ballot_sync.
-// Warp shuffles exchange values through a per-thread slot between two warp
-// barriers. The __f*_rn intrinsics become plain float operations, which the
-// flag -ffp-contract=off keeps unfused. The emulated card has kEmuSMs SMs
-// that hold one resident block each (the occupancy queries' answers).
+// run on the CPU for tests/test_torch_kernels_emulated.py. One block at a
+// time; its CUDA threads are fibers (ucontext) on the calling OS thread,
+// each with its own stack, switched only at a barrier: __syncthreads and
+// the warp-wide syncs of __syncwarp / __ballot_sync wait on a counting
+// barrier, and a round-robin scheduler resumes every fiber whose barrier
+// has been passed. Warp shuffles exchange values through a per-thread slot
+// between two warp barriers. The __f*_rn intrinsics become plain float
+// operations, which the flag -ffp-contract=off keeps unfused. The emulated
+// card has kEmuSMs SMs that hold one resident block each (the occupancy
+// queries' answers).
 // Launches are rewritten by the test
 // (`k<<<g, t, smem, stream>>>(args)` → `EMU_LAUNCH(g, t, smem, k, args)`),
 // and `extern __shared__ T name[];` becomes a pointer into emu::smem.
 #pragma once
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __device__
@@ -41,33 +47,106 @@ struct dim3 {
 namespace emu {
 inline thread_local dim3 tIdx, bIdx;
 inline dim3 bDim;
-inline std::unique_ptr<std::barrier<>> block_bar;
-inline std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+constexpr int kEmuSMs = 4;
+constexpr size_t kStack = 256 * 1024;     // per CUDA thread, mapped lazily
+inline std::vector<unsigned char> smem;
 inline std::vector<unsigned> votes;
 inline std::vector<unsigned long long> lanes;   // shuffle slots
-constexpr int kEmuSMs = 4;
-inline std::vector<unsigned char> smem;
+
+struct Barrier;
+struct Fiber {
+  ucontext_t ctx;
+  char* stack = nullptr;
+  unsigned t = 0;
+  bool done = false;
+  const Barrier* wait = nullptr;   // the barrier it waits at, and its phase
+  unsigned long phase = 0;
+};
+inline std::vector<Fiber> fibers;
+inline Fiber* current = nullptr;
+inline ucontext_t scheduler;
+inline const std::function<void()>* body = nullptr;
+
+// Counting barrier of `expected` fibers: the last to arrive opens the next
+// phase and runs on; the others yield until the scheduler sees it opened.
+struct Barrier {
+  unsigned expected, count = 0;
+  unsigned long phase = 0;
+  explicit Barrier(unsigned n) : expected(n) {}
+  void arrive_and_wait() {
+    if (++count == expected) {
+      count = 0;
+      ++phase;
+      return;
+    }
+    current->wait = this;
+    current->phase = phase;
+    swapcontext(&current->ctx, &scheduler);
+  }
+};
+inline std::unique_ptr<Barrier> block_bar;
+inline std::vector<std::unique_ptr<Barrier>> warp_bars;
+
+inline void fiber_main() {
+  (*body)();
+  current->done = true;            // returns to `scheduler` (uc_link)
+}
 
 inline void launch(dim3 grid, dim3 threads, size_t smem_bytes,
                    const std::function<void()>& kernel) {
   bDim = threads;
+  body = &kernel;
+  while (fibers.size() < threads.x) {
+    fibers.emplace_back();
+    void* st = mmap(nullptr, kStack, PROT_READ | PROT_WRITE,
+                    MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (st == MAP_FAILED) std::abort();
+    fibers.back().stack = static_cast<char*>(st);
+  }
   for (unsigned y = 0; y < grid.y; ++y)
     for (unsigned x = 0; x < grid.x; ++x) {
       smem.assign(smem_bytes, 0xAB);           // garbage, as on the card
-      block_bar = std::make_unique<std::barrier<>>(threads.x);
+      block_bar = std::make_unique<Barrier>(threads.x);
       warp_bars.clear();
       for (unsigned w = 0; w < (threads.x + 31) / 32; ++w)
-        warp_bars.push_back(std::make_unique<std::barrier<>>(32));
+        warp_bars.push_back(std::make_unique<Barrier>(32));
       votes.assign(threads.x, 0);
       lanes.assign(threads.x, 0);
-      std::vector<std::thread> pool;
-      for (unsigned t = 0; t < threads.x; ++t)
-        pool.emplace_back([=, &kernel] {
+      bIdx = dim3(x, y);
+      for (unsigned t = 0; t < threads.x; ++t) {
+        Fiber& f = fibers[t];
+        f.t = t;
+        f.done = false;
+        f.wait = nullptr;
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = f.stack;
+        f.ctx.uc_stack.ss_size = kStack;
+        f.ctx.uc_link = &scheduler;
+        makecontext(&f.ctx, fiber_main, 0);
+      }
+      for (unsigned live = threads.x; live;) {
+        bool moved = false;
+        live = 0;
+        for (unsigned t = 0; t < threads.x; ++t) {
+          Fiber& f = fibers[t];
+          if (f.done) continue;
+          if (f.wait && f.wait->phase == f.phase) {
+            ++live;
+            continue;
+          }
+          f.wait = nullptr;
+          current = &f;
           tIdx = dim3(t);
-          bIdx = dim3(x, y);
-          kernel();
-        });
-      for (auto& th : pool) th.join();
+          swapcontext(&scheduler, &f.ctx);
+          moved = true;
+          live += !f.done;
+        }
+        if (live && !moved) {
+          std::fprintf(stderr, "emu: every live thread waits at a barrier "
+                               "that cannot open\n");
+          std::abort();
+        }
+      }
     }
 }
 }  // namespace emu

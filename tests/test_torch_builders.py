@@ -435,6 +435,39 @@ def test_port_imports_and_builds_without_jax():
         z.add(ui.Widget(kind="text", text="x"))
         z.update_layout()
         assert len(z.draw()) > 3 and z.nodes.borrow(ce).kind == "curve_editor"
+        from fyrox_tpu_torch.core import (net, reflect, spatial, sstorage,
+                                          triangulator)
+        from fyrox_tpu_torch.parallel import (make_sharded_rollout,
+                                              shard_state, unshard_state,
+                                              world_mesh)
+        from fyrox_tpu_torch.physics import oracle
+        from fyrox_tpu_torch.ui import absm_editor, anim_editor, dock
+        from fyrox_tpu_torch.ui import inspector
+        from fyrox_tpu_torch.utils import uvgen
+        mesh = world_mesh(["cpu", "cpu"])
+        shards, m = make_sharded_rollout(e, mesh, 1)(shard_state(st, mesh))
+        assert torch.equal(unshard_state(shards).physics.position,
+                           e.rollout(st, 1).physics.position)
+        assert int(m["total_worlds"]) == 2
+        pst = oracle.oracle_step(oracle.state_from_device(st.physics),
+                                 e.physics, 1 / 60)
+        assert pst.position.shape == (193, 3)
+        assert absm_editor.AbsmEditor().add_parameter("run") == 0
+        assert chip_smoke.anim_session(anim_editor).scrub(
+            0.5, device="cpu")["position"][2].shape == (1, 1, 3)
+        assert chip_smoke.absm_session(absm_editor).preview(
+            [[False, False]] * 3, device="cpu") == [0, 0, 0]
+        dm = dock.DockingManager(z)
+        dm.dock(z.add(ui.Widget(kind="window")))
+        ins = inspector.Inspector(z, {"x": 1.0})
+        assert reflect.set_path(ins.target, "x", 2.0) == {"x": 2.0}
+        assert spatial.Octree(np.zeros((1, 3)), np.ones((1, 3))).aabb_query(
+            np.zeros(3), np.ones(3)) == [0]
+        assert uvgen.generate_uvs(np.eye(3), [[0, 1, 2]])[1].shape == (1,)
+        assert triangulator.triangulate(np.eye(3)).shape == (1, 3)
+        assert sstorage.SparseBuffer().spawn(1).get() == 0
+        lst = net.NetListener.bind(("127.0.0.1", 0))
+        lst.close()
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax",
                "jaxlib", "fyrox_tpu")]
         assert all(sys.modules[m] is None for m in bad), bad

@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from fyrox_tpu.models.character import build_flagship as jax_build_flagship
 from fyrox_tpu.models.character import build_pile_scene as jax_pile
 from fyrox_tpu.physics import narrowphase as jnarrow
@@ -75,16 +76,6 @@ def mixed_cluster(pb, joint=False, com=False):
     if joint:
         pb.add_joint(0, 2, 3, anchor_a=(0.2, 0.0, 0.0),
                      anchor_b=(-0.2, 0.0, 0.0))
-    return pb
-
-
-def box_stack(pb):
-    """tests/test_oracle.py's stack of three unit cubes."""
-    g = pb.add_body(body_type=1)
-    pb.add_collider(g, sh.HALFSPACE, [], friction=0.8)
-    for k in range(3):
-        b = pb.add_body(position=(0.02 * k, 0.55 + 1.08 * k, -0.01 * k))
-        pb.add_collider(b, sh.CUBOID, [0.5, 0.5, 0.5], friction=0.8)
     return pb
 
 
@@ -286,25 +277,11 @@ def test_dense_step_matches_the_oracle(scene, samples):
     """From cold-warm-start states sampled along a short port trajectory,
     one port step against fyrox_tpu.physics.oracle.oracle_step (sequential
     float64, the same Jacobi semantics): within 1e-5, test_oracle.py's
-    bar."""
-    pb = box_stack(PhysicsBuilder()) if scene == "stack" else \
-        mixed_cluster(PhysicsBuilder())
-    t = pb.build(broadphase="dense")
-    s = tworld.init_physics_state(pb, t, 1, device="cpu")
-    worst = 0.0
-    for i in range(max(samples) + 1):
-        if i in samples:
-            cold = s._replace(warm_n=torch.zeros_like(s.warm_n),
-                              warm_t1=torch.zeros_like(s.warm_t1),
-                              warm_t2=torch.zeros_like(s.warm_t2))
-            dev = tworld.step_physics(cold, t, DT)
-            ref = orc.oracle_step(orc.state_from_device(
-                convert.to_numpy(cold)), t, DT)
-            for f in ("position", "linvel", "angvel"):
-                worst = max(worst, float(np.abs(
-                    getattr(dev, f)[0].double().numpy()
-                    - getattr(ref, f)).max()))
-        s = tworld.step_physics(s, t, DT)
+    bar (chip_smoke.oracle_deviation on the dense broadphase)."""
+    worst, _ = chip_smoke.oracle_deviation(
+        scene, "cpu", True, orc.oracle_step, orc.state_from_device, samples,
+        broadphase="dense")
+    worst = max(worst.values())
     assert worst < TOL, worst
 
 

@@ -24,7 +24,7 @@ from fyrox_tpu_torch.models import make_character_fbx as torch_make_fbx
 
 torch.set_num_threads(2)
 
-W, DENSE_TICKS, SLAB_TICKS = 2, 15, 5
+W, DENSE_TICKS, SLAB_TICKS = 2, 15, 3
 ASSET = dict(n_bones=8, n_verts=320)      # tests/test_real_asset.py:13
 
 
@@ -254,13 +254,14 @@ def test_real_asset_bind_pose_and_motion(dense_run):
 def slab_run(asset):
     """SLAB_TICKS ticks of the 192-body real-asset flagship on the slab
     broadphase: JAX jitted (its staged XLA path off the TPU) against the
-    port's staged route, every body falling at 3 m/s (world 1 at 4.5) so
-    that the pile meets the ground within the run."""
+    port's staged route, every body falling at 6 m/s (world 1 at 9) so
+    that the pile meets the ground within the run (from tick 2: a jitted
+    JAX tick at this size costs ~6 s on the CPU, ~25 s of CPU time)."""
     je, _ = jax_build_flagship(n_bodies=192, real_asset=asset)
     te, _ = torch_build_flagship(n_bodies=192, real_asset=asset)
     js = je.init_state(num_worlds=W)
     dyn = (np.asarray(je.physics.body_type) == 0)[None, :, None]
-    v = np.where(dyn, np.float32([0.0, -3.0, 0.0]), np.float32(0.0))
+    v = np.where(dyn, np.float32([0.0, -6.0, 0.0]), np.float32(0.0))
     v = v * (1.5 ** np.arange(W, dtype=np.float32))[:, None, None]
     js = js._replace(physics=js.physics._replace(linvel=jnp.asarray(
         np.broadcast_to(v, js.physics.linvel.shape).astype(np.float32))))

@@ -6,7 +6,11 @@ Stages are held against the JAX kernels' own bodies, called as plain jnp
 functions: ``pallas_step._bp_candidates`` (K3's broadphase) and
 ``pallas_step._narrow_compact`` (the narrowphase + compaction of K2/K3). One
 whole step runs through the JAX K3 kernel in Pallas interpret mode (~35 s),
-and the K2 route is held over 30 steps to the JAX staged path."""
+and the K2 route is held over 15 steps to the JAX staged path (its pile on
+the platform is in contact from the first step; the jitted JAX step is
+~0.5 s a tick on the CPU, ~2 s of CPU time)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -84,7 +88,11 @@ def _torch_pile(**kw):
                  BodyType.STATIC, **kw)
 
 
+@functools.lru_cache(maxsize=None)
 def _flagship_physics():
+    """Both packages' flagship physics templates and the port's initial
+    pose, built once for the file (the JAX build runs its hierarchy pass
+    op by op); the callers only read them."""
     je, _ = jax_build_flagship(**FLAGSHIP)
     te, _ = torch_build_flagship(**FLAGSHIP)
     pose = te.init_state(1, device="cpu").physics
@@ -305,14 +313,14 @@ def test_k2_route_matches_jax_staged_path(monkeypatch):
 
     monkeypatch.setattr(fused_step, "fused_step", spy)
     step = jax.jit(lambda s: jworld.step_physics(s, jt, DT))
-    for _ in range(30):
+    for _ in range(15):
         js = step(js)
         ts = tworld.step_physics(ts, tt, DT)
-    assert routes == ["K2"] * 30
+    assert routes == ["K2"] * 15
     ref = jax.tree_util.tree_map(np.asarray, js)
     got = convert.to_numpy(ts)
     # the reference's bounds between two implementations of a 30-step
-    # trajectory (test_pallas_step.py:72-73)
+    # trajectory (test_pallas_step.py:72-73), over 15 steps here
     assert np.abs(ref.position - got.position).max() < 5e-4
     assert np.abs(ref.linvel - got.linvel).max() < 5e-3
     assert np.isfinite(got.position).all()

@@ -1283,3 +1283,47 @@ def test_ui_tree_composes_over_a_captured_frame_as_on_the_cpu(cuda):
     assert bool(torch.isfinite(out).all()) and (img[..., 3] > 0).any()
     assert frame.graphs
 
+
+
+def test_sharded_rollout_on_the_card_equals_the_unsharded_roll(cuda):
+    """world_mesh() holds every visible card; two shards on one card (its
+    captured tick shared) roll 5 ticks of the small flagship equal to one
+    unsharded roll bit for bit, and the metrics agree."""
+    from fyrox_tpu_torch.engine import _leaves
+    from fyrox_tpu_torch.parallel import (make_sharded_rollout,
+                                          make_sharded_step, shard_state,
+                                          unshard_state, world_mesh)
+    assert world_mesh().size == torch.cuda.device_count()
+    e, _ = build_flagship(n_bones=10, n_verts=300, n_bodies=192)
+    st = e.init_state(4, device=cuda)
+    mesh = world_mesh(["cuda:0", "cuda:0"])
+    shards, m = make_sharded_rollout(e, mesh, 5)(shard_state(st, mesh))
+    want = e.rollout(st, 5)
+    assert all(torch.equal(a, b) for a, b in
+               zip(_leaves(unshard_state(shards)), _leaves(want)))
+    speed = torch.linalg.vector_norm(want.physics.linvel, dim=-1).mean()
+    assert float(m["total_worlds"]) == 4.0
+    assert abs(float(m["mean_body_speed"]) - float(speed)) <= 1e-6 * float(
+        speed)
+    stepped = make_sharded_step(e, mesh)(shard_state(st, mesh))
+    assert all(torch.equal(a, b) for a, b in
+               zip(_leaves(unshard_state(stepped)), _leaves(e.step(st))))
+
+
+def test_oracle_and_editors_on_the_card(cuda):
+    """The port's oracle holds a cold card step of the stack at 1e-5; the
+    editors' preview and scrub on the card equal the CPU's."""
+    import chip_smoke
+    from fyrox_tpu_torch.physics import oracle
+    from fyrox_tpu_torch.ui import absm_editor, anim_editor
+    worst, live = chip_smoke.oracle_deviation(
+        "stack", cuda, False, oracle.oracle_step, oracle.state_from_device)
+    assert live > 0 and max(worst.values()) < chip_smoke.ORACLE_TOL
+    ed = chip_smoke.absm_session(absm_editor)
+    rows = chip_smoke.absm_rows()
+    assert ed.preview(rows) == ed.preview(rows, device="cpu")
+    an = chip_smoke.anim_session(anim_editor)
+    got, want = an.scrub(0.8), an.scrub(0.8, device="cpu")
+    for kind in want:
+        assert got[kind][2].is_cuda
+        assert torch.equal(got[kind][2].cpu(), want[kind][2])

@@ -1,7 +1,10 @@
 """Port parity: the public names of ported modules that PR-by-PR slices
 left out (``core.aabb``, ``core.frustum``, ``core.quat``,
 ``core.transform``, ``scene.camera``, ``scene.graph.world_bounding_boxes``,
-``io.fbx.load_fbx_scene``) against the JAX package's on the CPU.
+``io.fbx.load_fbx_scene``) against the JAX package's on the CPU, and a
+check that every name the JAX package exports (each subpackage's and each
+module's ``__all__``) exists in the port, but for the Pallas modules,
+``platform.py`` and the TPU-layout helpers that are not ported.
 
 Inputs are numpy arrays from seeds, handed to both packages. Bars: exact
 where a function only selects, compares or moves values (boxes, corners,
@@ -10,6 +13,9 @@ slerp and face_towards) where it sums products, whose association and
 FMA contraction differ between XLA and PyTorch. Boolean tests are held
 on inputs kept away from their boundaries.
 """
+import importlib
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -236,3 +242,44 @@ def test_load_fbx_scene_matches_jax(tmp_path):
             np.testing.assert_array_equal(np.asarray(getattr(got, f)),
                                           np.asarray(getattr(want, f)),
                                           err_msg=f)
+
+
+JAX_ROOT = pathlib.Path(jaabb.__file__).parents[1]
+# not ported (ROADMAP.md, "Do not port"): the Pallas kernels' modules, the
+# TPU platform tooling, planes.py's TPU-layout helpers and slab2.supports
+NOT_PORTED = {
+    "fyrox_tpu.physics.planes": {"v3", "mul3", "qrotate_inv", "rot9_mul",
+                                 "stack_last", "unstack_last"},
+    "fyrox_tpu.physics.slab2": {"supports"}}
+
+
+def _jax_modules(packages):
+    """fyrox_tpu's packages (or its plain modules) by dotted name, without
+    the Pallas modules and platform.py."""
+    out = []
+    for path in sorted(JAX_ROOT.rglob("*.py")):
+        rel = path.relative_to(JAX_ROOT.parent).with_suffix("")
+        if path.name.startswith("pallas_") or path.name == "platform.py":
+            continue
+        if (path.name == "__init__.py") == packages:
+            out.append(".".join(rel.parts[:-1] if packages else rel.parts))
+    return out
+
+
+@pytest.mark.parametrize("packages", [True, False],
+                         ids=["subpackages", "modules"])
+def test_every_exported_jax_name_exists_in_the_port(packages):
+    missing = {}
+    for name in _jax_modules(packages):
+        names = getattr(importlib.import_module(name), "__all__", None)
+        if not names:
+            continue
+        port = importlib.import_module(name.replace("fyrox_tpu",
+                                                    "fyrox_tpu_torch", 1))
+        lost = [n for n in names if not hasattr(port, n)
+                and n not in NOT_PORTED.get(name, ())
+                and not n.startswith("pallas_") and n != "platform"]
+        if lost:
+            missing[name] = lost
+    assert missing == {}
+    assert len(_jax_modules(packages)) > (10 if packages else 100)
