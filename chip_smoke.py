@@ -6,8 +6,12 @@ Phases, each printing one line; any failure exits non-zero before the
 last line:
   device   — needs a CUDA card; prints its name and power limit, TF32 off;
   build    — builds the port's CUDA kernels from csrc/ (one nvcc per file);
-  K4a      — plane_gather kernel vs its plain version at the flagship's
-             staged gather shapes, bit-equal;
+  K4a      — K4a on one staged flagship tick's calls as the path makes
+             them (the broadphase sort and walk in the row form,
+             gather_rows; the partner planes in the plane form,
+             plane_gather), bit-equal to their plain versions, also on
+             indices redrawn out of range; the set timed against its
+             bound, its plain version and torch.gather on the same layout;
   K1       — TGS solve kernel vs its plain version on the packed inputs of
              one flagship step after 30 settling ticks, in worlds that
              differ from one another; two launches bit-equal; the live
@@ -141,11 +145,12 @@ Then the dense broadphase path (every scene under 192 colliders):
              kernels, device events and device ms (profiler); env·steps/s
              with skinning of eager and captured rolls in turns;
   dense-K4 — K4a and K4b on one settled dense tick's calls (idx [W,
-             7,328], 65 body rows): bit-equal to their plain versions (the
-             scatter's on CPU copies, whose sums run in ascending k as the
-             kernel's do), two launches bit-equal, the tick's set timed
-             against its bound, its plain version and torch.gather /
-             scatter_add_;
+             7,328], 65 body rows; K4a's row form): bit-equal to their
+             plain versions (the scatter's on CPU copies, whose sums run
+             in ascending k as the kernel's do), two launches bit-equal,
+             the tick's set timed against its bound, its plain version and
+             torch.gather / scatter_add_; host µs a call of gather_rows,
+             plane_gather and torch.gather;
   health   — world_health and restore_unhealthy on the rolled dense state.
 Then hulls, scenery and queries (chip_smoke.terrain_pile):
   terrain-small — a 16-body pile of cylinders, hull clouds, cones, balls
@@ -675,57 +680,149 @@ def phase_build():
         f"from {kernels.CSRC}")
 
 
-def phase_plane_gather(engine):
+def k4a_fns(form):
+    """(kernel entry point, plain version) of K4a's "planes" form, or of
+    its "rows" form with a contiguous output, or with an attribute-major
+    one ("rows-planar", gather_rows(..., planar=True))."""
     from fyrox_tpu_torch.physics import plane_ops
-    t = engine.physics
-    sc = t.grid
-    cg, c = int(sc.grid_cols.size), t.num_colliders
-    rng = np.random.default_rng(0)
-    # (attributes, rows, gathered columns): the narrowphase partner gather
-    # per present class, the broadphase sort and the broadphase walk
-    shapes = [(19, c, cg * sc.nslot(k)) for k in range(3) if sc.nslot(k)]
-    shapes += [(10, cg, cg), (10, cg, cg * sc.s_walk)]
-    worst = 0.0
-    t_k = t_p = t_lib = dev_k = dev_lib = 0.0
-    moved = 0
-    for a, n, k in shapes:
-        planes = torch.as_tensor(rng.standard_normal((WORLDS, a, n)).astype(
-            np.float32), device="cuda")
-        idx = torch.as_tensor(rng.integers(-n // 8, n + n // 8, (WORLDS, k)
-                                           ).astype(np.int32), device="cuda")
-        got = plane_ops.plane_gather(planes, idx)
-        ref = plane_ops.plane_gather_plain(planes, idx)
+    if form == "planes":
+        return plane_ops.plane_gather, plane_ops.plane_gather_plain
+    if form == "rows-planar":
+        return (lambda x, i: plane_ops.gather_rows(x, i, planar=True),
+                lambda x, i: plane_ops.gather_rows_plain(x, i, True))
+    return plane_ops.gather_rows, plane_ops.gather_rows_plain
+
+
+def k4a_library(form, table, idx):
+    """torch.gather of K4a's function on the same layout: (table, dim,
+    index) for torch.gather, the table broadcast over the worlds (stride 0,
+    no copy) and, where an index is out of range, padded with a zero row
+    (rows) or column (planes) that such indices are sent to (set-up, not
+    timed)."""
+    w, k = idx.shape
+    dim = 2 if form == "planes" else 1
+    n = table.shape[dim]
+    ok = (idx >= 0) & (idx < n)
+    if not bool(ok.all()):
+        pad = list(table.shape)
+        pad[dim] = 1
+        table = torch.cat([table, table.new_zeros(pad)], dim)
+        idx = torch.where(ok, idx, torch.full_like(idx, n))
+    table = table.expand(w, -1, -1)
+    li = idx.long()
+    li = (li[:, None, :].expand(w, table.shape[1], k) if form == "planes"
+          else li[..., None].expand(w, k, table.shape[2]))
+    return table, dim, li
+
+
+def host_us(fn, calls=1000, group=250):
+    """Host microseconds a call of fn: a host clock around groups of
+    `group` unsynchronised calls (few enough that the card's queue of
+    pending launches never blocks the host), synchronised between
+    groups, `calls` in all."""
+    fn()
+    total = 0.0
+    for _ in range(calls // group):
         torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            fail(f"plane_gather differs from its plain version at "
-                 f"[{WORLDS},{a},{n}] x [{WORLDS},{k}]")
-        worst = max(worst, (got - ref).abs().max().item())
-        t_k += cuda_ms(lambda: plane_ops.plane_gather(planes, idx), 20)
-        dev_k += device_ms(lambda: plane_ops.plane_gather(planes, idx), 20)
-        t_p += cuda_ms(lambda: plane_ops.plane_gather_plain(planes, idx), 20)
-        # the library yardstick: one torch.gather over a copy padded with a
-        # zero column, out-of-range indices sent to it (set-up not timed)
-        padded = torch.cat([planes, planes.new_zeros((WORLDS, a, 1))], 2)
-        ok = (idx >= 0) & (idx < n)
-        lib_idx = torch.where(ok, idx, n).long()[:, None, :].expand(
-            WORLDS, a, k)
-        if not torch.equal(torch.gather(padded, 2, lib_idx), ref):
-            fail("the torch.gather yardstick of plane_gather disagrees")
-        t_lib += cuda_ms(lambda: torch.gather(padded, 2, lib_idx), 20)
-        dev_lib += device_ms(lambda: torch.gather(padded, 2, lib_idx), 20)
-        moved += nbytes(planes, idx, got)
-    b_ms, b_by = bound_ms(moved, 0)
-    log(f"[K4a] plane_gather bit-equal to plain on {len(shapes)} flagship "
-        f"shapes (W={WORLDS}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"torch.gather {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) per "
-        f"tick's set of staged gathers; device time: kernel {dev_k:.4f} ms, "
-        f"torch.gather {dev_lib:.4f} ms")
-    return dict(name="plane_gather", route="cuda",
-                source="fyrox_tpu_torch/csrc/plane_gather.cu",
-                replaces="fyrox_tpu/physics/pallas_ops.py:171",
-                max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=t_lib, device_ms=dev_k,
-                library_device_ms=dev_lib)
+        t0 = time.perf_counter()
+        for _ in range(group):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e6 / (calls // group * group)
+
+
+def hold_k4a(name, calls, tag, launches=None):
+    """K4a on a set of calls (form, table, idx) as the main path makes them:
+    each bit-equal to its plain version and to torch.gather on the same
+    layout, two launches bit-equal, the row form's output a contiguous
+    [W, K, D]; the set timed by CUDA events and by device time against
+    its bound (each table, index and output moved once), its plain version
+    and torch.gather on the same layout (k4a_library). Returns the kernel
+    record."""
+    lib = []
+    for form, table, idx in calls:
+        kern, plain = k4a_fns(form)
+        got, again = kern(table, idx), kern(table, idx)
+        if not (torch.equal(got, again) and torch.equal(got, plain(table,
+                                                                   idx))):
+            fail(f"{name}: the {form} form differs from its plain version "
+                 f"or from itself at {tuple(table.shape)} x "
+                 f"{tuple(idx.shape)}")
+        if form == "rows" and not got.is_contiguous() or (
+                form == "rows-planar"
+                and not got.transpose(1, 2).is_contiguous()):
+            fail(f"{name}: gather_rows gave another layout than asked")
+        lib.append(k4a_library(form, table, idx))
+        if not torch.equal(torch.gather(*lib[-1]), got):
+            fail(f"{name}: the torch.gather yardstick disagrees")
+
+    def run_k4a(which):
+        fns = [k4a_fns(form)[which] for form, _, _ in calls]
+        cs = [(t, i) for _, t, i in calls]
+        return lambda: [f(*c) for f, c in zip(fns, cs)]
+
+    def run_lib():
+        return [torch.gather(*a) for a in lib]
+
+    # device_ms queues its calls behind one spin: keep them within the
+    # card's queue of pending launches (~600 at most)
+    reps = max(1, min(20, 600 // len(calls)))
+    ms_k, ms_p = cuda_ms(run_k4a(0), 20), cuda_ms(run_k4a(1), 10)
+    ms_lib = cuda_ms(run_lib, 20)
+    dev_k, dev_lib = device_ms(run_k4a(0), reps), device_ms(run_lib, reps)
+    outs = run_k4a(0)()
+    b_ms, b_by = bound_ms(sum(nbytes(t, i, o) for (_, t, i), o
+                              in zip(calls, outs)), 0)
+    shapes = sorted({(f, tuple(t.shape), tuple(i.shape), str(i.dtype)[6:])
+                     for f, t, i in calls})
+    log(f"[{tag}] {name}: {len(calls)} calls ({shapes}) bit-equal to plain "
+        f"and to torch.gather, two launches bit-equal; CUDA events over the "
+        f"set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, torch.gather "
+        f"{ms_lib:.4f} ms; device time: kernel {dev_k:.4f} ms, torch.gather "
+        f"{dev_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}) on {CARD}")
+    rec = dict(name=name, route="cuda",
+               source="fyrox_tpu_torch/csrc/plane_gather.cu",
+               replaces="fyrox_tpu/physics/pallas_ops.py:171",
+               max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+               bound_by=b_by, library_ms=ms_lib, device_ms=dev_k,
+               library_device_ms=dev_lib)
+    if launches is not None:
+        rec["launches"] = launches
+    return rec
+
+
+def phase_plane_gather(engine):
+    """K4a on one staged tick's calls of the flagship (W distinct worlds
+    from the initial state, fused=False), as the path makes them: the
+    broadphase sort and walk in the row form, one narrowphase partner
+    gather a window class in the plane form. Each also with its indices
+    redrawn over [-N/8, N + N/8), bit-equal to its plain version (zero
+    out of range); the tick's set timed by hold_k4a."""
+    t = engine.physics
+    state = distinct_worlds(engine, WORLDS, "cuda", seed=2)
+    torch.cuda.synchronize()
+    with GatherSpy(keep=True) as spy:
+        engine.step(state, fused=False)
+        torch.cuda.synchronize()
+    calls = spy.calls["worlds"]
+    forms = [f[:4] for f, _, _ in calls]
+    if (forms.count("rows"), forms.count("plan")) != (
+            2, staged_gathers(t) - 2) or spy.count["heights"] + spy.count[
+                "hulls"]:
+        fail(f"K4a: a staged tick's calls {spy.count}, forms {forms}")
+    rng = np.random.default_rng(0)
+    for form, table, idx in calls:
+        kern, plain = k4a_fns(form)
+        n = table.shape[2 if form == "planes" else 1]
+        ridx = torch.as_tensor(rng.integers(-n // 8, n + n // 8, tuple(
+            idx.shape)), device="cuda").to(idx.dtype)
+        got = kern(table, ridx)
+        if not torch.equal(got, plain(table, ridx)):
+            fail(f"K4a: the {form} form differs from its plain version on "
+                 f"indices out of range at {tuple(table.shape)} x "
+                 f"{tuple(idx.shape)}")
+    return hold_k4a("plane_gather", calls, "K4a")
 
 
 def settled_inputs(engine):
@@ -1262,7 +1359,7 @@ def phase_rank(engine, inputs):
         fail(f"rank: {valid} valid candidates, or windows repeat across worlds")
     log(f"[rank] settled flagship (W={WORLDS} distinct worlds): the count-rank"
         f" windows (rank_rows → plane_scatter) equal the sort windows "
-        f"(argsort → plane_gather) as integers, pids and demand included "
+        f"(argsort → gather_rows) as integers, pids and demand included "
         f"({valid} valid candidates)")
 
 
@@ -2103,11 +2200,14 @@ def phase_profile(engine, settled):
 # Engine.rollout replays one captured CUDA graph of a period-1 tick. The
 # wrappers' launch counters count the capture, not the replays, so these
 # phases count a replayed roll's kernels by name from the profiler.
-KERNEL_NAMES = dict(fused_bp="fused_bp_kernel",
-                    narrow_compact="narrow_compact_kernel",
-                    solve_tgs="tgs_solve_kernel",
-                    plane_gather="plane_gather_kernel",
-                    plane_scatter="plane_scatter_kernel")
+# (a kernel's counter: the names its device events may carry; K4a's two
+# forms count as one)
+KERNEL_NAMES = dict(fused_bp=("fused_bp_kernel",),
+                    narrow_compact=("narrow_compact_kernel",),
+                    solve_tgs=("tgs_solve_kernel",),
+                    plane_gather=("plane_gather_kernel",
+                                  "gather_rows_kernel"),
+                    plane_scatter=("plane_scatter_kernel",))
 
 
 def same_state(label, got, want):
@@ -2186,7 +2286,7 @@ def profiled(fn, ticks, label="replayed roll"):
 
 def kernel_counts(events):
     """Launches of the kernels of KERNEL_NAMES among profiler events."""
-    return {k: sum(1 for e in events if v in e.name)
+    return {k: sum(1 for e in events if any(n in e.name for n in v))
             for k, v in KERNEL_NAMES.items()}
 
 
@@ -2862,24 +2962,26 @@ def phase_dense_small():
 
 def capture_dense_calls(engine, state):
     """The K4a and K4b calls of one eager dense tick from `state`, as the
-    main path makes them: ([(planes, idx)], [(vals, idx, n)])."""
+    main path makes them: K4a's row form (gather_rows) as hold_k4a takes
+    them and K4b, ([(form, x, idx)], [(vals, idx, n)])."""
     from fyrox_tpu_torch.physics import plane_ops
     gathers, scatters = [], []
-    pg, ps = plane_ops.plane_gather, plane_ops.plane_scatter
+    pg, ps = plane_ops.gather_rows, plane_ops.plane_scatter
 
-    def spy_gather(planes, idx):
-        gathers.append((planes, idx))
-        return pg(planes, idx)
+    def spy_gather(x, idx, plain=False, planar=False):
+        if not plain:
+            gathers.append(("rows-planar" if planar else "rows", x, idx))
+        return pg(x, idx, plain=plain, planar=planar)
 
     def spy_scatter(vals, idx, n):
         scatters.append((vals, idx, n))
         return ps(vals, idx, n)
 
-    plane_ops.plane_gather, plane_ops.plane_scatter = spy_gather, spy_scatter
+    plane_ops.gather_rows, plane_ops.plane_scatter = spy_gather, spy_scatter
     try:
         engine.step(state)
     finally:
-        plane_ops.plane_gather, plane_ops.plane_scatter = pg, ps
+        plane_ops.gather_rows, plane_ops.plane_scatter = pg, ps
     torch.cuda.synchronize()
     return gathers, scatters
 
@@ -2898,11 +3000,10 @@ def phase_dense_k4(engine, calls, tag="dense"):
     if (len(gathers), len(scatters)) != (ng, ns):
         fail(f"{tag} K4: {len(gathers)} gathers and {len(scatters)} "
              f"scatters in a tick, want {ng} and {ns}")
-    for planes, idx in gathers:
-        if (planes.shape[0], planes.shape[2], tuple(idx.shape)) != (
+    for _, x, idx in gathers:
+        if (x.shape[0], x.shape[1], tuple(idx.shape)) != (
                 WORLDS, b, (WORLDS, k2)):
-            fail(f"{tag} K4a: shapes {tuple(planes.shape)} x "
-                 f"{tuple(idx.shape)}")
+            fail(f"{tag} K4a: shapes {tuple(x.shape)} x {tuple(idx.shape)}")
     for vals, idx, n in scatters:
         if (vals.shape[0], vals.shape[2], n, tuple(idx.shape)) != (
                 WORLDS, k2, b, (WORLDS, k2)):
@@ -2912,24 +3013,30 @@ def phase_dense_k4(engine, calls, tag="dense"):
 
 
 def hold_k4(tag, gathers, scatters, shapes):
-    """K4a and K4b on one tick's calls: each bit-equal to its plain version
-    (the gather's on the card; the scatter's on CPU copies, which sums in
-    ascending k as the kernel does, and the card's ascending-k float32
-    sums), two launches bit-equal; the tick's set of calls timed against
-    its bound, its plain version and one PyTorch call a launch
-    (torch.gather, scatter_add_). `shapes` describes the calls for the
-    log. Returns the two kernel records (plane_gather_<tag>,
+    """K4a and K4b on one tick's calls: K4a's row form (gather_rows) by
+    hold_k4a, and the host microseconds a call of gather_rows, of the
+    plane form on the same table's attribute-major copy and of
+    torch.gather on the widest call (host_us); K4b bit-equal to its plain
+    version on CPU copies (which sums in ascending k as the kernel does)
+    and to the card's ascending-k float32 sums, two launches bit-equal,
+    the tick's set timed against its bound, its plain version and one
+    scatter_add_ a launch. `shapes` describes the calls for the log.
+    Returns the two kernel records (plane_gather_<tag>,
     plane_scatter_<tag>)."""
     from fyrox_tpu_torch.physics import plane_ops
     if not all_differ(scatters[-1][0]):
         fail(f"{tag} K4b: the captured worlds repeat")
-    # K4a: a gather moves values, bit-equal to torch.gather's
-    for planes, idx in gathers:
-        got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
-        if not (torch.equal(got, again) and torch.equal(
-                got, plane_ops.plane_gather_plain(planes, idx))):
-            fail(f"{tag} K4a: kernel differs from its plain version or "
-                 "from itself")
+    rec_g = hold_k4a(f"plane_gather_{tag}", gathers, f"{tag}-K4")
+    form, x, idx = max(gathers, key=lambda c: c[1].shape[2])
+    planes = x.transpose(1, 2).contiguous()
+    lib = k4a_library("rows", x, idx)
+    rec_g["host_us"] = dict(
+        gather_rows=host_us(lambda: k4a_fns(form)[0](x, idx)),
+        plane_gather=host_us(lambda: plane_ops.plane_gather(planes, idx)),
+        torch_gather=host_us(lambda: torch.gather(*lib)))
+    log(f"[{tag}-K4] host µs a call at {tuple(x.shape)} x "
+        f"{tuple(idx.shape)} (1,000 unsynchronised calls in groups of 250): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rec_g["host_us"].items()))
     # K4b: sums of ~50-400 values a body in ascending k
     worst_rel = 0.0
     for vals, idx, n in scatters:
@@ -2954,62 +3061,46 @@ def hold_k4(tag, gathers, scatters, shapes):
     def run(fn, cs):
         return lambda: [fn(*c) for c in cs]
 
-    lib_g = [(planes, idx.long()[:, None, :].expand(
-        planes.shape[0], planes.shape[1], idx.shape[1]))
-        for planes, idx in gathers]
     # an index K4b drops (below 0: a row past its body's window) goes to
     # a spare column of the library call's output
     lib_s = [(vals, torch.where(idx < 0, n, idx).long()[:, None, :].expand(
         vals.shape), n + int(bool((idx < 0).any())))
              for vals, idx, n in scatters]
-    for (planes, li), (planes2, idx) in zip(lib_g, gathers):
-        if not torch.equal(torch.gather(planes, 2, li),
-                           plane_ops.plane_gather(planes2, idx)):
-            fail(f"{tag} K4a: the torch.gather yardstick disagrees")
 
     def lib_scatter(vals, li, n):
         return torch.zeros((vals.shape[0], vals.shape[1], n),
                            device="cuda").scatter_add_(2, li, vals)
 
-    recs = []
-    for name, kern, plain, lib, lib_fn, cs, ops in (
-            (f"plane_gather_{tag}", plane_ops.plane_gather,
-             plane_ops.plane_gather_plain, lib_g,
-             lambda p, li: torch.gather(p, 2, li), gathers, 0),
-            (f"plane_scatter_{tag}", plane_ops.plane_scatter,
-             plane_ops.plane_scatter_plain, lib_s, lib_scatter, scatters,
-             sum(v.numel() for v, _, _ in scatters))):
-        ms_k, ms_p = cuda_ms(run(kern, cs), 20), cuda_ms(run(plain, cs), 10)
-        ms_lib = cuda_ms(run(lib_fn, lib), 20)
-        # at most ~600 launches queued behind the spin: a fuller launch
-        # queue blocks the host until the spin ends
-        reps = min(20, max(1, 600 // (2 * len(cs))))
-        dev_k, dev_lib = device_ms(run(kern, cs), reps), device_ms(
-            run(lib_fn, lib), reps)
-        outs = [kern(*c) for c in cs]
-        moved = sum(nbytes(c[0], c[1], o) for c, o in zip(cs, outs))
-        b_ms, b_by = bound_ms(moved, ops)
-        src = "gather" if "gather" in name else "scatter"
-        recs.append(dict(name=name, route="cuda",
-                         source=f"fyrox_tpu_torch/csrc/plane_{src}.cu",
-                         replaces=("fyrox_tpu/physics/pallas_ops.py:171"
-                                   if src == "gather" else
-                                   "fyrox_tpu/physics/pallas_ops.py:219"),
-                         max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
-                         device_ms=dev_k, library_device_ms=dev_lib))
-        log(f"[{tag}-K4] {name}: a {tag} tick's {len(cs)} calls "
-            f"(W={WORLDS} distinct worlds, {shapes}, attribute rows "
-            f"{sorted({c[0].shape[1] for c in cs})}) "
-            f"bit-equal to plain, two launches bit-equal; CUDA events over "
-            f"the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-            f"{'torch.gather' if src == 'gather' else 'scatter_add_'} "
-            f"{ms_lib:.4f} ms; device time: kernel {dev_k:.4f} ms, library "
-            f"{dev_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}) on {CARD}")
+    name = f"plane_scatter_{tag}"
+    kern, plain = plane_ops.plane_scatter, plane_ops.plane_scatter_plain
+    ms_k, ms_p = cuda_ms(run(kern, scatters), 20), cuda_ms(run(plain,
+                                                               scatters), 10)
+    ms_lib = cuda_ms(run(lib_scatter, lib_s), 20)
+    # at most ~600 launches queued behind the spin: a fuller launch
+    # queue blocks the host until the spin ends
+    reps = min(20, max(1, 600 // (2 * len(scatters))))
+    dev_k, dev_lib = device_ms(run(kern, scatters), reps), device_ms(
+        run(lib_scatter, lib_s), reps)
+    outs = [kern(*c) for c in scatters]
+    moved = sum(nbytes(c[0], c[1], o) for c, o in zip(scatters, outs))
+    b_ms, b_by = bound_ms(moved, sum(v.numel() for v, _, _ in scatters))
+    rec_s = dict(name=name, route="cuda",
+                 source="fyrox_tpu_torch/csrc/plane_scatter.cu",
+                 replaces="fyrox_tpu/physics/pallas_ops.py:219",
+                 max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
+                 device_ms=dev_k, library_device_ms=dev_lib)
+    log(f"[{tag}-K4] {name}: a {tag} tick's {len(scatters)} calls "
+        f"(W={WORLDS} distinct worlds, {shapes}, attribute rows "
+        f"{sorted({c[0].shape[1] for c in scatters})}) "
+        f"bit-equal to plain, two launches bit-equal; CUDA events over "
+        f"the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, scatter_add_ "
+        f"{ms_lib:.4f} ms; device time: kernel {dev_k:.4f} ms, library "
+        f"{dev_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}) on {CARD}")
     log(f"[{tag}-K4] plane_scatter vs the card's plain version (atomics): "
         f"{worst_rel:.3g} of twice the float32 summation bound; bit-equal "
         f"to the ascending-k float32 sums on the widest call")
-    return recs
+    return [rec_g, rec_s]
 
 
 def dense_stages(engine, state, reps=3):
@@ -3036,6 +3127,13 @@ def dense_stages(engine, state, reps=3):
                                                out["contacts"]))
     out["rest"] = tuple(a - b for a, b in zip(out["tick"], out["physics"]))
     return out
+
+
+# a replayed tick of the dense and grid flagships before K4a's row form,
+# when each gather_rows was a transpose copy and a plane-form launch
+# (PERF.md section 5)
+EVENTS_BEFORE_ROWS = {"dense": "2,645.7-2,660.0 events, 8.091-8.165 ms",
+                      "grid": "3,890.7-3,898.3 events, 49.15-49.18 ms"}
 
 
 def phase_dense(engine, skin, label="dense", bodies=65):
@@ -3131,8 +3229,10 @@ def phase_dense(engine, skin, label="dense", bodies=65):
         f"without skinning: eager "
         f"{', '.join(f'{m:.3f}' for m in tick_ms['eager'])}, rollout "
         f"{', '.join(f'{m:.3f}' for m in tick_ms['rollout'])}; replayed "
-        f"tick: {events:.1f} device events, {dev_ms:.3f} ms of device time,"
-        f" busy share {busy:.3f}; {live} contact slots holding an impulse; "
+        f"tick: {events:.1f} device events, {dev_ms:.3f} ms of device time"
+        + (f" (before K4a's row form: {EVENTS_BEFORE_ROWS[label]})"
+           if label in EVENTS_BEFORE_ROWS else "") +
+        f", busy share {busy:.3f}; {live} contact slots holding an impulse; "
         f"capture "
         f"{tick.capture_seconds:.3f} s, graph pool "
         f"{tick.pool_bytes / 2**20:.1f} MiB on {CARD}")
@@ -3327,10 +3427,12 @@ def phase_terrain_small():
 
 
 class GatherSpy:
-    """Counts (and with `keep`, keeps) the K4a calls of the main path by
-    kind while installed: "heights" (a heightfield's shared [1,4,Rz·Rx]
-    corner table), "hulls" (the shared [1,256,C] hull rows), "worlds"
-    (per-world planes)."""
+    """Counts (and with `keep`, keeps as (form, table, idx)) the K4a calls
+    of the main path by kind while installed, both forms: "heights" (a
+    heightfield's shared [1,4,Rz·Rx] corner planes), "hulls" (the shared
+    [1,C,4·nv+4·nf] hull rows), "worlds" (per-world planes or rows). A
+    gather_rows call that asks for the plain version launches nothing and
+    is not counted."""
 
     def __init__(self, keep=False):
         from fyrox_tpu_torch.physics import plane_ops
@@ -3339,78 +3441,44 @@ class GatherSpy:
         self.calls = dict(heights=[], hulls=[], worlds=[])
 
     @staticmethod
-    def kind(planes):
-        if planes.shape[0] != 1:
+    def kind(form, table):
+        if table.shape[0] != 1:
             return "worlds"
-        return "heights" if planes.shape[1] == 4 else "hulls"
+        return "heights" if form == "planes" else "hulls"
+
+    def _note(self, form, table, idx):
+        k = self.kind(form, table)
+        self.count[k] += 1
+        if self.keep:
+            self.calls[k].append((form, table, idx))
 
     def __enter__(self):
-        self.orig = self.ops.plane_gather
+        self.orig = self.ops.plane_gather, self.ops.gather_rows
+        planes, rows = self.orig
 
-        def spy(planes, idx):
-            k = self.kind(planes)
-            self.count[k] += 1
-            if self.keep:
-                self.calls[k].append((planes, idx))
-            return self.orig(planes, idx)
+        def spy_planes(table, idx):
+            self._note("planes", table, idx)
+            return planes(table, idx)
 
-        self.ops.plane_gather = spy
+        def spy_rows(table, idx, plain=False, planar=False):
+            if not plain:
+                self._note("rows-planar" if planar else "rows", table, idx)
+            return rows(table, idx, plain=plain, planar=planar)
+
+        self.ops.plane_gather, self.ops.gather_rows = spy_planes, spy_rows
         return self
 
     def __exit__(self, *exc):
-        self.ops.plane_gather = self.orig
+        self.ops.plane_gather, self.ops.gather_rows = self.orig
 
 
 def shared_gather_record(name, calls, launches):
     """K4a on a tick's calls of one shared-table kind (W distinct worlds):
-    bit-equal to its plain version, two launches bit-equal; the set timed
-    against its bound (the table read once, the indices, the output),
-    its plain version and torch.gather on the table broadcast over the
-    worlds (stride 0, no copy)."""
-    from fyrox_tpu_torch.physics import plane_ops
-    for planes, idx in calls:
-        got, again = (plane_ops.plane_gather(planes, idx) for _ in range(2))
-        if not (torch.equal(got, again) and torch.equal(
-                got, plane_ops.plane_gather_plain(planes, idx))):
-            fail(f"{name}: kernel differs from its plain version or from "
-                 f"itself")
-    if not all_differ(calls[-1][1]):
+    hold_k4a's checks and timings (the table read once; torch.gather on
+    the table broadcast over the worlds, stride 0, no copy)."""
+    if not all_differ(calls[-1][2]):
         fail(f"{name}: the worlds' indices repeat")
-    lib = [(p.expand(i.shape[0], -1, -1), i.long()[:, None, :].expand(
-        i.shape[0], p.shape[1], i.shape[1])) for p, i in calls]
-    for (p, li), c in zip(lib, calls):
-        if not torch.equal(torch.gather(p, 2, li),
-                           plane_ops.plane_gather(*c)):
-            fail(f"{name}: the torch.gather yardstick disagrees")
-
-    def run(fn, cs):
-        return lambda: [fn(*c) for c in cs]
-
-    # device_ms queues its calls behind one spin: keep them within the
-    # card's queue of pending launches (~600, as hold_k4 does)
-    reps = max(1, min(20, 600 // len(calls)))
-    ms_k = cuda_ms(run(plane_ops.plane_gather, calls), 20)
-    ms_p = cuda_ms(run(plane_ops.plane_gather_plain, calls), 10)
-    ms_lib = cuda_ms(run(lambda p, li: torch.gather(p, 2, li), lib), 20)
-    dev_k = device_ms(run(plane_ops.plane_gather, calls), reps)
-    dev_lib = device_ms(run(lambda p, li: torch.gather(p, 2, li), lib),
-                        reps)
-    outs = [plane_ops.plane_gather(*c) for c in calls]
-    b_ms, b_by = bound_ms(sum(nbytes(p, i, o) for (p, i), o
-                              in zip(calls, outs)), 0)
-    shapes = sorted({(tuple(p.shape), tuple(i.shape)) for p, i in calls})
-    log(f"[terrain-K4a] {name}: a settled terrain tick's {len(calls)} "
-        f"calls at {shapes} bit-equal to plain, two launches bit-equal; "
-        f"CUDA events over the set: kernel {ms_k:.4f} ms, plain {ms_p:.4f} "
-        f"ms, torch.gather {ms_lib:.4f} ms; device time: kernel "
-        f"{dev_k:.4f} ms, torch.gather {dev_lib:.4f} ms; bound {b_ms:.4f} "
-        f"ms ({b_by}); {launches} launches on the main path on {CARD}")
-    return dict(name=name, route="cuda",
-                source="fyrox_tpu_torch/csrc/plane_gather.cu",
-                replaces="fyrox_tpu/physics/pallas_ops.py:171",
-                launches=launches, max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
-                bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib,
-                device_ms=dev_k, library_device_ms=dev_lib)
+    return hold_k4a(name, calls, "terrain-K4a", launches)
 
 
 def sync_free_tick(label, engine, state):
@@ -5269,7 +5337,8 @@ def phase_grid(engine, skin):
         f"replayed ticks equal them bit for bit ({n_leaves} state tensors);"
         f" replayed roll's kernels {kn} over {GRID_PROFILED} ticks; "
         f"replayed tick: {events:.1f} device events, {dev_ms:.3f} ms of "
-        f"device time; env·steps/s with skinning ({TICKS} ticks): eager "
+        f"device time (before K4a's row form: {EVENTS_BEFORE_ROWS['grid']});"
+        f" env·steps/s with skinning ({TICKS} ticks): eager "
         f"{rates['eager']:.1f}, rollout {rates['rollout']:.1f}; {live} "
         f"live pairs; peak memory of an eager tick above the state "
         f"{peak:.2f} GiB; capture {tick.capture_seconds:.3f} s, graph pool "
@@ -5290,11 +5359,10 @@ def phase_grid_k4(engine, state):
         fail(f"grid K4: {len(gathers)} gathers and {len(scatters)} scatters "
              f"in a tick, want {ng} and {ns}")
     caps = {c for c in t.grid.caps if c > 0}
-    for planes, idx in gathers:
-        if not (planes.shape[0] == WORLDS and planes.shape[2] == b
+    for _, x, idx in gathers:
+        if not (x.shape[0] == WORLDS and x.shape[1] == b
                 and idx.shape[0] == WORLDS and idx.shape[1] // 2 in caps):
-            fail(f"grid K4a: shapes {tuple(planes.shape)} x "
-                 f"{tuple(idx.shape)}")
+            fail(f"grid K4a: shapes {tuple(x.shape)} x {tuple(idx.shape)}")
     for vals, idx, n in scatters:
         if not (vals.shape[0] == WORLDS and n == b
                 and idx.shape[1] in caps and vals.shape[2] == idx.shape[1]):

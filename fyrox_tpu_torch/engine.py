@@ -635,8 +635,8 @@ def debug_step(engine: Engine, **step_kwargs):
     refresh, particles): any NaN, and any inf outside the lifetime
     sentinel, in the stage's floating outputs; the ABSM's state indices
     read from the state; and the index tensors given to K4a
-    (``plane_gather``) and K4b (``plane_scatter``), where -1 (K4b's
-    dropped row, K4a's zero row) is no error. ``error.get()`` reads the
+    (``plane_gather``, ``gather_rows``) and K4b (``plane_scatter``), where
+    -1 (K4b's dropped row, K4a's zero row) is no error. ``error.get()`` reads the
     flags once and names the kind ("nan", "inf" or "index"), the stage and
     the tensor; ``error.throw()`` raises ``DebugStepError``. The fused
     hand kernels (K3, K2, K1) and K5 are checked at the stage boundaries,

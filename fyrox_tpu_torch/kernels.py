@@ -40,7 +40,8 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name → argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _VP],
+    "fyrox_plane_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _I, _VP],
+    "fyrox_gather_rows": [_VP, _VP, _VP, _I, _I, _I, _I, _LL, _I, _VP],
     "fyrox_plane_scatter": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "fyrox_tgs_solve": [_VP] * 21 + [_I] * 12 + [_F] * 10 + [_VP],
     "fyrox_fused_bp": [_VP] * 12 + [_I] * 12 + [_F] * 5 + [_VP],

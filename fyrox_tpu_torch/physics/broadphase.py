@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from fyrox_tpu_torch._util import const
+from fyrox_tpu_torch.physics import plane_ops
 from fyrox_tpu_torch.physics import shapes as sh
-from fyrox_tpu_torch.physics.plane_ops import (gather_rows, rank_rows,
-                                               scatter_rows)
+from fyrox_tpu_torch.physics.plane_ops import rank_rows, scatter_rows
 
 __all__ = ["CLASS_NPTS", "KIND_POINTS", "pair_class_table", "SlabConfig",
            "build_slab_config", "SlabCandidates", "class_windows",
@@ -304,7 +304,8 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
     else:
         order = torch.argsort(key, dim=1, stable=True)
         skey = torch.gather(key, 1, order)
-        sorted_a = gather_rows(attrs, order, plain=plain)
+        sorted_a = plane_ops.gather_rows(attrs, order, plain=plain,
+                                         planar=True)
 
     qz_lo = _floor_i32((gmin[..., 2] - sc.cell) / zfine)
     qz_hi = _floor_i32(gmax[..., 2] / zfine)
@@ -334,8 +335,8 @@ def class_windows(sc: SlabConfig, col_body, dyn_col, amin, amax,
     pos = torch.clamp(torch.where(in_window, pos, torch.zeros_like(pos)),
                       0, max(cg - 1, 0))
 
-    slot_a = gather_rows(sorted_a, pos.reshape(w, -1), plain=plain).reshape(
-        w, cg, s_walk, na)
+    slot_a = plane_ops.gather_rows(sorted_a, pos.reshape(w, -1), plain=plain,
+                                   planar=True).reshape(w, cg, s_walk, na)
     jr_w = slot_a[..., 0].to(torch.int32)
     kind_w = slot_a[..., 1].to(torch.int32)
     body_w = slot_a[..., 2].to(torch.int32)

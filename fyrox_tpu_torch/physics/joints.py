@@ -12,9 +12,9 @@ physics/tgs_kernel.py), once per substep for velocities and
 ``n_stabilization`` times for positions. The dense solver
 (physics/solver.py) calls the same Jacobi passes in PyTorch here
 (``solve_joints_velocity``, ``joint_position_pass``): their gathers are K4a
-``plane_gather`` launches and their scatters K4b ``plane_scatter`` launches
-over the a-side then the b-side joint bodies, so that no float atomic
-makes a tick differ from its replay.
+row-form launches (``plane_ops.gather_rows``) and their scatters K4b
+``plane_scatter`` launches over the a-side then the b-side joint bodies,
+so that no float atomic makes a tick differ from its replay.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ import torch
 
 from fyrox_tpu_torch._util import const, const_rows
 from fyrox_tpu_torch.core import quat
-from fyrox_tpu_torch.physics.plane_ops import gather_rows, scatter_rows
+from fyrox_tpu_torch.physics import plane_ops
+from fyrox_tpu_torch.physics.plane_ops import scatter_rows
 
 __all__ = ["JointKind", "JointSet", "JointBuilder", "JTAB_ROWS",
            "joint_table", "solve_joints_velocity", "joint_position_pass"]
@@ -190,8 +191,9 @@ def solve_joints_velocity(pos, rot, lv, av, inv_mass, ii_world,
     dev = lv.device
     st = _statics(joints)
     idx = const_rows(st["idx"], dev, w)
-    g = gather_rows(torch.cat([pos, rot, lv, av, inv_mass[..., None],
-                               ii_world.reshape(w, b, 9)], -1), idx)
+    g = plane_ops.gather_rows(torch.cat([pos, rot, lv, av, inv_mass[..., None],
+                                         ii_world.reshape(w, b, 9)], -1), idx,
+                              planar=True)
     ga, gb = g[:, :nj], g[:, nj:]
     qa, qb = ga[..., 3:7], gb[..., 3:7]
     ra = quat.rotate(qa, const(st["lever_a"], dev)[None])
@@ -230,7 +232,7 @@ def solve_joints_velocity(pos, rot, lv, av, inv_mass, ii_world,
     av = av + s[..., 3:]
 
     # ---- angular locks, against the creation-time reference rotation ----
-    g = gather_rows(av, idx)
+    g = plane_ops.gather_rows(av, idx, planar=True)
     rel_w = g[:, nj:] - g[:, :nj]
     q_rel = quat.mul(quat.conjugate(qa), qb)
     q_err = quat.mul(quat.conjugate(const(joints.ref_rot, dev)[None]), q_rel)
@@ -258,7 +260,8 @@ def joint_position_pass(pos, rot, inv_mass, joints: JointSet, erp=0.5):
     w, b = pos.shape[:2]
     dev = pos.device
     idx = const_rows(_statics(joints)["idx"], dev, w)
-    g = gather_rows(torch.cat([pos, rot, inv_mass[..., None]], -1), idx)
+    g = plane_ops.gather_rows(torch.cat([pos, rot, inv_mass[..., None]],
+                                        -1), idx, planar=True)
     ga, gb = g[:, :nj], g[:, nj:]
     qa, qb = ga[..., 3:7], gb[..., 3:7]
     ra = quat.rotate(qa, const(joints.anchor_a, dev)[None])

@@ -156,9 +156,9 @@ class _Ctx:
 
     def _hulls(self, t, sc):
         """Hull tables of a scene with CONVEX colliders (None elsewhere):
-        hull_rows [1, 4·nv + 4·nf, C] (verts, vmask, normals, nmask a
+        hull_rows [1, C, 4·nv + 4·nf] (verts, vmask, normals, nmask a
         collider, cut to hull_widths = (nv, nf): the JAX package's
-        hull_flat, attribute-major for K4a),
+        hull_flat, row-major for K4a's row form),
         hull_verts [C,32,3], hull_vmask [C,32]; and per class, for each
         convex combo whose kinds occur, the window columns whose self kind
         is one of the combo's (the only columns that can hold such a pair)
@@ -189,7 +189,7 @@ class _Ctx:
         nv, nf = self.hull_widths = hull_widths(hvm[cxc], hnm[cxc])
         flat = np.concatenate([hv[:, :nv].reshape(c, -1), hvm[:, :nv],
                                hn[:, :nf].reshape(c, -1), hnm[:, :nf]], -1)
-        self.hull_rows = np.ascontiguousarray(flat.T)[None]  # [1,A,C]
+        self.hull_rows = np.ascontiguousarray(flat)[None]    # [1,C,A]
         uniq = set(int(k) for k in np.unique(self.kinds))
         for cls, combos in np_mod.CLASS_COMBOS_CONVEX.items():
             ns = sc.nslot(cls)
@@ -490,17 +490,15 @@ def _convex_parts(cx: _Ctx, cls, cand, sw, eff_a, eff_b, pos_a, rot_a, p6_a,
     (fyrox_tpu/physics/slab2.py:560-622): each convex combo runs on the
     window columns whose self kind is one of its kinds (no other column
     can hold such a pair: those get no contact, as in the JAX package), in
-    slices of CHUNK_SLOTS slots, with the partner's hull rows through K4a
-    from the shared [1,A,C] table and the self side's static; a slot
+    slices of CHUNK_SLOTS slots, with the partner's hull rows through K4a's
+    row form from the shared [1,C,A] table and the self side's static; a slot
     takes the combo its kinds match. Returns a Manifold of [W, Kc]
     slots."""
     from fyrox_tpu_torch.physics import narrowphase as np_mod
-    gather = (plane_ops.plane_gather_plain if plain
-              else plane_ops.plane_gather)
     dev = cand.j_real.device
     w, kp = cand.j_real.shape
     npts = bp_mod.CLASS_NPTS[cls]
-    table = const(cx.hull_rows, dev)                       # [1,A,C]
+    table = const(cx.hull_rows, dev)                       # [1,C,A]
     out = np_mod.Manifold(
         torch.zeros((w, kp, 3), device=dev),
         torch.zeros((w, kp, npts, 3), device=dev),
@@ -517,8 +515,8 @@ def _convex_parts(cx: _Ctx, cls, cand, sw, eff_a, eff_b, pos_a, rot_a, p6_a,
         for r0 in range(0, cols.numel(), step):
             c_ = cols[r0:r0 + step]
             r = c_.numel()
-            jh = gather(table, cand.j_real[:, c_].to(torch.int32)
-                        .contiguous()).transpose(1, 2)
+            jh = plane_ops.gather_rows(table, cand.j_real[:, c_],
+                                       plain=plain)          # [W,r,A]
             ih = rows_i[:, r0:r0 + step].expand_as(jh)
             s_ = sw[:, c_, None]
             hull_a = _unpack_hull(torch.where(s_, jh, ih), *cx.hull_widths)

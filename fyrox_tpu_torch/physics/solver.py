@@ -20,7 +20,7 @@ over substeps), the joint position passes and NGS position stabilisation.
 
 Contact → body traffic. The JAX package ran its gathers and scatters as
 one-hot incidence matmuls on the TPU's matrix unit. Here every gather is
-one K4a ``plane_gather`` launch (``plane_ops.gather_rows``) over the a-side
+one K4a row-form launch (``plane_ops.gather_rows``) over the a-side
 indices followed by the b-side ones, with the attributes a pass needs
 gathered together, and every scatter one K4b ``plane_scatter`` launch
 (``plane_ops.scatter_rows``) of the a-side and b-side rows concatenated
@@ -39,7 +39,8 @@ import torch
 
 from fyrox_tpu_torch._util import const
 from fyrox_tpu_torch.core import quat
-from fyrox_tpu_torch.physics.plane_ops import gather_rows, scatter_rows
+from fyrox_tpu_torch.physics import plane_ops
+from fyrox_tpu_torch.physics.plane_ops import scatter_rows
 
 __all__ = ["SolverParams", "ContactBatch", "solve_tgs", "DirectedSeg",
            "segment_bounds", "solve_tgs_directed"]
@@ -106,7 +107,7 @@ def _make_ops(contacts: ContactBatch, n_bodies: int):
     k = idx.shape[1] // 2
 
     def gath(x):
-        g = gather_rows(x, idx)
+        g = plane_ops.gather_rows(x, idx, planar=True)
         return g[:, :k], g[:, k:]
 
     def scat(val_a, val_b):
@@ -366,7 +367,7 @@ def _seg_ops(seg: DirectedSeg, n_bodies: int):
         torch.int32)
 
     def gath(x):
-        g = gather_rows(x, idx)
+        g = plane_ops.gather_rows(x, idx, planar=True)
         return g[:, :p], g[:, p:]
 
     def scat(vals):

@@ -1,5 +1,5 @@
-"""Times the K1, K4b, K3, K2 and K5 kernels of one tree of the PyTorch port
-on one card.
+"""Times the K1, K4a, K4b, K3, K2 and K5 kernels of one tree of the PyTorch
+port on one card.
 
     python3 kernel_ab.py [--root DIR] [--kernels NAME,...] [--tail]
 
@@ -27,10 +27,25 @@ inputs that chip_smoke.py's phases give them:
   tile_raster_depth  — K5, depth-only, on that frame's cascade pass (both
                        held bit for bit to visibility_plain first; each
                        prints its slots per tile: mean, p99, max);
+  plane_gather,      — K4a on the calls one tick of each caller makes, caught
+  gather_rows          at the tree's own entry points (plane_gather and
+                       gather_rows, wherever a module holds them) and timed
+                       as the path makes them (a parent's gather_rows is its
+                       transpose copy and plane-form launch): k4a_staged
+                       (the flagship on the staged route, 10 ticks settled),
+                       k4a_dense (build_flagship(), 20 ticks), k4a_pile
+                       (the terrain pile, dense, 20 ticks), k4a_grid
+                       (chip_smoke.grid_engine(), 10 ticks), k4a_heights and
+                       k4a_hulls (the terrain flagship's shared tables, 10
+                       ticks); each also gives host µs a call (a host clock
+                       around unsynchronised calls, as chip_smoke.host_us)
+                       and torch.gather on the same inputs and layout, and
+                       k4a_dense and k4a_grid the replayed tick's device
+                       events and device ms (profiler, chip_smoke.profiled);
 each by CUDA events around a run of calls (`ms`) and around the same
 calls queued behind a spin kernel, which the card runs back to back
-without the host's issue (`device_ms`), as chip_smoke.py's kernels line. K4b's output is held to its plain version bit for bit
-first. Prints the card's name and power limit, then one JSON line.
+without the host's issue (`device_ms`), as chip_smoke.py's kernels line. K4a's and K4b's outputs are held to their plain versions bit
+for bit first. Prints the card's name and power limit, then one JSON line.
 
 To compare a parent commit with this one on the same card, unpack the
 parent with `git archive` into a git-ignored directory and run both in one
@@ -47,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 
 def cuda_ms(torch, fn, reps):
@@ -89,6 +105,191 @@ def device_ms(torch, fn, reps):
         cycles <<= 2
 
 
+def host_us(torch, fn, calls=1000, group=250):
+    """Host microseconds a call of fn: a host clock around groups of
+    `group` unsynchronised calls, synchronised between groups."""
+    fn()
+    total = 0.0
+    for _ in range(calls // group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(group):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e6 / (calls // group * group)
+
+
+def catch_k4a(step):
+    """The K4a calls step() makes, as (entry point, args): every module of
+    the tree that holds plane_ops.plane_gather or plane_ops.gather_rows
+    gets a spy for the call; a call made inside another (a parent's
+    gather_rows calls plane_gather) or asking for the plain version is not
+    caught."""
+    from fyrox_tpu_torch.physics import plane_ops
+    targets = {n: getattr(plane_ops, n) for n in ("plane_gather",
+                                                    "gather_rows")}
+    calls, depth, patched = [], [0], []
+
+    def spy_of(name, orig):
+        def spy(*a, **kw):
+            if depth[0] == 0 and not kw.get("plain"):
+                calls.append((name, a, kw))
+            depth[0] += 1
+            try:
+                return orig(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return spy
+
+    spies = {n: spy_of(n, f) for n, f in targets.items()}
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("fyrox_tpu_torch"):
+            for n, f in targets.items():
+                if getattr(mod, n, None) is f:
+                    setattr(mod, n, spies[n])
+                    patched.append((mod, n, f))
+    try:
+        step()
+    finally:
+        for mod, n, f in patched:
+            setattr(mod, n, f)
+    return [(targets[n], n, a, kw) for n, a, kw in calls]
+
+
+def gather_yardstick(torch, name, table, idx):
+    """torch.gather of the K4a call's function on the same layout: the
+    table broadcast over the worlds, a zero row or column appended where
+    an index is out of range (set-up)."""
+    w, k = idx.shape
+    dim = 2 if name == "plane_gather" else 1
+    n = table.shape[dim]
+    ok = (idx >= 0) & (idx < n)
+    if not bool(ok.all()):
+        pad = list(table.shape)
+        pad[dim] = 1
+        table = torch.cat([table, table.new_zeros(pad)], dim)
+        idx = torch.where(ok, idx, torch.full_like(idx, n))
+    table = table.expand(w, -1, -1)
+    li = idx.long()
+    li = (li[:, None, :].expand(w, table.shape[1], k) if dim == 2
+          else li[..., None].expand(w, k, table.shape[2]))
+    return table, dim, li
+
+
+def k4a_sets(cs, build_flagship, torch):
+    """(set name, engine, calls) of each K4a caller, one at a time."""
+    def settled(engine, ticks, seed, **kw):
+        state = cs.distinct_worlds(engine, cs.WORLDS, "cuda", seed=seed)
+        for _ in range(ticks):
+            state = engine.step(state, **kw)
+        torch.cuda.synchronize()
+        return state
+
+    engine, _ = build_flagship(n_bones=100, n_verts=50_000, n_bodies=1000)
+    state = settled(engine, 10, 2)
+    yield "k4a_staged", engine, state, catch_k4a(
+        lambda: engine.step(state, fused=False))
+    engine, _ = build_flagship()
+    state = settled(engine, 20, 23)
+    yield "k4a_dense", engine, state, catch_k4a(lambda: engine.step(state))
+    engine, _ = cs.terrain_engine(cs.TERRAIN_PILE, broadphase="dense")
+    state = settled(engine, 20, 23)
+    yield "k4a_pile", engine, state, catch_k4a(lambda: engine.step(state))
+    engine, _ = cs.grid_engine()
+    state = settled(engine, 10, 23)
+    yield "k4a_grid", engine, state, catch_k4a(lambda: engine.step(state))
+    engine, _ = cs.terrain_engine(cs.TERRAIN_FLAGSHIP, **cs.TERRAIN_BUILD)
+    state = settled(engine, 10, 31)
+    calls = catch_k4a(lambda: engine.step(state))
+    shared = [c for c in calls if c[2][0].shape[0] == 1]
+    yield "k4a_heights", engine, state, [
+        c for c in shared if c[1] == "plane_gather" and c[2][0].shape[1] == 4]
+    yield "k4a_hulls", engine, state, [
+        c for c in shared if not (c[1] == "plane_gather"
+                                  and c[2][0].shape[1] == 4)]
+
+
+def host_breakdown(torch, plane_ops):
+    """Host µs a call of each step of a planar gather_rows at the dense
+    solver's widest shape (x [128, 65, 20], idx [128, 7,328]): the checks,
+    the output's allocation, the ctypes call with its launch, the whole
+    call; and torch.gather with its allocation, for a tree whose
+    plane_ops resolves its C entry points once (_c_fn)."""
+    x = torch.randn((128, 65, 20), device="cuda")
+    idx = torch.randint(0, 65, (128, 7328), device="cuda", dtype=torch.int32)
+    out = x.new_empty((128, 20, 7328))
+    fn = plane_ops._c_fn("plane_gather")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), idx.data_ptr(), out.data_ptr(), 128, 20, 65, 7328,
+            65 * 20, 1, 0, stream)
+    li = idx.long()[..., None].expand(128, 7328, 20)
+    steps = dict(
+        checks=lambda: plane_ops._check("gather_rows", x, idx, "x", True,
+                                        plane_ops._GATHER_IDX),
+        new_empty=lambda: x.new_empty((128, 20, 7328)),
+        ctypes_launch=lambda: fn(*args),
+        gather_rows=lambda: plane_ops.gather_rows(x, idx, planar=True),
+        torch_gather=lambda: torch.gather(x, 1, li))
+    return {k: host_us(torch, f) for k, f in steps.items()}
+
+
+def time_k4a(cs, build_flagship, torch, out, reps):
+    """Each K4a caller's set of calls, bit-equal to the plain versions
+    (gather_rows_plain where the tree has it, else torch.gather) and timed
+    as it was made: ms, device_ms, host µs a call, torch.gather's ms and
+    device ms on the same inputs; the dense and grid ticks replayed under
+    the profiler."""
+    for name, engine, state, calls in k4a_sets(cs, build_flagship, torch):
+        if not calls:
+            sys.exit(f"{name}: no K4a call caught")
+        lib = [gather_yardstick(torch, n, *a) for _, n, a, _ in calls]
+        for (fn, n, a, kw), y in zip(calls, lib):
+            got = fn(*a, **kw)
+            want = torch.gather(*y)
+            if n == "gather_rows" and got.shape != want.shape:
+                sys.exit(f"{name}: gather_rows gave {tuple(got.shape)}")
+            if not (torch.equal(got, fn(*a, **kw)) and torch.equal(got, want)):
+                sys.exit(f"{name}: {n} differs from torch.gather or itself")
+
+        def run():
+            return [fn(*a, **kw) for fn, _, a, kw in calls]
+
+        def run_lib():
+            return [torch.gather(*y) for y in lib]
+
+        # at most ~600 launches behind device_ms's spin and ~500 in a group
+        # of host_us's unsynchronised calls (a parent's gather_rows makes
+        # two: the copy and the launch)
+        sub = max(1, min(reps, 300 // len(calls)))
+        group = max(1, 250 // len(calls))
+        out[name] = dict(
+            calls=len(calls),
+            forms=sorted({(n, tuple(a[0].shape), tuple(a[1].shape),
+                           str(a[1].dtype)[6:], a[0].is_contiguous(),
+                           bool(kw.get("planar"))) for _, n, a, kw in calls}),
+            ms=cuda_ms(torch, run, reps), device_ms=device_ms(torch, run, sub),
+            host_us_per_call=host_us(torch, run, 4 * group, group) / len(
+                calls),
+            torch_gather_ms=cuda_ms(torch, run_lib, reps),
+            torch_gather_device_ms=device_ms(torch, run_lib, sub),
+            torch_gather_host_us_per_call=host_us(
+                torch, run_lib, 4 * group, group) / len(calls),
+            device_ms_each=[round(device_ms(
+                torch, lambda c=c: c[0](*c[2], **c[3]), reps), 5)
+                for c in calls[:8]])
+        if name in ("k4a_dense", "k4a_grid", "k4a_hulls"):
+            ticks = 1 if name == "k4a_hulls" else 3
+            rolled = engine.rollout(state, 2)
+            torch.cuda.synchronize()
+            n_prof, events, dev = cs.profiled(
+                lambda: engine.rollout(rolled, ticks), ticks, name)
+            out[name]["replayed_tick"] = dict(kernels=n_prof, events=events,
+                                              device_ms=dev)
+        print(name, json.dumps(out[name]), flush=True)
+        del engine, state, calls, lib
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(
@@ -98,7 +299,13 @@ def main():
                     "plane_scatter,fused_bp,narrow_compact,"
                     "tile_raster_full,tile_raster_depth",
                     help="comma-separated names of the kernels to time "
-                    "(plane_scatter brings scatter_add_)")
+                    "(plane_scatter brings scatter_add_; plane_gather or "
+                    "gather_rows brings every K4a caller's set)")
+    ap.add_argument("--rows-out", choices=("path", "rows", "planar"),
+                    default="path", help="K4a: the output layout of every "
+                    "gather_rows call (a tree whose gather_rows takes "
+                    "`planar`): as the path asks, contiguous rows, or "
+                    "attribute-major")
     ap.add_argument("--tail", action="store_true",
                     help="time each K5 pass with its tiles' counts cut "
                     "(see the module's doc)")
@@ -118,16 +325,30 @@ def main():
         sys.exit(f"fyrox_tpu_torch came from {fyrox_tpu_torch.__file__}, "
                  f"not from {root}")
     fyrox_tpu_torch.disable_tf32()
+    if args.rows_out != "path":
+        path_rows = plane_ops.gather_rows
+
+        def forced_rows(x, idx, plain=False, planar=False):
+            return path_rows(x, idx, plain=plain,
+                             planar=args.rows_out == "planar")
+
+        plane_ops.gather_rows = forced_rows
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
-    out = dict(root=root, card=card)
+    out = dict(root=root, card=card,
+               rows_out=args.rows_out)
 
     def both(name, fn):
         out[name] = dict(ms=cuda_ms(torch, fn, args.reps),
                          device_ms=device_ms(torch, fn, args.reps))
 
+    if names & {"plane_gather", "gather_rows"}:
+        if hasattr(plane_ops, "_c_fn"):
+            out["k4a_host_us"] = host_breakdown(torch, plane_ops)
+            print("k4a_host_us", json.dumps(out["k4a_host_us"]), flush=True)
+        time_k4a(cs, build_flagship, torch, out, args.reps)
     k5 = {"tile_raster_full": False, "tile_raster_depth": True}
     if names & set(k5):
         from fyrox_tpu_torch.render import tile_raster

@@ -38,6 +38,9 @@
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 
 struct dim3 {
   unsigned x, y, z;

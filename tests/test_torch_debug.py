@@ -124,3 +124,23 @@ def test_physics_gather_indices_are_checked():
         plane_ops._INDEX_CHECKS = None
     err = tengine.StepError(checks.flags)
     assert err.get() == "index in stage physics: plane_scatter idx"
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_row_gather_indices_are_checked(planar):
+    """K4a's row form is checked as its plane form is: -1 is no error, an
+    index at or above the table's rows is flagged; a plain gather (the
+    slab broadphase's plain path) is not a kernel call and not checked."""
+    checks = tengine._Checks()
+    plane_ops._INDEX_CHECKS = []
+    try:
+        x = torch.zeros((1, 4, 2))
+        plane_ops.gather_rows(x, torch.tensor([[0, -1, 3]]), planar=planar)
+        plane_ops.gather_rows(x, torch.tensor([[9]]), plain=True)
+        checks.stage("sync")
+        plane_ops.gather_rows(x, torch.tensor([[0, 4]]), planar=planar)
+        checks.stage("physics")
+    finally:
+        plane_ops._INDEX_CHECKS = None
+    err = tengine.StepError(checks.flags)
+    assert err.get() == "index in stage physics: gather_rows idx"

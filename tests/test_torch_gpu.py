@@ -49,12 +49,88 @@ def test_plane_gather_kernel_is_bit_exact(cuda, w, a, n, k, tables):
 def test_plane_gather_kernel_rejects_bad_inputs(cuda):
     planes = torch.zeros((2, 3, 10), device=cuda)
     with pytest.raises(TypeError):
-        plane_ops.plane_gather(planes, torch.zeros((2, 4), dtype=torch.int64,
+        plane_ops.plane_gather(planes, torch.zeros((2, 4), dtype=torch.int16,
                                                    device=cuda))
     with pytest.raises(ValueError):
         plane_ops.plane_gather(planes.transpose(1, 2),
                                torch.zeros((2, 4), dtype=torch.int32,
                                            device=cuda))
+    with pytest.raises(TypeError):
+        plane_ops.gather_rows(planes, torch.zeros((2, 4), dtype=torch.int16,
+                                                  device=cuda))
+    with pytest.raises(ValueError):
+        plane_ops.gather_rows(planes.transpose(1, 2),
+                              torch.zeros((2, 4), dtype=torch.int32,
+                                          device=cuda))
+
+
+# K4a's row form at its callers' shapes (W = 128): (tables, B, D, K, index
+# type): the dense solver (65 bodies, K = 2 x 3,664 contact slots) and its
+# joint gathers, the grid solver (1,001 bodies, 2 x 8,000 pairs), the
+# broadphase sort (a permutation of 1,001 grid colliders, int64) and walk
+# (48 slots each, int64), and the hull rows (one [1, 1,001, 128] table,
+# 512 columns a call)
+ROW_CALLERS = {
+    "dense-prep": (128, 65, 20, 7328, np.int32),
+    "dense-pass": (128, 65, 6, 7328, np.int32),
+    "joints": (128, 65, 23, 152, np.int32),
+    "joints-av": (128, 65, 3, 152, np.int32),
+    "grid-prep": (128, 1001, 14, 16000, np.int32),
+    "grid-pass": (128, 1001, 6, 16000, np.int32),
+    "bp-sort": (128, 1001, 10, 1001, np.int64),
+    "bp-walk": (128, 1001, 16, 48048, np.int64),
+    "hulls": (1, 1001, 128, 512, np.int32),
+}
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("caller", list(ROW_CALLERS))
+def test_gather_rows_kernel_is_bit_exact(cuda, caller, planar):
+    """The row form at each caller's shapes, with a contiguous or an
+    attribute-major output: bit-equal to gather_rows_plain with indices
+    out of range among them, two launches bit-equal, one launch a call,
+    the [W, K, D] out in the layout asked."""
+    tables, b, d, k, dtype = ROW_CALLERS[caller]
+    rng = np.random.default_rng(k + d)
+    x = torch.as_tensor(rng.standard_normal((tables, b, d)).astype(
+        np.float32), device=cuda)
+    idx = torch.as_tensor(rng.integers(-b // 8, b + b // 8, (128, k)).astype(
+        dtype), device=cuda)
+    before = plane_ops.launches("plane_gather")
+    got = plane_ops.gather_rows(x, idx, planar=planar)
+    again = plane_ops.gather_rows(x, idx, planar=planar)
+    assert plane_ops.launches("plane_gather") == before + 2
+    assert got.shape == (128, k, d)
+    assert (got.transpose(1, 2) if planar else got).is_contiguous()
+    assert torch.equal(got, again)
+    assert torch.equal(got, plane_ops.gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_gather_rows_makes_one_launch_and_no_copy(cuda, planar):
+    """On the card gather_rows is one K4a launch and nothing else: no
+    transpose copy of the table, no cast of int64 indices (profiler); a
+    planar gather also reads an earlier one's attribute-major output as
+    it is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((128, 65, 20), device=cuda)
+    kernel = "plane_gather_kernel" if planar else "gather_rows_kernel"
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.randint(0, 65, (128, 7328), device=cuda, dtype=dtype)
+        first = plane_ops.gather_rows(x, idx[:, :65].contiguous(),
+                                      planar=planar)
+        torch.cuda.synchronize()
+        for table in ((x, first) if planar else (x,)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = plane_ops.gather_rows(table, idx, planar=planar)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            assert len(names) == 1 and kernel in names[0], names
+            assert (out.transpose(1, 2) if planar else out).is_contiguous()
+            assert torch.equal(out, plane_ops.gather_rows_plain(table, idx))
 
 
 @pytest.mark.parametrize("w,a,n", [(128, 16, 1000), (4, 10, 300),
@@ -545,10 +621,10 @@ def test_dense_k4_kernels_equal_plain(cuda):
     gathers, scatters = chip_smoke.capture_dense_calls(engine, state)
     assert (len(gathers), len(scatters)) == chip_smoke.dense_launches(
         engine.physics) == (13, 14)
-    for planes, idx in gathers:
-        assert idx.shape == (8, 2 * 3664)
-        assert torch.equal(plane_ops.plane_gather(planes, idx),
-                           plane_ops.plane_gather_plain(planes, idx))
+    for form, x, idx in gathers:
+        assert idx.shape == (8, 2 * 3664) and x.shape[:2] == (8, 65)
+        kern, plain = chip_smoke.k4a_fns(form)
+        assert torch.equal(kern(x, idx), plain(x, idx))
     for vals, idx, n in scatters:
         assert n == 65
         assert torch.equal(plane_ops.plane_scatter(vals, idx, n).cpu(),
@@ -928,9 +1004,9 @@ def test_grid_k4_kernels_equal_plain(cuda):
     gathers, scatters = chip_smoke.capture_dense_calls(engine, state)
     assert (len(gathers), len(scatters)) == chip_smoke.grid_launches(
         engine.physics)
-    for planes, idx in gathers:
-        assert torch.equal(plane_ops.plane_gather(planes, idx),
-                           plane_ops.plane_gather_plain(planes, idx))
+    for form, x, idx in gathers:
+        kern, plain = chip_smoke.k4a_fns(form)
+        assert torch.equal(kern(x, idx), plain(x, idx))
     assert any(bool((idx < 0).any()) for _, idx, _ in scatters)
     for vals, idx, n in scatters:
         assert n == engine.physics.num_bodies

@@ -82,6 +82,9 @@ def on_cpu(emulated, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
+    # K4a / K4b resolve their entry points once and read the raw stream
+    monkeypatch.setattr(plane_ops, "_FNS", {})
+    monkeypatch.setattr(plane_ops, "_raw_stream", lambda device: 0)
 
 
 def _pile(big_cuboid=False, n=36, seed=5, rounds=False):
@@ -396,6 +399,24 @@ def test_tgs_solve_matches_plain(on_cpu, monkeypatch, case):
         assert (lam[0, :, 0, g] == 0).all() and (ref_l[0, :, 0, g] == 0).all()
 
 
+def _gather_indices(rng, w, k, n, dtype):
+    """[W,K] indices over [-5, n+5) with -1, -5, n and n+3 among them (and
+    2^33 + 1 where they are int64: out of range, not wrapped to 1)."""
+    idx = rng.integers(-5, n + 5, (w, k))
+    if idx.size >= 5:
+        idx.flat[:5] = [-1, -5, n, n + 3, 2**33 + 1 if dtype == np.int64
+                        else 1]
+    return torch.as_tensor(idx.astype(dtype))
+
+
+def _table(rng, shape, offset):
+    """A contiguous float32 table; `offset` floats into its storage, so
+    that its rows are not 16-byte aligned."""
+    n = int(np.prod(shape))
+    flat = torch.as_tensor(rng.standard_normal(n + offset).astype(np.float32))
+    return flat[offset:].view(shape)
+
+
 @pytest.mark.parametrize("tables", [2, 1])
 def test_plane_gather_matches_plain(on_cpu, tables):
     """Per-world planes, and one table every world reads (stride 0)."""
@@ -405,6 +426,101 @@ def test_plane_gather_matches_plain(on_cpu, tables):
     idx = torch.as_tensor(rng.integers(-5, 45, (2, 300)).astype(np.int32))
     got = plane_ops._plane_gather_cuda(planes, idx)
     assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
+
+
+# plane-form cases: (tables, A, N, K, index type, storage offset). K =
+# 1,001 and 301 leave a ragged tail (no float4 store); 3,000 columns span
+# three CTAs a world.
+_K4A_CASES = {
+    "ctas": (2, 5, 40, 3000, np.int32, 0),
+    "ragged-i64": (2, 5, 40, 1001, np.int64, 0),
+    "offset": (2, 5, 41, 301, np.int32, 1),
+    "shared": (1, 4, 130, 1000, np.int32, 0),
+    "shared-ragged": (1, 4, 130, 301, np.int64, 2),
+    "empty": (2, 5, 40, 0, np.int32, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(_K4A_CASES))
+def test_plane_gather_cases_match_plain(on_cpu, case):
+    """The plane form on per-world planes and on one table every world
+    reads (stride 0), int32 and int64 indices, indices -1, -5 and >= N, a
+    ragged K, K = 0 and a table off a 16-byte boundary: bit-equal to the
+    plain version, one launch (none for K = 0)."""
+    tables, a, n, k, dtype, offset = _K4A_CASES[case]
+    rng = np.random.default_rng(k + n)
+    planes = _table(rng, (tables, a, n), offset)
+    idx = _gather_indices(rng, 2, k, n, dtype)
+    before = plane_ops.launches("plane_gather")
+    got = plane_ops._plane_gather_cuda(planes, idx)
+    assert plane_ops.launches("plane_gather") == before + (k > 0)
+    assert got.shape == (2, a, k)
+    assert torch.equal(got, plane_ops.plane_gather_plain(planes, idx))
+
+
+# row-form tables: (tables, storage offset); an offset puts the rows off a
+# 16-byte boundary (no float4 load)
+_ROW_PATHS = {"worlds": (2, 0), "worlds-offset": (2, 1), "shared": (1, 0),
+              "shared-offset": (1, 3)}
+
+
+@pytest.mark.parametrize("path", list(_ROW_PATHS))
+@pytest.mark.parametrize("d", [1, 2, 6, 10, 14, 24, 256])
+def test_gather_rows_matches_plain(on_cpu, d, path):
+    """The row form (contiguous output) on per-world tables, on one table
+    every world reads (stride 0) and on tables whose rows are not 16-byte
+    aligned: every caller's width D, a ragged K (301 rows, so that the
+    second world's output starts off a 16-byte boundary where D is odd;
+    several CTAs a world where D >= 14), int32 and int64 indices, indices
+    -1, -5 and >= N; bit-equal to gather_rows_plain, one launch."""
+    tables, offset = _ROW_PATHS[path]
+    rng = np.random.default_rng(d)
+    b, k = 40, 301
+    x = _table(rng, (tables, b, d), offset)
+    idx = _gather_indices(rng, 2, k, b, np.int64 if d % 2 else np.int32)
+    before = plane_ops.launches("plane_gather")
+    got = plane_ops._gather_rows_cuda(x, idx)
+    assert plane_ops.launches("plane_gather") == before + 1
+    assert got.shape == (2, k, d) and got.is_contiguous()
+    assert torch.equal(got, plane_ops.gather_rows_plain(x, idx))
+
+
+# (tables, the table's layout): row-major, or attribute-major (the memory
+# of an earlier planar gather's output, as the slab walk reads the sort's)
+_PLANAR_PATHS = {"rows": (2, "rows"), "shared": (1, "rows"),
+                 "from-planes": (2, "planes")}
+
+
+@pytest.mark.parametrize("path", list(_PLANAR_PATHS))
+@pytest.mark.parametrize("d", [1, 6, 23, 128])
+def test_gather_rows_planar_matches_plain(on_cpu, d, path):
+    """The row form with an attribute-major output (planar: the plane
+    form's kernel reading the table by its strides), K = 1,301 (two CTAs a
+    world, a ragged tail): bit-equal to gather_rows_plain, one launch, a
+    [W, K, D] view of contiguous [W, D, K] memory, from a row-major or an
+    attribute-major table."""
+    tables, layout = _PLANAR_PATHS[path]
+    rng = np.random.default_rng(d + 7)
+    b, k = 40, 1301
+    x = _table(rng, (tables, b, d), 0)
+    if layout == "planes":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    idx = _gather_indices(rng, 2, k, b, np.int64 if d % 2 else np.int32)
+    before = plane_ops.launches("plane_gather")
+    got = plane_ops._gather_rows_cuda(x, idx, planar=True)
+    assert plane_ops.launches("plane_gather") == before + 1
+    assert got.shape == (2, k, d) and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, plane_ops.gather_rows_plain(x, idx))
+
+
+def test_gather_rows_takes_no_rows(on_cpu):
+    """K = 0 launches nothing; an empty table reads zeros."""
+    x = torch.ones((2, 40, 6))
+    got = plane_ops._gather_rows_cuda(x, torch.zeros((2, 0), dtype=torch.int32))
+    assert got.shape == (2, 0, 6)
+    idx = torch.as_tensor(np.array([[0, -1, 3], [1, 2, 40]], np.int64))
+    got = plane_ops._gather_rows_cuda(torch.ones((2, 0, 6)), idx)
+    assert torch.equal(got, torch.zeros((2, 3, 6)))
 
 
 @pytest.mark.parametrize("case", ["permutation", "repeats", "one_bucket",

@@ -98,6 +98,29 @@ def test_gather_rows_matches_jax_with_negative_indices():
     np.testing.assert_array_equal(np.asarray(ref), got.numpy())
 
 
+@pytest.mark.parametrize("tables,d,dtype,planar", [
+    (3, 10, np.int32, False), (1, 10, np.int32, False),
+    (1, 256, np.int64, False), (3, 1, np.int64, False),
+    (3, 10, np.int64, True), (1, 23, np.int32, True)])
+def test_gather_rows_plain_matches_jax(tables, d, dtype, planar):
+    """gather_rows_plain bit for bit against the JAX package's gather_rows
+    on per-world tables and on one table every world reads ([1, B, D];
+    JAX takes it broadcast over the worlds), indices out of range on both
+    sides; the output is a contiguous [W, K, D], or with `planar` a view
+    of contiguous [W, D, K] memory."""
+    rng = np.random.default_rng(d + tables)
+    w, b, k = 3, 40, 300
+    x = rng.standard_normal((tables, b, d)).astype(np.float32)
+    idx = rng.integers(-8, b + 8, (w, k)).astype(dtype)
+    ref = jops.gather_rows(jnp.broadcast_to(jnp.asarray(x), (w, b, d)),
+                           jnp.asarray(idx))
+    got = plane_ops.gather_rows_plain(torch.as_tensor(x), torch.as_tensor(idx),
+                                      planar)
+    assert got.shape == (w, k, d)
+    assert (got.transpose(1, 2) if planar else got).is_contiguous()
+    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
 # ---- narrowphase ----------------------------------------------------------
 
 COMBOS = [(cls, ka, kb) for cls, combos in tnp_planes.CLASS_COMBOS_P.items()
